@@ -1,13 +1,32 @@
 """PyTorch and CUDA port of accelerate_tpu, for an NVIDIA H100.
 
 The JAX package ``accelerate_tpu`` beside it is the reference. This
-package imports nothing of it (nor of jax): its first slice is paged
-continuous-batching serving of a Llama, whose decode attention is a
-hand-written CUDA kernel (``csrc/paged_attention.cu``). Entry points run
-on ``cuda`` unless ``device="cpu"`` is passed.
+package imports nothing of it (nor of jax). Its slices so far:
+
+* serving: paged continuous batching of a Llama (``ServingEngine``), whose
+  decode attention is a hand-written CUDA kernel (``csrc/paged_attention.cu``);
+* training on one card: ``Accelerator`` -> ``prepare_model`` /
+  ``prepare_optimizer`` -> ``build_train_step(loss_fn)``, with f32 master
+  weights, bf16/fp16 compute, gradient accumulation, clipping, fp16 loss
+  scaling and per-layer remat; at long sequences its attention is the
+  hand-written CUDA flash kernels, forward and backward
+  (``csrc/flash_attention.cu``).
+
+Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
+``Accelerator(cpu=True)``).
 """
 
-from .models import LlamaConfig, create_llama_model, llama_params_from_jax
+from .accelerator import Accelerator
+from .models import LlamaConfig, causal_lm_loss, create_llama_model, llama_params_from_jax
 from .serving import ServingEngine
+from .utils.random import set_seed
 
-__all__ = ["LlamaConfig", "ServingEngine", "create_llama_model", "llama_params_from_jax"]
+__all__ = [
+    "Accelerator",
+    "LlamaConfig",
+    "ServingEngine",
+    "causal_lm_loss",
+    "create_llama_model",
+    "llama_params_from_jax",
+    "set_seed",
+]

@@ -27,9 +27,15 @@ NVCC_FLAGS = (
 )
 # name -> {C function: (argtypes, restype)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "paged_attention": {
         "paged_decode_attention": ((*[_P] * 9, *[_I] * 10, _F, _I, _P), _I),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": ((*[_P] * 5, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_attention_dq": ((*[_P] * 7, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_attention_dkv": ((*[_P] * 8, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
     },
 }
 

@@ -4,7 +4,10 @@ Counterpart of :mod:`accelerate_tpu.modeling`. The JAX package pairs an
 ``apply_fn`` with a parameter pytree; here the parameters live in the
 module, and :class:`Model` keeps the call contract the serving engine
 relies on: ``model(ids, positions=..., decode=True, cache=...) ->
-(logits, cache)``.
+(logits, cache)``. For training it keeps the JAX call contract too:
+``model.apply_fn(params, input_ids)`` runs the module on ``params``, a
+dict of tensors by parameter name (``torch.func.functional_call``), so a
+loss is written ``loss_fn(params, batch)`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 class Model:
@@ -36,6 +40,16 @@ class Model:
 
     def __call__(self, *args, **kwargs):
         return self.module(*args, **kwargs)
+
+    @property
+    def params(self) -> dict:
+        """The module's parameters by name (the tensors themselves)."""
+        return dict(self.module.named_parameters())
+
+    def apply_fn(self, params: dict, input_ids: torch.Tensor, *args, **kwargs):
+        """The module's forward on ``params`` (a dict of tensors by name)
+        in place of its own parameters."""
+        return functional_call(self.module, params, (input_ids, *args), kwargs)
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())

@@ -7,8 +7,17 @@ weights (:mod:`.convert`) give the same logits:
 * RMSNorm normalises in f32, casts to the stream dtype, then scales;
 * rotary embedding uses the interleaved pair layout ``x[..., ::2]`` /
   ``x[..., 1::2]`` (not HF's rotate-half), computed in f32;
-* the LM head runs in f32 whatever the stream dtype (its weight is kept
-  in f32; a tied head casts the embedding table).
+* the LM head runs in f32 whatever the stream dtype: its weight (kept in
+  f32 for serving, rounded to the compute dtype by a mixed-precision train
+  step, as the JAX package's cast rounds ``lm_head/kernel``) is widened to
+  f32 and so is the stream; a tied head does the same with the embedding
+  table;
+* in training mode with ``cfg.remat`` each layer is recomputed in the
+  backward (``torch.utils.checkpoint``, the JAX module's ``nn.remat``).
+
+:func:`causal_lm_loss` and :func:`next_token_cross_entropy` are the JAX
+package's loss, called as ``loss_fn(params, batch)`` through
+``Model.apply_fn``.
 
 The knobs other families need (Qwen3/OLMo2 q/k norms, Gemma norms and
 softcaps, per-layer attention kinds, quantized projections, ...) raise
@@ -24,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..modeling import Model
 from ..ops.attention import dot_product_attention
@@ -354,17 +365,33 @@ class LlamaModel(nn.Module):
         )
         if decode and cache is None:
             cache = KVCache.empty(cfg, b, cfg.max_position_embeddings, hidden.dtype, hidden.device)
+        remat = cfg.remat and self.training and not decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, cos, sin, cache if decode else None, i)
+            if remat:
+                hidden = _remat_layer(layer, hidden, cos, sin)
+            else:
+                hidden = layer(hidden, cos, sin, cache if decode else None, i)
         hidden = self.final_norm(hidden)
-        if cfg.tie_word_embeddings:
-            logits = hidden.float() @ self.embed_tokens.weight.float().T
-        else:
-            logits = self.lm_head(hidden.float())  # f32 weight
+        head = self.embed_tokens.weight if cfg.tie_word_embeddings else self.lm_head.weight
+        logits = hidden.float() @ head.float().T
         if not decode:
             return logits
         cache.advance(s)
         return logits, cache
+
+
+def _remat_layer(layer: LlamaLayer, hidden, cos, sin):
+    """``layer(hidden, cos, sin)`` with its activations recomputed in the
+    backward. The layer's current parameter tensors are passed in as inputs
+    and bound again for the recompute: under ``Model.apply_fn`` they are
+    the compute-dtype copies, which ``functional_call`` has unbound again
+    by the time the backward runs."""
+    names, tensors = zip(*layer.named_parameters())
+
+    def run(hidden, cos, sin, *tensors):
+        return functional_call(layer, dict(zip(names, tensors)), (hidden, cos, sin))
+
+    return checkpoint(run, hidden, cos, sin, *tensors, use_reentrant=False)
 
 
 def create_llama_model(
@@ -396,3 +423,29 @@ def create_llama_model(
     module.requires_grad_(False)
     module.eval()
     return Model(module, config, name="llama")
+
+
+def causal_lm_loss(params: dict, batch: dict, apply_fn) -> torch.Tensor:
+    """Next-token cross entropy; labels are the input shifted left and
+    padding is masked by ``loss_mask``. When labels are derived from the
+    input, the last position (whose target would be made up) is masked."""
+    return next_token_cross_entropy(apply_fn(params, batch["input_ids"]), batch)
+
+
+def next_token_cross_entropy(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The cross-entropy part of :func:`causal_lm_loss`: log-softmax in f32,
+    the masked mean of the negative log-likelihood."""
+    mask = batch.get("loss_mask")
+    if "labels" in batch:
+        labels = batch["labels"]
+    else:
+        ids = batch["input_ids"]
+        labels = F.pad(ids[:, 1:], (0, 1))
+        last = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+        last[:, -1] = True
+        keep = torch.ones(labels.shape, device=labels.device) if mask is None else mask.float()
+        mask = torch.where(last, torch.zeros_like(keep), keep)
+    nll = F.cross_entropy(logits.float().flatten(0, -2), labels.long().flatten(), reduction="none")
+    nll = nll.view(labels.shape)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,12 +1,13 @@
-"""Attention without a cache: the plain einsum path.
+"""Attention without a cache: the einsum path and the flash dispatch.
 
 Counterpart of :func:`accelerate_tpu.ops.attention.dot_product_attention`
 with ``_xla_attention`` folded in: GQA, bottom-right causal alignment
 when ``Sq != Sk``, and the sliding-window band (the JAX package fills the
 band with the f32 minimum and the causal mask with -inf; both give the
-same softmax since every query keeps its own key). Where the JAX package would
-run its flash kernel (K1, not ported yet), this raises instead of
-quietly taking the plain path.
+same softmax since every query keeps its own key). Long sequences on the
+card go to the flash kernels (:mod:`.flash_attention`); on the CPU an
+explicit ``use_flash=True`` takes their plain blockwise version, as the
+JAX package's off-TPU flash path takes its blockwise reference.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from typing import Optional
 
 import torch
 
-# The JAX package's dispatch point for its flash kernel (its v5e
-# crossover). Kept only so that the same calls refuse here until K1 is
-# ported and the H100's own crossover is measured.
+from .flash_attention import flash_attention
+
+# Query length from which the card takes the flash kernels by default. 2048
+# is the JAX package's TPU v5e crossover, kept until the H100's own
+# (chip_smoke.py's flash_crossover phase, PERF.md) moves it.
 FLASH_MIN_SEQ = 2048
 
 
@@ -42,7 +45,10 @@ def dot_product_attention(
         raise ValueError(f"window must be >= 1 (got {window}); a 0-width band masks everything")
     auto_flash = use_flash is None and q.device.type == "cuda" and seq_len >= FLASH_MIN_SEQ
     if use_flash or auto_flash:
-        raise NotImplementedError("flash kernel K1 not ported yet (see ROADMAP.md)")
+        if window is not None and q.device.type != "cuda":
+            # the JAX package's off-TPU flash path has no band either
+            raise ValueError("banded flash (window=) runs on the CUDA kernels only; drop use_flash=True off the GPU")
+        return flash_attention(q, k, v, causal=causal, scale=scale, window=window)
     num_heads, num_kv = q.shape[-2], k.shape[-2]
     if num_kv != num_heads:  # GQA: repeat kv groups
         reps = num_heads // num_kv

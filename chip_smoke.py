@@ -4,18 +4,29 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with a CUDA card and
-``nvcc``. It builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, serves a
-TinyLlama-1.1B-shape Llama (seeded random weights, bf16) through
-``ServingEngine`` and checks that every decode step went through the
-kernel, profiles one decode tick, then checks greedy serving against a
-no-cache reference loop.
+``nvcc``. It builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc``
+(one ``nvcc`` per source, all at once) and holds each against its plain
+PyTorch version on the card. Then the two slices:
+
+* serving: a TinyLlama-1.1B-shape Llama (seeded random weights, bf16)
+  served through ``ServingEngine``, every decode step through the paged
+  kernel (K4); one decode tick profiled; greedy serving checked against a
+  no-cache reference loop;
+* training: the same shape at full depth, f32 masters and bf16 compute,
+  trained for 12 steps at batch 8 x seq 2048 through ``Accelerator`` ->
+  ``build_train_step``, every layer's attention through the flash kernels
+  (K1 forward, twice with remat; K2 and K3 backward), and the kernels held
+  against their plain versions on one layer's inputs from that run; one
+  step profiled; 2-layer runs in f32 and in bf16 compute checked against
+  the einsum attention path; the flash/einsum crossover measured.
+
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -345,6 +356,406 @@ def phase_consistency(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# training slice: flash attention kernels K1-K3 and the train step
+# ---------------------------------------------------------------------------
+
+# K1-K3 against their plain versions. Each element of out, dq, dk and dv must
+# lie within t (|ref| + RMS(ref)) of its reference, plus GRAD_FLOOR RMS(dO)
+# for the gradients; lse within LSE_TOL. Each limit is two to seven times the
+# largest error read on the card over flash_kernel's and flash_sweep's cases
+# (their err_over_tol; PERF.md). The floor is there for inputs where every
+# live row has one live key: dS, dq and dk are then 0 but for rounding.
+FLASH_TOL = {
+    "float32": {"out": 2e-5, "dq": 2e-5, "dk": 2e-4, "dv": 2e-4},
+    "bfloat16": {"out": 2e-2, "dq": 5e-2, "dk": 2e-2, "dv": 3e-2},
+    "float16": {"out": 5e-3, "dq": 1e-2, "dk": 5e-3, "dv": 5e-3},
+}
+LSE_TOL = 1e-5
+GRAD_FLOOR = 2e-5
+
+
+def live_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs the masks leave live: the work these inputs need."""
+    row = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(row, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(row - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound(kind, q, k, causal, window):
+    """Least time for one call of K1 (fwd), K2 (dq) or K3 (dkv): every input
+    read once and every output written once over the HBM rate, against the
+    products over the live pairs (2, 3 or 4 of them, 2 D FLOPs a pair each)
+    at the peak rate of the input type."""
+    b, sq, h, d = q.shape
+    elt = q.element_size()
+    pairs = live_pairs(sq, k.shape[1], causal, window)
+    qo, kv, rows = q.numel() * elt, k.numel() * elt, b * h * sq * 4
+    nbytes = {
+        "fwd": qo + 2 * kv + qo + rows,  # q, k, v -> out, lse
+        "dq": 2 * qo + 2 * kv + 2 * rows + q.numel() * 4,  # q, dO, k, v, lse, delta -> dq f32
+        "dkv": 2 * qo + 2 * kv + 2 * rows + 2 * k.numel() * 4,  # -> dk, dv f32
+    }[kind]
+    flops = {"fwd": 2, "dq": 3, "dkv": 4}[kind] * 2 * b * h * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_inputs(torch, gen, b, sq, sk, h, h_kv, d, dtype):
+    return [torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, sq, h, d), (b, sk, h_kv, d), (b, sk, h_kv, d), (b, sq, h, d))]
+
+
+def flash_err(torch, got, want, t, floor=0.0) -> tuple[float, float]:
+    """``(max |got - want|, max of |got - want| / (t (|want| + RMS(want)) +
+    floor))``: the second is at most 1 where ``got`` is within tolerance.
+    The infinities (a dead row's lse) must agree exactly."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin) or not torch.equal(got[~fin], want[~fin]):
+        return float("inf"), float("inf")
+    if not fin.any():
+        return 0.0, 0.0
+    got, want = got[fin], want[fin]
+    err = (got - want).abs()
+    limit = t * (want.abs() + want.pow(2).mean().sqrt()) + floor
+    over = torch.where(err == 0, torch.zeros_like(err), err / limit)
+    return err.max().item(), over.max().item()
+
+
+def flash_compare(torch, fa, q, k, v, do, causal, window):
+    """Each kernel against its plain version on the same inputs (K2 and K3
+    fed K1's lse and delta): ``{kind: (max abs error, max error over its
+    tolerance)}`` for fwd (out, lse), dq and dkv (dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_fwd_kernel(q, k, v, causal, scale, window)
+    delta = fa._delta(out, do)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal, scale, window)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal, scale, window)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, causal, scale, window)
+    want_dq = fa.flash_attention_plain_dq(q, k, v, do, lse, delta, causal, scale, window)
+    want_dk, want_dv = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, causal, scale, window)
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    floor = GRAD_FLOOR * do.float().pow(2).mean().sqrt().item()
+    errs = {
+        "fwd": [flash_err(torch, out, want_out, tol["out"]), flash_err(torch, lse, want_lse, 0.0, LSE_TOL)],
+        "dq": [flash_err(torch, dq, want_dq, tol["dq"], floor)],
+        "dkv": [flash_err(torch, dk, want_dk, tol["dk"], floor), flash_err(torch, dv, want_dv, tol["dv"], floor)],
+    }
+    return {kind: (max(e[0] for e in es), max(e[1] for e in es)) for kind, es in errs.items()}, (out, lse, delta)
+
+
+def check_flash(errs, what: str) -> None:
+    for kind, (_, over) in errs.items():
+        check(over <= 1.0, f"flash {kind} vs plain: error {over} x its tolerance ({what})")
+
+
+def phase_flash_kernel(torch):
+    """K1-K3 against their plain versions at the training slice's attention
+    shape (B 8, H 32, H_kv 4, D 64, S 2048, causal, bf16), again in f32 and
+    at D 128; their times beside the bound, the plain version's and
+    scaled_dot_product_attention's (forward; backward, which computes dq,
+    dk and dv in one call). Tolerances: FLASH_TOL."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    cases = [("bf16", torch.bfloat16, 64, 30), ("f32", torch.float32, 64, 5), ("bf16-d128", torch.bfloat16, 128, 30)]
+    b, s, h, h_kv = 8, 2048, 32, 4
+    results = {}
+    for name, dtype, d, reps in cases:
+        q, k, v, do = flash_inputs(torch, gen, b, s, s, h, h_kv, d, dtype)
+        errs, (out, lse, delta) = flash_compare(torch, fa, q, k, v, do, True, None)
+        check_flash(errs, name)
+        scale = d**-0.5
+        kernels = {
+            "fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, scale, None),
+            "dq": lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale, None),
+            "dkv": lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, True, scale, None),
+        }
+        plains = {
+            "fwd": lambda: fa.flash_attention_plain(q, k, v, True, scale),
+            "dq": lambda: fa.flash_attention_plain_dq(q, k, v, do, lse, delta, True, scale),
+            "dkv": lambda: fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, scale),
+        }
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
+        dot = do.transpose(1, 2).contiguous()
+        library = {
+            "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            "bwd": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+        }
+        row = {"phase": "flash_kernel", "case": name, "shape": [b, s, h, h_kv, d], "causal": True,
+               "library_max_abs_err_fwd": lib_err}
+        for kind in kernels:
+            bound_ms, bound_by = flash_bound(kind, q, k, True, None)
+            row[kind] = {
+                "max_abs_err": errs[kind][0], "err_over_tol": errs[kind][1],
+                "ms": time_ms(torch, kernels[kind], reps=reps, flush=flush),
+                "plain_ms": time_ms(torch, plains[kind], reps=min(reps, 5), warmup=1, flush=flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+        row["library_fwd_ms"] = time_ms(torch, library["fwd"], reps=reps, flush=flush)
+        row["library_bwd_ms"] = time_ms(torch, library["bwd"], reps=reps, flush=flush)
+        emit(row)
+        results[name] = row
+        del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, dot, kernels, plains, library
+    return results
+
+
+def phase_flash_sweep(torch):
+    """K1-K3 against their plain versions over the shapes they take: every
+    dtype, groups 1/4/8, D 64/128, Sq = Sk in {1, 100, 2048}, Sq < Sk and
+    Sq > Sk (dead rows under causal), non-causal, causal, and bands of 1 and
+    100 keys."""
+    import itertools
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    shapes = ((1, 1), (100, 100), (2048, 2048), (100, 300), (300, 100))
+    masks = ((False, None), (True, None), (True, 1), (True, 100))
+    worst, n = {}, 0
+    for dtype, g, d, (sq, sk), (causal, window) in itertools.product(dtypes, (1, 4, 8), (64, 128), shapes, masks):
+        q, k, v, do = flash_inputs(torch, gen, 1, sq, sk, 2 * g, 2, d, dtype)
+        errs, _ = flash_compare(torch, fa, q, k, v, do, causal, window)
+        check_flash(errs, f"sweep {dtype} G{g} D{d} {sq}x{sk} causal={causal} W{window}")
+        for kind, (_, over) in errs.items():
+            key = f"{str(dtype).split('.')[-1]} {kind}"
+            worst[key] = max(worst.get(key, 0.0), over)
+        n += 1
+    emit({"phase": "flash_sweep", "cases": n, "worst_err_over_tol": worst})
+
+
+def llama_step_flops(module, cfg, tokens: int, seq_len: int) -> float:
+    """bench.py's _llama_step_flops: 6 x non-embedding params x tokens, plus
+    the attention scores (2 S^2 hidden a layer forward, x3 with the
+    backward, halved by causality)."""
+    n_params = sum(p.numel() for name, p in module.named_parameters() if "embed" not in name)
+    batch = tokens // seq_len
+    attn = 0.5 * 12.0 * cfg.num_hidden_layers * batch * seq_len**2 * cfg.hidden_size
+    lm_head = 6.0 * tokens * cfg.hidden_size * cfg.vocab_size if cfg.tie_word_embeddings else 0.0
+    return 6.0 * n_params * tokens + attn + lm_head
+
+
+def token_batches(torch, n, b, s, vocab, seed):
+    """Token ids with a skewed (Pareto) unigram distribution, made with numpy:
+    something a model can learn in a few steps."""
+    rng = np.random.default_rng(seed)
+    ids = (rng.pareto(1.2, size=(n, b, s)) * 50).astype(np.int64) % vocab
+    return torch.as_tensor(ids, device="cuda")
+
+
+def build_trainer(torch, cfg, mixed_precision, seed=0, lr=3e-4):
+    from accelerate_tpu_torch import Accelerator, causal_lm_loss, create_llama_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision=mixed_precision)
+    model = acc.prepare_model(create_llama_model(cfg, seed=seed, dtype=torch.float32))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=lr, weight_decay=0.01))
+    step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
+    return acc, model, step
+
+
+@contextlib.contextmanager
+def first_dq_call(fa):
+    """Keep the ``(q, k, v, dO)`` of the first call to K2's wrapper while the
+    block runs: the last layer's attention inputs as the model made them."""
+    real, seen = fa.flash_dq_kernel, []
+
+    def spy(q, k, v, dout, *rest):
+        if not seen:  # detached: the recomputed q, k, v would keep the layer's graph alive
+            seen.append(tuple(t.detach() for t in (q, k, v, dout)))
+        return real(q, k, v, dout, *rest)
+
+    fa.flash_dq_kernel = spy
+    try:
+        yield seen
+    finally:
+        fa.flash_dq_kernel = real
+
+
+def phase_train(torch):
+    """TinyLlama-1.1B shape at full depth, f32 masters, bf16 compute, remat,
+    batch 8 x seq 2048, AdamW(3e-4, weight decay 0.01): 2 warm-up and 10
+    timed steps through build_train_step. Every layer's attention must be
+    the flash kernels: K1 twice a layer a step (forward and remat), K2 and
+    K3 once. The first step's last-layer q, k, v and dO are kept, and K1-K3
+    are held against their plain versions on them once the counts are read."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, warmup, timed = 8, 2048, 2, 10
+    cfg = LlamaConfig(**TINYLLAMA, remat=True)
+    acc, model, step = build_trainer(torch, cfg, "bf16")
+    batches = token_batches(torch, warmup + timed, b, s, cfg.vocab_size, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    losses, times = [], []
+    with first_dq_call(fa) as seen:
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            loss = step({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+    n, layers = warmup + timed, cfg.num_hidden_layers
+    check(all(np.isfinite(losses)), f"losses finite: {losses}")
+    check(losses[-1] < losses[0], f"loss falls over {n} steps: {losses[0]} -> {losses[-1]}")
+    check(launches == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n},
+          f"flash launches {launches} == K1 2 x {layers} x {n}, K2/K3 {layers} x {n}")
+    q, k, v, do = seen[0]
+    model_errs, _ = flash_compare(torch, fa, q, k, v, do, True, None)
+    check_flash(model_errs, "the train step's own last-layer inputs")
+    del seen, q, k, v, do
+    step_ms = sorted(times[warmup:])
+    flops = llama_step_flops(model.module, cfg, b * s, s)
+    med = statistics.median(step_ms)
+    row = {
+        "phase": "train", "config": "TinyLlama-1.1B shape, 22 layers, f32 masters + bf16 compute, remat, seeded",
+        "params": model.num_parameters(), "batch": b, "seq": s, "warmup_steps": warmup, "timed_steps": timed,
+        "tokens_per_s": b * s / (med / 1e3), "step_ms_median": med,
+        "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1], "step_flops": flops,
+        "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches,
+        "flash_vs_plain_on_model_inputs": {kind: {"max_abs_err": a, "err_over_tol": o}
+                                           for kind, (a, o) in model_errs.items()},
+    }
+    emit(row)
+    return row, acc, model, step, batches
+
+
+def phase_train_profile(torch, step, batches):
+    """One more train step under torch.profiler: device busy time (the union
+    of the traced kernels' intervals; user annotations left out), idle share
+    against the traced step's wall time, and where the device time goes.
+    The step's wall time without the profiler is given beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step({"input_ids": batches[0]})
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step({"input_ids": batches[1]})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            ms, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3
+
+    def share(pred):
+        return sum(ms for name, (ms, _) in by_name.items() if pred(name.lower()))
+
+    flash = {k: share(lambda nm, k=k: f"flash_{k}<" in nm or f"flash_{k}(" in nm) for k in ("fwd", "dq", "dkv")}
+    gemm = share(lambda nm: any(t in nm for t in ("gemm", "nvjet", "xmma", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    row = {
+        "phase": "train_profile", "what": "one train step, TinyLlama shape, batch 8 x 2048, bf16 compute, remat",
+        "step_wall_ms": wall_ms, "step_wall_ms_unprofiled": plain_wall_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms if busy else None,
+        "flash_ms": flash, "flash_share": sum(flash.values()) / busy if busy else None,
+        "gemm_ms": gemm, "gemm_share": gemm / busy if busy else None,
+        "kernels_traced": sum(n for _, n in by_name.values()),
+        "top": [[name[:90], ms, n] for name, (ms, n) in top],
+    }
+    emit(row)
+    return row
+
+
+def phase_train_consistency(torch, mixed_precision):
+    """TinyLlama widths, 2 layers, batch 1 x seq 2048, where the flash path
+    dispatches by itself: three steps through the kernels, then three from
+    the same weights on the einsum attention path (FLASH_MIN_SEQ raised
+    above the sequence for that run only). In f32 (the kernels' CUDA-core
+    path) losses agree within 1e-5 relative and grad norms within 1e-4. In
+    bf16 compute (the tensor-core path) the einsum path rounds its scores to
+    bf16 where the kernels keep them f32: losses within 1e-4, grad norms
+    within 2e-3, about twice the differences read on the card (PERF.md)."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import attention
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    loss_tol, norm_tol = {"no": (1e-5, 1e-4), "bf16": (1e-4, 2e-3)}[mixed_precision]
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2}, remat=True)
+    batches = token_batches(torch, 3, 1, 2048, cfg.vocab_size, seed=5)
+    runs = {}
+    saved = attention.FLASH_MIN_SEQ
+    try:
+        for path in ("flash", "einsum"):
+            attention.FLASH_MIN_SEQ = saved if path == "flash" else 1 << 30
+            before = fa.launches_fwd
+            acc, model, step = build_trainer(torch, cfg, mixed_precision, seed=4)
+            losses, norms = [], []
+            for i in range(3):
+                losses.append(float(step({"input_ids": batches[i]})))
+                norms.append(float(acc._last_grad_norm))
+            runs[path] = {"losses": losses, "grad_norms": norms, "k1_launches": fa.launches_fwd - before}
+            del acc, model, step
+    finally:
+        attention.FLASH_MIN_SEQ = saved
+    check(runs["flash"]["k1_launches"] == 2 * 2 * 3 and runs["einsum"]["k1_launches"] == 0,
+          f"flash run through K1, einsum run not: {runs}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["flash"]["losses"], runs["einsum"]["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(runs["flash"]["grad_norms"], runs["einsum"]["grad_norms"]))
+    check(loss_err <= loss_tol, f"flash vs einsum loss rel err {loss_err} <= {loss_tol} ({mixed_precision})")
+    check(norm_err <= norm_tol, f"flash vs einsum grad norm rel err {norm_err} <= {norm_tol} ({mixed_precision})")
+    compute = "f32" if mixed_precision == "no" else "f32 masters + bf16 compute"
+    row = {"phase": "train_consistency", "config": f"TinyLlama widths, 2 layers, {compute}, batch 1 x 2048",
+           **runs, "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+    emit(row)
+    return row
+
+
+def phase_flash_crossover(torch):
+    """Forward + backward of attention through the kernels against the
+    einsum path (use_flash=False) at S 128-4096, 16,384 tokens a call (the
+    training batch), H 32, H_kv 4, D 64, causal, bf16: where the card's
+    crossover for FLASH_MIN_SEQ lies."""
+    from accelerate_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for s in (128, 256, 512, 1024, 2048, 4096):
+        q, k, v, do = flash_inputs(torch, gen, 16384 // s, s, s, 32, 4, 64, torch.bfloat16)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        times = {}
+        for path, flag in (("flash", True), ("einsum", False)):
+            def run(flag=flag):
+                dot_product_attention(q, k, v, causal=True, use_flash=flag).backward(do)
+
+            times[path] = time_ms(torch, run, reps=10, warmup=2)
+        rows.append({"seq": s, "batch": 16384 // s, "flash_ms": times["flash"], "einsum_ms": times["einsum"],
+                     "einsum_over_flash": times["einsum"] / times["flash"]})
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_crossover", "what": "fwd+bwd, H 32/4, D 64, causal, bf16, 16384 tokens", "rows": rows})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -374,20 +785,41 @@ def main() -> int:
     print(smi, flush=True)
     kernel = phase_kernel(torch)
     phase_kernel_sweep(torch)
+    flash = phase_flash_kernel(torch)["bf16"]  # the training slice's dtype and shapes
+    phase_flash_sweep(torch)
     serve, model = phase_serve(torch)
     phase_profile(torch, model)
     del model
     phase_consistency(torch)
+    train, acc, model, step, batches = phase_train(torch)
+    phase_train_profile(torch, step, batches)
+    del acc, model, step, batches
+    torch.cuda.empty_cache()
+    phase_train_consistency(torch, "no")
+    phase_train_consistency(torch, "bf16")
+    phase_flash_crossover(torch)
 
     main_case = kernel["bf16"]  # the serving slice's dtype and shapes
-    emit({"kernels": [{
+    kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
         "launches": serve["kernel_launches"], "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-    }]})
+    }]
+    for kind, name, line in (("fwd", "flash_attention_fwd", 89), ("dq", "flash_attention_dq", 177),
+                             ("dkv", "flash_attention_dkv", 210)):
+        row = flash[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
+            "launches": train["launches"][kind], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv
+            "library_ms": flash["library_fwd_ms"] if kind == "fwd" else flash["library_bwd_ms"],
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

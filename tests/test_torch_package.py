@@ -15,6 +15,7 @@ import torch
 import accelerate_tpu_torch
 from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model
 from accelerate_tpu_torch.kernels import build
+from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.attention import dot_product_attention
 
@@ -39,18 +40,21 @@ def test_importing_every_module_loads_no_jax():
     modules = sorted(_module_names())
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"for m in {[*modules, 'chip_smoke']!r}: importlib.import_module(m)\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "accelerate_tpu_torch.serving" in modules
+    for name in ("serving", "accelerator", "ops.flash_attention", "state", "optimizer", "scheduler"):
+        assert f"accelerate_tpu_torch.{name}" in modules
 
 
 def test_no_source_imports_jax():
-    for path in PKG.rglob("*.py"):
+    """Neither the package nor the script that drives it on the card
+    (chip_smoke.py) imports jax or the JAX package."""
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -96,9 +100,21 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_flash_path_is_not_quietly_replaced():
-    q = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match="K1"):
-        dot_product_attention(q, q, q, causal=True, use_flash=True)
+    """On the CPU an explicit use_flash=True computes the kernels' plain
+    version (what the einsum path gives, within f32 rounding) and launches
+    nothing; a tensor on any other device is refused, never computed, and
+    touches no counter either."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 70, 4, 64, generator=gen)
+    k, v = torch.randn(2, 2, 70, 2, 64, generator=gen).unbind(0)
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    got = dot_product_attention(q, k, v, causal=True, use_flash=True)
+    want = dot_product_attention(q, k, v, causal=True, use_flash=False)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dot_product_attention(*(t.to("meta") for t in (q, k, v)), causal=True, use_flash=True)
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == before
 
 
 @pytest.mark.parametrize(
