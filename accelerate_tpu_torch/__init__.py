@@ -10,23 +10,35 @@ package imports nothing of it (nor of jax). Its slices so far:
   weights, bf16/fp16 compute, gradient accumulation, clipping, fp16 loss
   scaling and per-layer remat; at long sequences its attention is the
   hand-written CUDA flash kernels, forward and backward
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu``);
+* weight-only quantized decode: ``load_and_quantize_model`` turns a Llama's
+  projections into ``QuantDense`` layers (int8, w8a8, int4, nf4), served by
+  ``ServingEngine`` or ``generate``; the int4 product is a hand-written
+  fused dequantize-matmul kernel (``csrc/int4_matmul.cu``).
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .generation import generate, per_token_latency
 from .models import LlamaConfig, causal_lm_loss, create_llama_model, llama_params_from_jax
+from .ops.qdense import QuantDense
 from .serving import ServingEngine
+from .utils.quantization import QuantizationConfig, load_and_quantize_model
 from .utils.random import set_seed
 
 __all__ = [
     "Accelerator",
     "LlamaConfig",
+    "QuantDense",
+    "QuantizationConfig",
     "ServingEngine",
     "causal_lm_loss",
     "create_llama_model",
+    "generate",
     "llama_params_from_jax",
+    "load_and_quantize_model",
+    "per_token_latency",
     "set_seed",
 ]

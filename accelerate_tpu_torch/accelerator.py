@@ -170,6 +170,12 @@ class Accelerator:
             raise TypeError(f"prepare_model takes an accelerate_tpu_torch Model, got {type(model).__name__}")
         if getattr(model, "_is_accelerate_prepared", False):
             return model
+        if getattr(getattr(model, "config", None), "quant_method", None) is not None:
+            raise NotImplementedError(
+                f"model is weight-only quantized ({model.config.quant_method}): its integer codes cannot be cast "
+                "to f32 masters or trained; prepare the float model, or serve the quantized one as it is "
+                "(preparing a quantized model for sharded inference is queued in ROADMAP.md)"
+            )
         placement = self.device_placement if device_placement is None else device_placement
         param_dtype = MixedPrecisionPolicy.torch_dtype(self.state.dtype_policy.param_dtype)
         with torch.no_grad():

@@ -37,6 +37,13 @@ SIGNATURES = {
         "flash_attention_dq": ((*[_P] * 7, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_attention_dkv": ((*[_P] * 8, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
     },
+    "int4_matmul": {
+        "int4_matmul": ((*[_P] * 5, *[_I] * 8, _P), _I),
+    },
+    "reference_kernels": {
+        "block_matmul_softmax": ((*[_P] * 5, *[_I] * 4, _P), _I),
+        "block_accumulate": ((_P, _P, _I, ctypes.c_longlong, _P), _I),
+    },
 }
 
 

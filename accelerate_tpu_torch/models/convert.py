@@ -7,7 +7,10 @@ state dict of the port's :class:`~.llama.LlamaModel`. Both layouts of the
 JAX tree are read: the scanned one (``layers/block/...`` leaves with a
 leading ``[L]`` axis, from ``nn.scan`` over ``_ScanLayer``) and the
 unrolled one (``layer_<i>/...``). Flax ``Dense`` kernels are ``[in,
-out]``; ``nn.Linear`` weights are ``[out, in]``.
+out]``; ``nn.Linear`` weights are ``[out, in]``. A tree quantized by the
+JAX package's ``load_and_quantize_model`` carries ``qdata``/``qscale``
+leaves in place of each projection's ``kernel``: they cross unchanged
+(``QuantDense`` keeps the reference's layout), integer codes as integers.
 """
 
 from __future__ import annotations
@@ -15,17 +18,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# (flax path inside one layer, port name inside one layer, is a Dense kernel)
-_LAYER_LEAVES = (
-    (("input_norm", "scale"), "input_norm.weight", False),
-    (("post_attn_norm", "scale"), "post_attn_norm.weight", False),
-    (("attn", "q_proj", "kernel"), "attn.q_proj.weight", True),
-    (("attn", "k_proj", "kernel"), "attn.k_proj.weight", True),
-    (("attn", "v_proj", "kernel"), "attn.v_proj.weight", True),
-    (("attn", "o_proj", "kernel"), "attn.o_proj.weight", True),
-    (("mlp", "gate_proj", "kernel"), "mlp.gate_proj.weight", True),
-    (("mlp", "up_proj", "kernel"), "mlp.up_proj.weight", True),
-    (("mlp", "down_proj", "kernel"), "mlp.down_proj.weight", True),
+# (flax path inside one layer, port name inside one layer)
+_LAYER_NORMS = (
+    (("input_norm", "scale"), "input_norm.weight"),
+    (("post_attn_norm", "scale"), "post_attn_norm.weight"),
+)
+_LAYER_PROJS = (
+    (("attn", "q_proj"), "attn.q_proj"),
+    (("attn", "k_proj"), "attn.k_proj"),
+    (("attn", "v_proj"), "attn.v_proj"),
+    (("attn", "o_proj"), "attn.o_proj"),
+    (("mlp", "gate_proj"), "mlp.gate_proj"),
+    (("mlp", "up_proj"), "mlp.up_proj"),
+    (("mlp", "down_proj"), "mlp.down_proj"),
 )
 
 
@@ -39,10 +44,15 @@ def _tensor(arr: np.ndarray, dense_kernel: bool) -> torch.Tensor:
     return torch.from_numpy(np.array(arr.T if dense_kernel else arr, dtype=np.float32, order="C"))
 
 
+def _codes(arr: np.ndarray) -> torch.Tensor:
+    """Quantized leaves keep their dtype (int8 / uint8 codes, f32 scales)."""
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
 def llama_params_from_jax(params: dict, config) -> dict:
-    """The port's llama state dict (f32 tensors) from a JAX llama param
-    tree. Load it with ``model.load_state_dict``, which casts to each
-    parameter's dtype."""
+    """The port's llama state dict (f32 tensors; integer codes for a
+    quantized tree) from a JAX llama param tree. Load it with
+    ``model.load_state_dict``, which casts to each parameter's dtype."""
     n_layers = config.num_hidden_layers
     if "layers" in params:
         block = params["layers"]["block"]
@@ -58,8 +68,14 @@ def llama_params_from_jax(params: dict, config) -> dict:
         "final_norm.weight": _tensor(_get(params, ("final_norm", "scale")), False),
     }
     for i in range(n_layers):
-        for path, name, dense in _LAYER_LEAVES:
-            sd[f"layers.{i}.{name}"] = _tensor(layer_leaf(i, path), dense)
+        for path, name in _LAYER_NORMS:
+            sd[f"layers.{i}.{name}"] = _tensor(layer_leaf(i, path), False)
+        for path, name in _LAYER_PROJS:
+            if config.quant_method is None:
+                sd[f"layers.{i}.{name}.weight"] = _tensor(layer_leaf(i, (*path, "kernel")), True)
+            else:
+                sd[f"layers.{i}.{name}.qdata"] = _codes(layer_leaf(i, (*path, "qdata")))
+                sd[f"layers.{i}.{name}.qscale"] = _codes(layer_leaf(i, (*path, "qscale")))
     if not config.tie_word_embeddings:
         sd["lm_head.weight"] = _tensor(_get(params, ("lm_head", "kernel")), True)
     return sd

@@ -19,15 +19,20 @@ weights (:mod:`.convert`) give the same logits:
 package's loss, called as ``loss_fn(params, batch)`` through
 ``Model.apply_fn``.
 
+With ``cfg.quant_method`` set, every block projection is a
+:class:`~..ops.qdense.QuantDense` whose parameters are the packed codes
+(:func:`quantize_llama_model` makes such a model from a float one).
+
 The knobs other families need (Qwen3/OLMo2 q/k norms, Gemma norms and
-softcaps, per-layer attention kinds, quantized projections, ...) raise
-``NotImplementedError``: they are queued in ROADMAP.md.
+softcaps, per-layer attention kinds, ...) raise ``NotImplementedError``:
+they are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional
 
 import torch
@@ -111,7 +116,6 @@ _PLAIN = {
     "mlp_activation": "silu",
     "norm_plus_one": False,
     "scale_embeddings": False,
-    "quant_method": None,
 }
 
 
@@ -285,15 +289,26 @@ def _head_dim(cfg: LlamaConfig) -> int:
     return cfg.head_dim or cfg.hidden_size // cfg.num_attention_heads
 
 
+def _proj(cfg: LlamaConfig, in_features: int, features: int) -> nn.Module:
+    """Block projection factory: a bias-free ``nn.Linear``, or a
+    ``QuantDense`` when the config carries a weight-only quantization
+    method (it computes in the stream dtype)."""
+    if cfg.quant_method is not None:
+        from ..ops.qdense import QuantDense
+
+        return QuantDense(in_features, features, method=cfg.quant_method, group_size=cfg.quant_group_size)
+    return nn.Linear(in_features, features, bias=False)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.config = cfg
         hd = _head_dim(cfg)
-        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_attention_heads * hd, bias=False)
-        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=False)
-        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=False)
-        self.o_proj = nn.Linear(cfg.num_attention_heads * hd, cfg.hidden_size, bias=False)
+        self.q_proj = _proj(cfg, cfg.hidden_size, cfg.num_attention_heads * hd)
+        self.k_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd)
+        self.v_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd)
+        self.o_proj = _proj(cfg, cfg.num_attention_heads * hd, cfg.hidden_size)
 
     def forward(self, hidden, cos, sin, cache=None, layer: int = 0):
         cfg = self.config
@@ -312,9 +327,9 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.gate_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, hidden):
         return self.down_proj(F.silu(self.gate_proj(hidden)) * self.up_proj(hidden))
@@ -404,7 +419,9 @@ def create_llama_model(
     ``"cpu"`` is asked for). Projections and the embedding draw
     ``N(0, 1/fan_in)`` from a ``torch.Generator`` seeded with ``seed``;
     norms start at one. Parameters are in ``dtype`` except the LM head,
-    kept in f32."""
+    kept in f32. With ``config.quant_method`` set the projections start as
+    the reference's do, zero codes and unit f32 scales: real values come
+    from :func:`quantize_llama_model` or a state dict."""
     config = config or LlamaConfig.tiny()
     dev = resolve_device(device)
     with torch.device("meta"):
@@ -413,16 +430,55 @@ def create_llama_model(
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith("norm.weight"):
+            if name.endswith(("norm.weight", ".qscale")):
                 p.fill_(1.0)
+            elif name.endswith(".qdata"):
+                p.zero_()
             else:
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[-1]), generator=gen)
-    module.to(dtype)
-    if not config.tie_word_embeddings:
-        module.lm_head.float()
+            if name.startswith("lm_head"):
+                p.data = p.data.to(dtype).float()  # f32 storage of values drawn at the stream's precision
+            elif p.is_floating_point() and not name.endswith(".qscale"):
+                p.data = p.data.to(dtype)
     module.requires_grad_(False)
     module.eval()
     return Model(module, config, name="llama")
+
+
+_PROJ_WEIGHT_RE = re.compile(r"^(.*\.(?:q|k|v|o|gate|up|down)_proj)\.weight$")
+
+
+@torch.no_grad()
+def quantize_llama_model(model: Model, qconfig=None) -> Model:
+    """Weight-only quantize every block projection of a llama
+    :class:`Model` into :class:`~..ops.qdense.QuantDense` parameters; the
+    packed codes are the new model's weights. The other parameters
+    (embedding, norms, LM head) are shared with ``model``, not copied, and
+    the new model lives on ``model``'s device."""
+    from ..utils.quantization import QuantizationConfig, quantize
+
+    qcfg = qconfig or QuantizationConfig()
+    if model.config.quant_method is not None:
+        # quantizing again would reinterpret the packed codes under the new decoder
+        raise ValueError(
+            f"model is already quantized ({model.config.quant_method}); "
+            "quantize the original float model instead"
+        )
+    new_cfg = dataclasses.replace(model.config, quant_method=qcfg.method, quant_group_size=qcfg.group_size)
+    with torch.device("meta"):
+        module = LlamaModel(new_cfg)
+    state = {}
+    for name, p in model.module.named_parameters():
+        match = _PROJ_WEIGHT_RE.match(name)
+        if match is None:
+            state[name] = p.detach()
+        else:  # nn.Linear keeps [out, in]; the codes group the contraction dim of [in, out]
+            qt = quantize(p.detach().T, qcfg)
+            state[f"{match.group(1)}.qdata"], state[f"{match.group(1)}.qscale"] = qt.data, qt.scale
+    module.load_state_dict(state, strict=True, assign=True)
+    module.requires_grad_(False)
+    module.eval()
+    return Model(module, new_cfg, name=model.name)
 
 
 def causal_lm_loss(params: dict, batch: dict, apply_fn) -> torch.Tensor:

@@ -76,7 +76,9 @@ class _Request:
 class ServingEngine:
     """Continuous-batching decode engine for a model with the decode
     contract ``model(ids, positions=..., decode=True, cache=...) ->
-    (logits, cache)`` (the port's llama).
+    (logits, cache)`` (the port's llama, float or weight-only quantized by
+    ``load_and_quantize_model``: the engine reads the stream dtype and the
+    device from the embedding table and never walks the projections).
 
     ``prompt_buckets``: ascending prefill sizes. ``max_len``: cache
     capacity per request (default: the model's ``max_position_embeddings``).
@@ -186,6 +188,7 @@ class ServingEngine:
         self._done_lps: dict[int, np.ndarray] = {}
         self._uid = 0
         self.decode_steps = 0  # batched decode forwards run (tick_block per tick)
+        self.prefill_forwards = 0  # prefill forwards run (bucketed prompts and chunk windows)
 
     # ---- the forwards --------------------------------------------------
 
@@ -209,6 +212,7 @@ class ServingEngine:
         ids[0, : len(prompt)] = prompt
         positions = torch.arange(b, device=self.device)[None]
         logits, cache = self.model(torch.as_tensor(ids, device=self.device), positions=positions, decode=True)
+        self.prefill_forwards += 1
         tok, lp = self._sample_row(logits[0, len(prompt) - 1], gen)
         return tok, lp, cache
 
@@ -236,6 +240,7 @@ class ServingEngine:
         if row_cache is not None:
             reset_cache_index(row_cache, s_adj)
         logits, row_cache = self.model(ids, positions=positions, decode=True, cache=row_cache)
+        self.prefill_forwards += 1
         return logits, row_cache, s_adj, e
 
     def _decode_tick(self):

@@ -6,7 +6,7 @@
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. It builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card. Then the two slices:
+PyTorch version on the card. Then the three slices:
 
 * serving: a TinyLlama-1.1B-shape Llama (seeded random weights, bf16)
   served through ``ServingEngine``, every decode step through the paged
@@ -18,7 +18,16 @@ PyTorch version on the card. Then the two slices:
   (K1 forward, twice with remat; K2 and K3 backward), and the kernels held
   against their plain versions on one layer's inputs from that run; one
   step profiled; 2-layer runs in f32 and in bf16 compute checked against
-  the einsum attention path; the flash/einsum crossover measured.
+  the einsum attention path; the flash/einsum crossover measured;
+* quantized decode: the same shape with every projection quantized to
+  int4 (group 128) by ``load_and_quantize_model``, served by the same
+  engine and decoded by ``generate``, every projection through the fused
+  dequantize-matmul kernel (K5; 154 launches a forward) and every decode
+  step's attention through K4; the int4 tick profiled; a 2-layer int4
+  model checked against a no-cache loop over ``nn.Linear`` layers holding
+  the decoded weights. The two reference kernels (K6, K7) are held
+  against their plain versions and timed against the bounds their
+  registered cost contracts give.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +36,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -75,6 +85,13 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 5, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def free_memory(torch) -> None:
+    """Return dropped models and engines to the card: they sit in reference
+    cycles, so only a collector pass frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_build():
@@ -215,38 +232,40 @@ def phase_kernel_sweep(torch):
     emit({"phase": "kernel_sweep", "cases": n, "worst_err_over_tol": worst})
 
 
-def phase_serve(torch):
-    """TinyLlama-1.1B shape in bf16 served by the paged engine; every
-    decode step's attention must be the kernel."""
-    from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model
+def serve_engine(model):
+    from accelerate_tpu_torch import ServingEngine
+
+    return ServingEngine(model, num_slots=8, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
+
+
+def serve_run(torch, model, phase, config):
+    """The serving configuration on ``model``: 12 prompts of 5-400 tokens,
+    64 new tokens each, greedy. Every decode step's attention must be K4,
+    and for a quantized model every projection of every forward K5."""
     from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import qmatmul
 
-    cfg = LlamaConfig(**TINYLLAMA)
-    t0 = time.perf_counter()
-    model = create_llama_model(cfg, seed=0, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-
-    def engine():
-        return ServingEngine(model, num_slots=8, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
-
+    cfg = model.config
     # warm-up outside the measured run (library handles, allocator)
-    engine().generate_many([np.arange(1, 9, dtype=np.int32), np.arange(1, 300, dtype=np.int32)], max_new_tokens=9)
+    serve_engine(model).generate_many(
+        [np.arange(1, 9, dtype=np.int32), np.arange(1, 300, dtype=np.int32)], max_new_tokens=9
+    )
 
     rng = np.random.default_rng(1)
     lengths = [5, 400, 37, 64, 130, 256, 300, 12, 90, 200, 350, 48]
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
     max_new = 64
-    eng = engine()
+    free_memory(torch)  # the warm-up engine's pools, and whatever an earlier phase dropped
+    eng = serve_engine(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
+    pa.launches = qmatmul.launches = 0
     t0 = time.perf_counter()
     uids = [eng.submit(p, max_new) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    launches, int4_launches = pa.launches, qmatmul.launches
 
     for uid, p in zip(uids, prompts):
         out, lps = eng.poll(uid), eng.logprobs(uid)
@@ -254,22 +273,39 @@ def phase_serve(torch):
         check(len(lps) == max_new and bool(np.isfinite(lps).all()), f"request {uid} logprobs finite")
     want = cfg.num_hidden_layers * eng.decode_steps
     check(launches == want, f"kernel launches {launches} == layers x decode steps {want}")
+    forwards = eng.prefill_forwards + eng.decode_steps
+    want_int4 = 7 * cfg.num_hidden_layers * forwards if cfg.quant_method == "int4" else 0
+    check(int4_launches == want_int4, f"int4 launches {int4_launches} == 7 x layers x forwards {want_int4}")
     snap = eng.metrics.snapshot()
-    row = {
-        "phase": "serve", "config": "TinyLlama-1.1B shape, bf16, seeded random weights",
-        "params": model.num_parameters(), "model_build_s": build_s,
+    return {
+        "phase": phase, "config": config, "params": model.num_parameters(),
         "requests": len(prompts), "prompt_lengths": lengths, "max_new_tokens": max_new,
         "generated_tokens": snap["tokens_generated"], "wall_s": wall,
         "tokens_per_s": snap["tokens_generated"] / wall,
         "ttft_ms_mean": snap["ttft_ms_mean"], "ttft_ms_p50": snap["ttft_ms_p50"], "ttft_ms_p95": snap["ttft_ms_p95"],
-        "itl_ms_p50": snap["itl_ms_p50"], "decode_steps": eng.decode_steps, "kernel_launches": launches,
+        "itl_ms_p50": snap["itl_ms_p50"], "decode_steps": eng.decode_steps, "prefill_forwards": eng.prefill_forwards,
+        "kernel_launches": launches, "int4_launches": int4_launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+
+
+def phase_serve(torch):
+    """TinyLlama-1.1B shape in bf16 served by the paged engine; every
+    decode step's attention must be the kernel."""
+    from accelerate_tpu_torch import LlamaConfig, create_llama_model
+
+    cfg = LlamaConfig(**TINYLLAMA)
+    t0 = time.perf_counter()
+    model = create_llama_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    row = serve_run(torch, model, "serve", "TinyLlama-1.1B shape, bf16, seeded random weights")
+    row["model_build_s"] = build_s
     emit(row)
     return row, model
 
 
-def phase_profile(torch, model):
+def phase_profile(torch, model, phase="profile", what="TinyLlama shape bf16"):
     """Where one decode tick's time goes: 8 slots decoding (prompts of
     200 tokens), ``tick_block`` steps. The tick's wall time is taken
     without the profiler; the next tick is traced with torch.profiler for
@@ -277,9 +313,7 @@ def phase_profile(torch, model):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from accelerate_tpu_torch import ServingEngine
-
-    eng = ServingEngine(model, num_slots=8, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
+    eng = serve_engine(model)
     rng = np.random.default_rng(4)
     for _ in range(8):
         eng.submit(rng.integers(1, model.config.vocab_size, size=200).astype(np.int32), 64)
@@ -303,18 +337,45 @@ def phase_profile(torch, model):
             by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     paged = sum(ms for name, (ms, _) in by_name.items() if "paged_decode_" in name)  # split + combine pass
+    int4 = [(ms, n) for name, (ms, n) in by_name.items() if "int4_matmul_" in name]  # main + combine pass
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     row = {
-        "phase": "profile", "what": "one decode tick, 8 slots x 8 steps, TinyLlama shape bf16",
+        "phase": phase, "what": f"one decode tick, 8 slots x 8 steps, {what}",
         "tick_wall_ms": plain_wall_ms, "tick_wall_ms_profiled": wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / plain_wall_ms if busy else None,
         "paged_attention_ms": paged, "paged_attention_kernels": sum(
             n for name, (_, n) in by_name.items() if "paged_decode_" in name),
+        "int4_matmul_ms": sum(ms for ms, _ in int4), "int4_matmul_kernels": sum(n for _, n in int4),
         "kernels_traced": sum(n for _, n in by_name.values()),
         "top": [[name[:80], ms, n] for name, (ms, n) in top],
     }
     emit(row)
     return row
+
+
+def greedy_against_reference(torch, reference, served, gap_limit):
+    """Greedy tokens and logprobs of ``served`` (``[(prompt, tokens,
+    logprobs)]``) against a no-cache greedy loop over ``reference``'s full
+    forward. A token may differ only where the reference's top-2 logit gap
+    is under ``gap_limit``, which ends that request's comparison. Returns
+    ``(tokens compared, requests stopped at a near tie, max logprob error)``."""
+    compared, near_ties, max_lp_err = 0, 0, 0.0
+    with torch.no_grad():
+        for n_req, (prompt, got, got_lps) in enumerate(served):
+            seq = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
+            for i in range(len(got)):
+                row = reference(seq)[0, -1].float()
+                top2 = torch.topk(row, 2).values
+                ref = int(torch.argmax(row))
+                if int(got[i]) != ref:
+                    gap = float(top2[0] - top2[1])
+                    check(gap < gap_limit, f"request {n_req} token {i}: {int(got[i])} != {ref} with top-2 gap {gap}")
+                    near_ties += 1
+                    break
+                max_lp_err = max(max_lp_err, abs(float(torch.log_softmax(row, -1)[ref]) - float(got_lps[i])))
+                compared += 1
+                seq = torch.cat([seq, torch.tensor([[ref]], device="cuda")], dim=1)
+    return compared, near_ties, max_lp_err
 
 
 def phase_consistency(torch):
@@ -330,23 +391,8 @@ def phase_consistency(torch):
     eng = ServingEngine(model, num_slots=2, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
     uids = [eng.submit(p, n_new) for p in prompts]
     eng.run()
-    compared, near_ties, max_lp_err = 0, 0, 0.0
-    with torch.no_grad():
-        for uid, p in zip(uids, prompts):
-            got, got_lps = eng.poll(uid)[len(p):], eng.logprobs(uid)
-            seq = torch.as_tensor(p, device="cuda")[None].long()
-            for i in range(n_new):
-                row = model(seq)[0, -1].float()
-                top2 = torch.topk(row, 2).values
-                ref = int(torch.argmax(row))
-                if int(got[i]) != ref:
-                    gap = float(top2[0] - top2[1])
-                    check(gap < 1e-3, f"request {uid} token {i}: {int(got[i])} != {ref} with top-2 gap {gap}")
-                    near_ties += 1
-                    break
-                max_lp_err = max(max_lp_err, abs(float(torch.log_softmax(row, -1)[ref]) - float(got_lps[i])))
-                compared += 1
-                seq = torch.cat([seq, torch.tensor([[ref]], device="cuda")], dim=1)
+    served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+    compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit=1e-3)
     check(max_lp_err < 1e-3, f"logprob vs reference {max_lp_err} < 1e-3")
     row = {
         "phase": "consistency", "config": "TinyLlama widths, 2 layers, f32", "prompts": [len(p) for p in prompts],
@@ -756,6 +802,426 @@ def phase_flash_crossover(torch):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# quantized decode slice: the fused int4 kernel (K5), the reference kernels
+# (K6, K7), and the int4 model served and decoded
+# ---------------------------------------------------------------------------
+
+# K5 against its plain version: each element within t (|ref| + RMS(ref)). Both
+# sum exact products in f32 in another order, and the kernel's sums run on the
+# tensor cores; in bf16 and fp16 the results may round to neighbouring values
+# of the type. Each limit is a few times the largest error read on the card
+# over int4_kernel's and int4_sweep's cases (their err_over_tol; PERF.md).
+INT4_TOL = {"float32": 2e-5, "bfloat16": 8e-3, "float16": 2e-3}
+INT4_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))  # (in, out) of TinyLlama's projections
+INT4_MAIN_CASE = "2048x5632 M8"  # gate/up projection at the decode tick's batch: the kernels line's K5 row
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def int4_weight(torch, gen, k, n, g):
+    """A seeded N(0, 1/k) weight quantized to int4 with groups of ``g``:
+    ``(packed, scale, the decoded weight in bf16)``."""
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, dequantize, quantize
+
+    w = torch.randn(k, n, generator=gen, device="cuda") / k**0.5
+    qt = quantize(w, QuantizationConfig(method="int4", group_size=g))
+    return qt.data, qt.scale, dequantize(qt, torch.bfloat16)
+
+
+def int4_bound(x, packed, scale):
+    """Least time for one call: x, the codes and the scales read once and the
+    output written once over the HBM rate, against 2 M in out operations at
+    the tensor cores' bf16 rate."""
+    m, n = x.shape[0], packed.shape[-1]
+    nbytes = x.numel() * x.element_size() + packed.numel() + scale.numel() * 4 + m * n * x.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * x.shape[1] * n / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int4_compare(torch, qm, x, packed, scale, g):
+    """``(max abs error, max error over its tolerance)`` of K5 against its
+    plain version on these inputs."""
+    got = qm.int4_matmul(x, packed, scale, group_size=g)
+    torch.cuda.synchronize()
+    check(got.dtype == x.dtype and bool(torch.isfinite(got).all()), "int4 kernel output finite, in x's type")
+    want = qm.int4_matmul_plain(x, packed, scale, group_size=g)
+    return flash_err(torch, got, want, INT4_TOL[dtype_name(x.dtype)])
+
+
+def phase_int4_kernel(torch):
+    """K5 against its plain version at TinyLlama's four projection shapes x
+    M in {1, 8, 64, 256} (generate's and the tick's batches, the prefill
+    windows), x in bf16, fp16 and f32, groups of 128 and 64 (INT4_TOL). In
+    bf16 at group 128, the slice's configuration, its time (CUDA events, L2
+    flushed) beside its bound, its plain version's time and, as no single
+    PyTorch call computes this function, torch.matmul against the weight
+    decoded to bf16 beforehand, which reads four times the bytes."""
+    from accelerate_tpu_torch.ops import qmatmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    results = {}
+    for k, n in INT4_SHAPES:
+        row = {"phase": "int4_kernel", "shape": [k, n], "group_size": 128, "timed_dtype": "bfloat16", "cases": {}}
+        worst = 0.0
+        for g in (128, 64):
+            packed, scale, w_bf16 = int4_weight(torch, gen, k, n, g)
+            for m in (1, 8, 64, 256):
+                for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                    err, over = int4_compare(torch, qm, x, packed, scale, g)
+                    check(over <= 1.0, f"int4 kernel vs plain {k}x{n} M{m} g{g} {dtype}: {over} x its tolerance")
+                    worst = max(worst, over)
+                    if g != 128 or dtype != torch.bfloat16:
+                        continue
+                    bound_ms, bound_by = int4_bound(x, packed, scale)
+                    lib_err = (torch.matmul(x, w_bf16).float()
+                               - qm.int4_matmul_plain(x, packed, scale, group_size=g).float()).abs().max().item()
+                    case = {
+                        "max_abs_err": err, "err_over_tol": over,
+                        "ms": time_ms(torch, lambda: qm.int4_matmul(x, packed, scale, group_size=g), flush=flush),
+                        "plain_ms": time_ms(torch, lambda: qm.int4_matmul_plain(x, packed, scale, group_size=g),
+                                            reps=5, warmup=1, flush=flush),
+                        "library_ms": time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+                        "library": "torch.matmul on the weight decoded to bf16 beforehand (4x the bytes)",
+                        "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "plan": list(qm._split_plan(m, k // g, n)),
+                    }
+                    row["cases"][f"M{m}"] = case
+                    results[f"{k}x{n} M{m}"] = case
+            del packed, scale, w_bf16
+        row["worst_err_over_tol"] = worst
+        emit(row)
+    return results
+
+
+def phase_int4_sweep(torch):
+    """K5 against its plain version over the shapes it takes: odd batches,
+    out of 128 and 384, in equal to one group, groups of 64 to 512, every
+    dtype; the arguments it refuses; and QuantDense's four methods on the
+    card against the same layer on the CPU (1e-4 of the largest output: f32
+    sums in another order; w8a8's integer product is exact)."""
+    import itertools
+
+    from accelerate_tpu_torch.ops import qmatmul as qm
+    from accelerate_tpu_torch.ops.qdense import QuantDense
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst, n_cases = 0.0, 0
+    for dtype, g, m, n, groups in itertools.product(
+        (torch.float32, torch.bfloat16, torch.float16), (64, 128, 256, 512), (3, 17, 100), (128, 384), (1, 3)
+    ):
+        packed, scale, _ = int4_weight(torch, gen, groups * g, n, g)
+        x = torch.randn(m, groups * g, generator=gen, device="cuda").to(dtype)
+        _, over = int4_compare(torch, qm, x, packed, scale, g)
+        check(over <= 1.0, f"int4 sweep M{m} in{groups * g} out{n} g{g} {dtype}: {over} x its tolerance")
+        worst, n_cases = max(worst, over), n_cases + 1
+
+    packed, scale, _ = int4_weight(torch, gen, 256, 256, 64)
+    x = torch.randn(4, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    before = qm.launches
+    refused = [
+        (ValueError, lambda: qm.int4_matmul(x, packed, scale, group_size=128)),  # packed inconsistent with g
+        (ValueError, lambda: qm.int4_matmul(x[:, :128], packed, scale, group_size=64)),  # in != groups x g
+        (ValueError, lambda: qm.int4_matmul(x, *int4_weight(torch, gen, 256, 256, 32)[:2], group_size=32)),  # g % 64
+        (ValueError, lambda: qm.int4_matmul(x, packed[:, :, :192].contiguous(), scale[:, :, :192].contiguous(),
+                                            group_size=64)),  # out % 128
+        (ValueError, lambda: qm.int4_matmul(x.T.contiguous().T, packed, scale, group_size=64)),  # not contiguous
+        (ValueError, lambda: qm.int4_matmul(x, packed.cpu(), scale, group_size=64)),  # devices differ
+        (TypeError, lambda: qm.int4_matmul(x, packed.to(torch.int8), scale, group_size=64)),
+        (TypeError, lambda: qm.int4_matmul(x, packed, scale.to(torch.bfloat16), group_size=64)),
+        (TypeError, lambda: qm.int4_matmul(x.to(torch.float64), packed, scale, group_size=64)),
+    ]
+    for exc, call in refused:
+        try:
+            call()
+        except exc:
+            continue
+        raise RuntimeError("check failed: int4_matmul accepted arguments it must refuse")
+    check(qm.launches == before, "a refused call launches nothing")
+
+    dense_err = {}
+    for method, g in (("int8", None), ("int8", 64), ("w8a8", None), ("int4", 64), ("int4", 32), ("nf4", 64)):
+        w = torch.randn(256, 384, generator=gen, device="cuda") / 16.0
+        qt = quantize(w, QuantizationConfig(method=method, group_size=g, bits=8 if method in ("int8", "w8a8") else 4))
+        layer = QuantDense(256, 384, method=method, group_size=g)
+        layer.load_state_dict({"qdata": qt.data.cpu(), "qscale": qt.scale.cpu()})
+        x = torch.randn(5, 256, generator=gen, device="cuda")
+        before = qm.launches
+        with torch.no_grad():
+            want = layer(x.cpu())
+            got = layer.cuda()(x)
+        check(qm.launches == before + (1 if (method, g) == ("int4", 64) else 0), f"QuantDense {method} g{g} dispatch")
+        # the kernel rounds x to bf16, the CPU's dequantize path does not
+        tol = 1e-2 if (method, g) == ("int4", 64) else 1e-4
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        check(err <= tol, f"QuantDense {method} g{g} on the card vs the CPU: {err} <= {tol}")
+        dense_err[f"{method}-g{g}"] = err
+    emit({"phase": "int4_sweep", "cases": n_cases, "worst_err_over_tol": worst, "refused_calls": len(refused),
+          "qdense_card_vs_cpu_rel_err": dense_err})
+
+
+def phase_int4_host_cost(torch):
+    """What one projection costs the host at the decode tick's batch (M 8,
+    2048 -> 2048, bf16 stream): seconds to enqueue 2000 calls back to back,
+    a call, for an int4 QuantDense (K5's wrapper: its checks, two
+    allocations, the stream lookup, one ctypes call, two launches) beside an
+    nn.Linear; ``total_us`` ends in a synchronize, so it is the larger of
+    the host's and the card's time a call. The decode tick is bound by the
+    host, so this is what the int4 model's tokens/s follows."""
+    from torch import nn
+
+    from accelerate_tpu_torch.ops.qdense import QuantDense
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    k = n = 2048
+    qt = quantize(torch.randn(k, n, generator=gen, device="cuda") / k**0.5, QuantizationConfig(method="int4", group_size=128))
+    layer = QuantDense(k, n, method="int4", group_size=128).cuda()
+    layer.load_state_dict({"qdata": qt.data, "qscale": qt.scale})
+    linear = nn.Linear(k, n, bias=False, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(8, 1, k, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def per_call(fn, calls=2000):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return {"host_us": (t1 - t0) / calls * 1e6, "total_us": (time.perf_counter() - t0) / calls * 1e6}
+
+    with torch.no_grad():
+        row = {
+            "phase": "int4_host_cost", "shape": [8, k, n], "calls": 2000,
+            "quant_dense_int4": per_call(lambda: layer(x)), "nn_linear_bf16": per_call(lambda: linear(x)),
+            "torch_empty": per_call(lambda: torch.empty((8, n), dtype=torch.bfloat16, device="cuda")),
+            "current_stream": per_call(lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        }
+    emit(row)
+    return row
+
+
+def spec_bound(spec, *operands):
+    """Least time by a registered cost contract: its declared HBM bytes over
+    the memory rate against its declared FLOPs at the peak rate of the
+    operands' type."""
+    t_bytes = spec.hbm_bytes(*operands) / HBM_BYTES_PER_S * 1e3
+    t_ops = spec.flops(*operands) / PEAK_FLOPS[dtype_name(operands[0].dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_reference_kernels(torch):
+    """K6 (softmax(x @ w)) and K7 (acc += delta) through their public
+    wrappers, the counts read around that drive; then each against its plain
+    version. K6 at the selfcheck shape (8, 128) @ (128, 256) and at the
+    decode-logits shape (8, 2048) @ (2048, 32000), f32 and bf16: every
+    probability within 1e-4 (|ref| + RMS(ref)) (f32 sums in another order),
+    rows summing to 1 within 1e-5. K7 at [8, 256] and [4096, 4096], f32 and
+    bf16: equal bit for bit (one f32 add, one rounding, as torch's add).
+    Times (CUDA events, L2 flushed) beside the bound from each kernel's
+    registered cost contract, the bound with every input read once and the
+    output written once, the plain version's time and one library call's
+    (F.softmax(x @ w) is two; acc.add_(delta))."""
+    from accelerate_tpu_torch.kernels import reference as ref
+    from accelerate_tpu_torch.kernels.contracts import registered_spec
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    soft_spec, acc_spec = registered_spec("block_matmul_softmax"), registered_spec("block_accumulate")
+    check(soft_spec.flops(torch.empty(8, 128), torch.empty(128, 256)) == 552_960,
+          "the registered K6 contract declares 552,960 FLOPs at the selfcheck shape")
+
+    def operands(shape_x, shape_w, dtype):
+        x = torch.randn(*shape_x, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(*shape_w, generator=gen, device="cuda") / shape_w[0] ** 0.5).to(dtype)
+        return x, w
+
+    # the drive: a user's calls, counted
+    ref.launches_matmul_softmax = ref.launches_accumulate = 0
+    x, w = operands((8, 2048), (2048, 32000), torch.bfloat16)
+    acc = torch.zeros(8, 32000, device="cuda")
+    for _ in range(4):
+        probs = ref.block_matmul_softmax(x, w)
+        ref.block_accumulate(acc, probs)
+    torch.cuda.synchronize()
+    launches = {"matmul_softmax": ref.launches_matmul_softmax, "accumulate": ref.launches_accumulate}
+    check(launches == {"matmul_softmax": 4, "accumulate": 4}, f"reference kernels launched once a call: {launches}")
+    check(bool(torch.isfinite(acc).all()) and float((acc.sum(-1) - 4.0).abs().max()) < 1e-4,
+          "four accumulated softmaxes sum to 4 a row")
+
+    rows = {"phase": "reference_kernels", "launches": launches, "matmul_softmax": {}, "accumulate": {}}
+    for name, shape_x, shape_w, dtype in (
+        ("selfcheck-f32", (8, 128), (128, 256), torch.float32),
+        ("logits-f32", (8, 2048), (2048, 32000), torch.float32),
+        ("logits-bf16", (8, 2048), (2048, 32000), torch.bfloat16),
+    ):
+        x, w = operands(shape_x, shape_w, dtype)
+        got, want = ref.block_matmul_softmax(x, w), ref.block_matmul_softmax_plain(x, w)
+        torch.cuda.synchronize()
+        err, over = flash_err(torch, got, want, 1e-4)
+        check(over <= 1.0, f"K6 vs plain ({name}): {over} x its tolerance")
+        check(float((got.sum(-1) - 1.0).abs().max()) < 1e-5 and float(got.min()) >= 0.0, f"K6 rows sum to 1 ({name})")
+        bound_ms, bound_by = spec_bound(soft_spec, x, w)
+        # every input read once, the output written once, against the contract's operations
+        t_bytes = (x.numel() * x.element_size() + w.numel() * w.element_size() + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        t_ops = soft_spec.flops(x, w) / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+        rows["matmul_softmax"][name] = {
+            "max_abs_err": err, "err_over_tol": over,
+            "ms": time_ms(torch, lambda: ref.block_matmul_softmax(x, w), flush=flush),
+            "plain_ms": time_ms(torch, lambda: ref.block_matmul_softmax_plain(x, w), flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.softmax(x.float() @ w.float(), dim=-1), flush=flush),
+            "spec_bound_ms": bound_ms, "spec_bound_by": bound_by, "spec_flops": soft_spec.flops(x, w),
+            "spec_hbm_bytes": soft_spec.hbm_bytes(x, w), "spec_smem_bytes": soft_spec.smem_bytes(x, w),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+    for name, shape, dtype in (("small-f32", (8, 256), torch.float32), ("small-bf16", (8, 256), torch.bfloat16),
+                               ("4096-f32", (4096, 4096), torch.float32), ("4096-bf16", (4096, 4096), torch.bfloat16),
+                               ("ragged-bf16", (8, 1001), torch.bfloat16)):
+        acc = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        delta = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        want = ref.block_accumulate_plain(acc.clone(), delta)
+        got = ref.block_accumulate(acc, delta)
+        torch.cuda.synchronize()
+        check(got is acc and torch.equal(acc, want), f"K7 in place and equal to acc.add_(delta) ({name})")
+        bound_ms, bound_by = spec_bound(acc_spec, acc, delta)  # the contract's bytes are the least: 2 reads, 1 write
+        rows["accumulate"][name] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: ref.block_accumulate(acc, delta), flush=flush),
+            "plain_ms": time_ms(torch, lambda: ref.block_accumulate_plain(acc, delta), flush=flush),
+            "library_ms": time_ms(torch, lambda: acc.add_(delta), flush=flush),
+            "spec_bound_ms": bound_ms, "spec_bound_by": bound_by, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    emit(rows)
+    return rows
+
+
+def quantize_for_serving(torch, model):
+    """The bf16 model's projections quantized to int4 (group 128) by
+    load_and_quantize_model: ``(quantized model, seconds it took, bytes of
+    the bf16 parameters)``. The embedding, norms and LM head are shared."""
+    from accelerate_tpu_torch import QuantizationConfig, load_and_quantize_model
+    from accelerate_tpu_torch.ops.qdense import QuantDense
+    from accelerate_tpu_torch.utils.quantization import quantized_bytes
+
+    t0 = time.perf_counter()
+    qmodel = load_and_quantize_model(model, QuantizationConfig(method="int4", group_size=128))
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check(sum(isinstance(mod, QuantDense) for mod in qmodel.module.modules()) == 7 * qmodel.config.num_hidden_layers,
+          "every projection is a QuantDense")
+    return qmodel, quantize_s, quantized_bytes(model.params)
+
+
+def phase_quant_serve(torch, qmodel, serve, quantize_s, bf16_bytes):
+    """The serve phase's engine and prompts on the int4 model (the bf16
+    model freed beforehand, so the peak memory is the int4 model's own): K5
+    launches == 154 x the forwards the engine ran, K4 == 22 x decode steps;
+    beside the bf16 serve phase's numbers from this run."""
+    from accelerate_tpu_torch.utils.quantization import quantized_bytes
+
+    row = serve_run(torch, qmodel, "quant_serve", "TinyLlama-1.1B shape, int4 g128 projections, bf16 stream")
+    row.update({
+        "quantize_s": quantize_s, "quantized_bytes": quantized_bytes(qmodel.params), "bf16_parameter_bytes": bf16_bytes,
+        "bf16_serve": {k: serve[k] for k in ("tokens_per_s", "ttft_ms_mean", "ttft_ms_p50", "itl_ms_p50",
+                                             "peak_memory_gb", "wall_s")},
+    })
+    emit(row)
+    return row
+
+
+def generate_run(torch, m, name):
+    """generate (batch 8, prompt 32, 32 new tokens, greedy) and
+    per_token_latency (batch 8, prompt 32) on one model: K5 launches == 154
+    x the forwards of an int4 model, none for a float one."""
+    from accelerate_tpu_torch import generate, per_token_latency
+    from accelerate_tpu_torch.ops import qmatmul
+
+    ids = np.random.default_rng(6).integers(1, m.config.vocab_size, size=(8, 32)).astype(np.int32)
+    forwards = [0]
+    hook = m.module.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    qmatmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(m, ids, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tuple(out.shape) == (8, 64) and bool((out[:, :32].cpu().numpy() == ids).all()), f"generate shape ({name})")
+    check(int(out.min()) >= 0 and int(out.max()) < m.config.vocab_size, f"generated ids in the vocabulary ({name})")
+    check(forwards[0] == 32, f"generate ran 32 forwards ({name}): {forwards[0]}")
+    latency = per_token_latency(m, batch_size=8, prompt_len=32, n_tokens=8)
+    hook.remove()
+    per_forward = 7 * m.config.num_hidden_layers if m.config.quant_method == "int4" else 0
+    check(qmatmul.launches == per_forward * forwards[0],
+          f"int4 launches {qmatmul.launches} == {per_forward} x {forwards[0]} forwards ({name})")
+    return {"generate_wall_s": wall, "generate_tokens_per_s": 8 * 32 / wall, "per_token_latency_ms": latency * 1e3,
+            "forwards": forwards[0], "int4_launches": qmatmul.launches}
+
+
+def phase_quant_consistency(torch):
+    """TinyLlama widths, 2 layers, f32 stream, int4 g128: greedy serving (K5
+    + K4) and generate (K5 + the dense cache) against a no-cache greedy loop
+    over the same model with each QuantDense replaced by an nn.Linear
+    holding the decoded weight. K5 rounds its input to bf16 and the
+    reference does not, so a token may differ where the reference's top-2
+    logit gap is under 0.05 (that ends the request's comparison), and
+    logprobs agree within 0.05: a few times the differences read on the card
+    (PERF.md)."""
+    from torch import nn
+
+    from accelerate_tpu_torch import (LlamaConfig, QuantizationConfig, ServingEngine, create_llama_model, generate,
+                                      load_and_quantize_model)
+    from accelerate_tpu_torch.ops import qmatmul
+    from accelerate_tpu_torch.ops.qdense import QuantDense
+    from accelerate_tpu_torch.utils.quantization import grouped_dequantize
+
+    gap_limit = lp_limit = 0.05
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2})
+    model = create_llama_model(cfg, seed=3, dtype=torch.float32)
+    qmodel = load_and_quantize_model(model, QuantizationConfig(method="int4", group_size=128))
+    # the reference: the float model with every projection's weight replaced by the decoded one
+    for name, mod in qmodel.module.named_modules():
+        if isinstance(mod, QuantDense):
+            w = grouped_dequantize(mod.qdata, mod.qscale, "int4").reshape(mod.in_features, mod.features)
+            linear = model.module.get_submodule(name)
+            check(isinstance(linear, nn.Linear), f"{name} is an nn.Linear in the float model")
+            linear.weight.data = w.T.contiguous()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (7, 70, 300)]
+    n_new = 16
+    qmatmul.launches = 0
+    eng = ServingEngine(qmodel, num_slots=2, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
+    uids = [eng.submit(p, n_new) for p in prompts]
+    eng.run()
+    check(qmatmul.launches == 7 * 2 * (eng.prefill_forwards + eng.decode_steps), "the engine's projections ran K5")
+    served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+    compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit)
+    check(max_lp_err < lp_limit, f"served logprob vs reference {max_lp_err} < {lp_limit}")
+
+    ids = rng.integers(1, cfg.vocab_size, size=(2, 16)).astype(np.int32)
+    out = generate(qmodel, ids, max_new_tokens=8).cpu().numpy()
+    with torch.no_grad():
+        lps = torch.log_softmax(model(torch.as_tensor(out[:, :-1], device="cuda").long()).float(), -1)
+    gen_lps = lps.gather(-1, torch.as_tensor(out[:, 1:], device="cuda").long()[..., None])[..., 0][:, 15:].cpu().numpy()
+    generated = [(ids[i], out[i, 16:], gen_lps[i]) for i in range(2)]
+    g_compared, g_ties, _ = greedy_against_reference(torch, model, generated, gap_limit)
+    row = {
+        "phase": "quant_consistency", "config": "TinyLlama widths, 2 layers, f32 stream, int4 g128",
+        "prompts": [len(p) for p in prompts], "tokens_compared": compared, "stopped_at_near_tie": near_ties,
+        "max_logprob_err": max_lp_err, "gap_limit": gap_limit, "logprob_limit": lp_limit,
+        "generate_tokens_compared": g_compared, "generate_stopped_at_near_tie": g_ties,
+    }
+    emit(row)
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -781,30 +1247,60 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
+    # `--only paged,flash,int4,reference,serve,consistency,train` runs some groups of phases while a
+    # kernel is being worked on; it prints no kernels line and no "ok"
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
+
     phase_build()
     print(smi, flush=True)
-    kernel = phase_kernel(torch)
-    phase_kernel_sweep(torch)
-    flash = phase_flash_kernel(torch)["bf16"]  # the training slice's dtype and shapes
-    phase_flash_sweep(torch)
-    serve, model = phase_serve(torch)
-    phase_profile(torch, model)
-    del model
-    phase_consistency(torch)
-    train, acc, model, step, batches = phase_train(torch)
-    phase_train_profile(torch, step, batches)
-    del acc, model, step, batches
-    torch.cuda.empty_cache()
-    phase_train_consistency(torch, "no")
-    phase_train_consistency(torch, "bf16")
-    phase_flash_crossover(torch)
+    if not only or "paged" in only:
+        kernel = phase_kernel(torch)
+        phase_kernel_sweep(torch)
+    if not only or "flash" in only:
+        flash = phase_flash_kernel(torch)["bf16"]  # the training slice's dtype and shapes
+        phase_flash_sweep(torch)
+    if not only or "int4" in only:
+        int4 = phase_int4_kernel(torch)[INT4_MAIN_CASE]
+        phase_int4_sweep(torch)
+        phase_int4_host_cost(torch)
+    if not only or "reference" in only:
+        reference = phase_reference_kernels(torch)
+    if not only or "serve" in only:
+        serve, model = phase_serve(torch)
+        phase_profile(torch, model)
+        quant_generate = {"phase": "quant_generate", "batch": 8, "prompt_len": 32, "max_new_tokens": 32,
+                          "bf16": generate_run(torch, model, "bf16")}
+        qmodel, quantize_s, bf16_bytes = quantize_for_serving(torch, model)
+        del model  # the bf16 projections go; the int4 model keeps the shared embedding, norms and LM head
+        free_memory(torch)
+        quant_serve = phase_quant_serve(torch, qmodel, serve, quantize_s, bf16_bytes)
+        phase_profile(torch, qmodel, phase="quant_profile", what="TinyLlama shape, int4 g128 projections, bf16 stream")
+        quant_generate["int4"] = generate_run(torch, qmodel, "int4")
+        emit(quant_generate)
+        del qmodel
+        free_memory(torch)
+    if not only or "consistency" in only:
+        phase_consistency(torch)
+        phase_quant_consistency(torch)
+    if not only or "train" in only:
+        train, acc, model, step, batches = phase_train(torch)
+        phase_train_profile(torch, step, batches)
+        del acc, model, step, batches
+        torch.cuda.empty_cache()
+        phase_train_consistency(torch, "no")
+        phase_train_consistency(torch, "bf16")
+        phase_flash_crossover(torch)
+    if only:
+        emit({"partial": sorted(only)})
+        return 0
 
     main_case = kernel["bf16"]  # the serving slice's dtype and shapes
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
-        "launches": serve["kernel_launches"], "max_abs_err": main_case["max_abs_err"],
+        # both serving paths: the bf16 model's and the int4 model's
+        "launches": serve["kernel_launches"] + quant_serve["kernel_launches"], "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
     }]
@@ -818,6 +1314,26 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv
             "library_ms": flash["library_fwd_ms"] if kind == "fwd" else flash["library_bwd_ms"],
+        })
+    kernels.append({
+        "name": "int4_matmul", "route": "cuda", "source": "accelerate_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "accelerate_tpu/ops/pallas_qmatmul.py:41", "case": INT4_MAIN_CASE,
+        # the main path's launches: the int4 model served, then decoded by generate and per_token_latency
+        "launches": quant_serve["int4_launches"] + quant_generate["int4"]["int4_launches"],
+        "max_abs_err": int4["max_abs_err"], "ms": int4["ms"], "plain_ms": int4["plain_ms"],
+        "bound_ms": int4["bound_ms"], "bound_by": int4["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it; int4_kernel times torch.matmul on a decoded weight
+    })
+    for key, name, line, case in (("matmul_softmax", "block_matmul_softmax", 79, "logits-bf16"),
+                                  ("accumulate", "block_accumulate", 139, "4096-f32")):
+        row = reference[key][case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "accelerate_tpu_torch/csrc/reference_kernels.cu",
+            "replaces": f"accelerate_tpu/kernels/reference.py:{line}", "case": case,
+            "launches": reference["launches"][key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # K7: acc.add_(delta); K6: no single call (F.softmax(x @ w) is two, timed in reference_kernels)
+            "library_ms": row["library_ms"] if key == "accumulate" else None,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,18 @@ import pytest
 import torch
 
 import accelerate_tpu_torch
-from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model
-from accelerate_tpu_torch.kernels import build
+from accelerate_tpu_torch import (
+    Accelerator,
+    LlamaConfig,
+    QuantizationConfig,
+    ServingEngine,
+    create_llama_model,
+    load_and_quantize_model,
+)
+from accelerate_tpu_torch.kernels import build, reference
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
+from accelerate_tpu_torch.ops import qmatmul
 from accelerate_tpu_torch.ops.attention import dot_product_attention
 
 torch.set_num_threads(2)
@@ -47,7 +55,8 @@ def test_importing_every_module_loads_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    for name in ("serving", "accelerator", "ops.flash_attention", "state", "optimizer", "scheduler"):
+    for name in ("serving", "accelerator", "ops.flash_attention", "state", "optimizer", "scheduler", "generation",
+                 "utils.quantization", "ops.qmatmul", "ops.qdense", "kernels.contracts", "kernels.reference"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -72,6 +81,45 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         create_llama_model(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model, paged_block_size=4)
+    # a quantized model is no exception: without a card and without device="cpu" nothing runs
+    qmodel = load_and_quantize_model(model, QuantizationConfig(method="int4", group_size=32))
+    assert qmodel.device.type == "cpu"  # it lives where the float model lived
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(qmodel, paged_block_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_llama_model(LlamaConfig.tiny(quant_method="int4", quant_group_size=32))
+
+
+def test_quantized_model_cannot_be_prepared_for_training():
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    model = create_llama_model(LlamaConfig.tiny(), device="cpu")
+    qmodel = load_and_quantize_model(model, QuantizationConfig(method="int8"))
+    with pytest.raises(NotImplementedError, match="quantized"):
+        Accelerator(cpu=True).prepare_model(qmodel)
+    assert not any(p.requires_grad for p in qmodel.module.parameters())
+
+
+def test_new_kernel_wrappers_take_plain_versions_on_cpu_only():
+    """K5-K7 on CPU tensors compute their plain versions and launch
+    nothing; the kernel libraries are never asked for."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 128, generator=gen)
+    packed = torch.randint(0, 256, (2, 32, 128), generator=gen, dtype=torch.uint8)
+    scale = torch.rand(2, 1, 128, generator=gen)
+    before = (qmatmul.launches, reference.launches_matmul_softmax, reference.launches_accumulate)
+    got = qmatmul.int4_matmul(x, packed, scale, group_size=64)
+    torch.testing.assert_close(got, qmatmul.int4_matmul_plain(x, packed, scale, group_size=64), rtol=0, atol=0)
+    w = torch.randn(128, 40, generator=gen)
+    soft = reference.block_matmul_softmax(torch.randn(8, 128, generator=gen), w)
+    assert soft.shape == (8, 40)
+    acc = torch.zeros(8, 40)
+    assert reference.block_accumulate(acc, soft) is acc and torch.equal(acc, soft)
+    assert (qmatmul.launches, reference.launches_matmul_softmax, reference.launches_accumulate) == before
+    for name in ("int4_matmul", "reference_kernels"):
+        assert name in build.SIGNATURES and (build.CSRC / f"{name}.cu").exists()
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu_only():
@@ -119,7 +167,7 @@ def test_flash_path_is_not_quietly_replaced():
 
 @pytest.mark.parametrize(
     "knob", [{"qk_norm": True}, {"sandwich_norm": True}, {"attn_logit_softcap": 50.0},
-             {"layer_types": ("full_attention",) * 2}, {"quant_method": "int8"}]
+             {"layer_types": ("full_attention",) * 2}, {"qkv_bias": True}]
 )
 def test_unported_llama_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

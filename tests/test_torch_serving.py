@@ -14,10 +14,18 @@ import pytest
 import torch
 
 import accelerate_tpu.ops.paged_kv as jax_paged_kv
+import accelerate_tpu.utils.quantization as jq
 from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
 from accelerate_tpu.models import create_llama_model as jax_create_llama_model
 from accelerate_tpu.serving import ServingEngine as JaxServingEngine
-from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model, llama_params_from_jax
+from accelerate_tpu_torch import (
+    LlamaConfig,
+    QuantizationConfig,
+    ServingEngine,
+    create_llama_model,
+    llama_params_from_jax,
+    load_and_quantize_model,
+)
 from accelerate_tpu_torch.scheduling import SchedulerConfig
 
 torch.set_num_threads(2)
@@ -52,11 +60,11 @@ def _drive(engine, prompts, max_new, stops=None, late=()):
     return [(engine.poll(u), engine.logprobs(u)) for u in uids]
 
 
-def _assert_same(jax_out, port_out):
+def _assert_same(jax_out, port_out, lp_atol=LP_ATOL):
     assert len(jax_out) == len(port_out)
     for (jt, jl), (tt, tl) in zip(jax_out, port_out):
         np.testing.assert_array_equal(tt, jt)
-        np.testing.assert_allclose(tl, jl, atol=LP_ATOL, rtol=0)
+        np.testing.assert_allclose(tl, jl, atol=lp_atol, rtol=0)
 
 
 # 2 slots for 7 requests; buckets up to 8 so the 19- and 26-token prompts
@@ -79,6 +87,34 @@ def test_matches_jax_engine_mixed_lengths_tight_pool_midstream(models):
     assert eng.pool_free_blocks == ENGINE["pool_blocks"] - 1  # every block back, trash sink excluded
     snap = eng.metrics.snapshot()
     assert snap["requests_completed"] == len(prompts) + len(late) and snap["tokens_generated"] == 6 * 7
+
+
+@pytest.mark.parametrize("method,group_size", [("int4", 64), ("int8", None), ("nf4", 16), ("w8a8", None)])
+def test_quantized_model_serves_as_the_jax_engine_does(method, group_size):
+    """A weight-only quantized Llama is a Model like any other: the JAX
+    package quantizes, its codes are carried across, and both paged engines
+    serve it, chunked prefill and a tight pool included; the port's own
+    load_and_quantize_model of the float weights serves the same tokens.
+    Logprobs within 1e-4, but for w8a8: it rounds every projection's input
+    to int8, so a last-bit difference in an activation on a rounding tie
+    flips a code and stays in the KV cache (logprobs within 5e-2 then)."""
+    bits = 8 if method in ("int8", "w8a8") else 4
+    lp_atol = 5e-2 if method == "w8a8" else LP_ATOL
+    jmodel = jax_create_llama_model(JaxLlamaConfig.tiny(hidden_size=128, intermediate_size=256), seed=2, seq_len=16)
+    jqmodel = jq.load_and_quantize_model(jmodel, jq.QuantizationConfig(method=method, group_size=group_size, bits=bits))
+    qcfg = LlamaConfig(**dataclasses.asdict(jqmodel.config))
+    qmodel = create_llama_model(qcfg, device="cpu")
+    qmodel.load_state_dict(llama_params_from_jax(jax.tree.map(np.asarray, jqmodel.params), qcfg))
+    prompts, late = _prompts(10, (3, 19, 5)), _prompts(11, (9,))
+    want = _drive(JaxServingEngine(jqmodel, **ENGINE), prompts, 6, late=late)
+    eng = ServingEngine(qmodel, device="cpu", **ENGINE)
+    _assert_same(want, _drive(eng, prompts, 6, late=late), lp_atol)
+    assert eng.pool_free_blocks == ENGINE["pool_blocks"] - 1
+    fcfg = LlamaConfig(**dataclasses.asdict(jmodel.config))
+    fmodel = create_llama_model(fcfg, device="cpu")
+    fmodel.load_state_dict(llama_params_from_jax(jax.tree.map(np.asarray, jmodel.params), fcfg))
+    own = load_and_quantize_model(fmodel, QuantizationConfig(method=method, group_size=group_size, bits=bits))
+    _assert_same(want, _drive(ServingEngine(own, device="cpu", **ENGINE), prompts, 6, late=late), lp_atol)
 
 
 def test_eos_and_stop_sequences_match_jax(models):
