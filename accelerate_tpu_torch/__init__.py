@@ -14,7 +14,13 @@ package imports nothing of it (nor of jax). Its slices so far:
 * weight-only quantized decode: ``load_and_quantize_model`` turns a Llama's
   projections into ``QuantDense`` layers (int8, w8a8, int4, nf4), served by
   ``ServingEngine`` or ``generate``; the int4 product is a hand-written
-  fused dequantize-matmul kernel (``csrc/int4_matmul.cu``).
+  fused dequantize-matmul kernel (``csrc/int4_matmul.cu``);
+* the kernel check: ``Accelerator.kernel_check`` and
+  ``python -m accelerate_tpu_torch.commands.kernelcheck`` trace a function
+  on ``meta`` tensors and check every CUDA launch its kernel wrappers
+  would make with the TPU1001-1006 rules, re-derived for Hopper
+  (:mod:`.analysis`); its seeded-defect fixtures run as hand-written
+  kernels too (``csrc/kernel_fixtures.cu``).
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).

@@ -352,6 +352,42 @@ class Accelerator:
         self._clip_max_norm = max_norm
         return self._last_grad_norm
 
+    def kernel_check(
+        self,
+        step_fn: Callable,
+        *sample_args,
+        generation: Optional[str] = None,
+        probe: bool = True,
+        ignore=(),
+    ):
+        """Static analysis of the CUDA kernels ``step_fn`` launches, before
+        any is built: ``step_fn`` is traced on ``meta`` copies of the
+        sample arguments (only their shapes and dtypes are read), every
+        launch site its kernel wrappers record (grid, tiles, index maps,
+        shared memory, aliases) is checked with the TPU10xx rules
+        (:mod:`.analysis.kernel_rules`: shared memory against the card's
+        per-block maximum, tile alignment, index-map coverage and races,
+        alias hazards, registered cost contracts), and with ``probe`` the
+        function runs once on concrete operands on this accelerator's
+        device (the kernels on the card, their plain versions on the CPU).
+
+        Returns a :class:`~.analysis.KernelReport` (``.render_text()`` /
+        ``.as_dict()``); error-severity findings are logged.
+        """
+        from .analysis import render_text
+        from .analysis.kernelmodel import kernel_check as _kernel_check
+
+        report = _kernel_check(
+            step_fn, *sample_args, generation=generation, probe=probe, ignore=ignore, device=self.device
+        )
+        if not report.ok:
+            logger.warning(
+                "kernel-check found issues in %s:\n%s",
+                getattr(step_fn, "__name__", "step_fn"),
+                render_text(report.findings),
+            )
+        return report
+
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         """Models are never wrapped; returns ``model``."""
         return model

@@ -198,15 +198,14 @@ __global__ void __launch_bounds__(kNormThreads)
 }
 
 template <typename T>
-cudaError_t launch_softmax(const void* x, const void* w, float* out, float* part_m, float* part_l, int b, int d,
-                           int n, cudaStream_t stream) {
-  const int n_tiles = (n + kLogitThreads - 1) / kLogitThreads;
-  matmul_softmax_logits<T><<<dim3(n_tiles, b / kRows), kLogitThreads, 0, stream>>>(
+cudaError_t launch_softmax(const void* x, const void* w, float* out, float* part_m, float* part_l, int d, int n,
+                           int n_tiles, int row_blocks, cudaStream_t stream) {
+  matmul_softmax_logits<T><<<dim3(n_tiles, row_blocks), kLogitThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), out, part_m, part_l, d, n, n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  matmul_softmax_normalise<<<dim3((n + kNormCols - 1) / kNormCols, b), kNormThreads, 0, stream>>>(out, part_m, part_l,
-                                                                                                  n, n_tiles);
+  matmul_softmax_normalise<<<dim3((n + kNormCols - 1) / kNormCols, row_blocks * kRows), kNormThreads, 0, stream>>>(
+      out, part_m, part_l, n, n_tiles);
   return cudaGetLastError();
 }
 
@@ -232,50 +231,80 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T>
-cudaError_t launch_accumulate(void* acc, const void* delta, long long count, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const long long vecs = count / V;
-  long long blocks = (vecs + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  accumulate_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(static_cast<T*>(acc), static_cast<const T*>(delta),
-                                                          (size_t)count);
+cudaError_t launch_accumulate(void* acc, const void* delta, long long count, int blocks, int threads,
+                              cudaStream_t stream) {
+  accumulate_kernel<T><<<blocks, threads, 0, stream>>>(static_cast<T*>(acc), static_cast<const T*>(delta),
+                                                       (size_t)count);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype of x and w: 0 = float32, 1 = bfloat16, 2 = float16; out is f32.
-// b must divide by 8. Scratch (f32): part_m and part_l [b, ceil(n / 128)].
-// Returns the cudaError_t of the launches (0 on success).
+// The logits pass's grid and threads are the caller's launch declaration
+// (kernels/reference.py): grid (n_tiles, row_blocks) of 128 threads, one
+// 128-column tile and 8 rows a block. A declaration that does not tile
+// [b, n] exactly so is refused. Scratch (f32): part_m and part_l
+// [b, n_tiles]. Returns the cudaError_t of the launches (0 on success).
 extern "C" int block_matmul_softmax(const void* x, const void* w, float* out, float* part_m, float* part_l,
-                                    int dtype, int b, int d, int n, void* stream) {
-  if (b <= 0 || b % kRows != 0 || d <= 0 || n <= 0 || b > 65535) return (int)cudaErrorInvalidValue;
+                                    int dtype, int b, int d, int n, int n_tiles, int row_blocks, int threads,
+                                    void* stream) {
+  if (d <= 0 || n <= 0 || threads != kLogitThreads || row_blocks <= 0 || row_blocks > 65535 / kRows ||
+      b != row_blocks * kRows || n_tiles <= 0 || (long long)(n_tiles - 1) * kLogitThreads >= n ||
+      (long long)n_tiles * kLogitThreads < n)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch_softmax<float>(x, w, out, part_m, part_l, b, d, n, s);
+      return (int)launch_softmax<float>(x, w, out, part_m, part_l, d, n, n_tiles, row_blocks, s);
     case 1:
-      return (int)launch_softmax<__nv_bfloat16>(x, w, out, part_m, part_l, b, d, n, s);
+      return (int)launch_softmax<__nv_bfloat16>(x, w, out, part_m, part_l, d, n, n_tiles, row_blocks, s);
     case 2:
-      return (int)launch_softmax<__half>(x, w, out, part_m, part_l, b, d, n, s);
+      return (int)launch_softmax<__half>(x, w, out, part_m, part_l, d, n, n_tiles, row_blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// cudaFuncGetAttributes of kernel `which` (f32 instances: 0 the logits pass
+// of block_matmul_softmax, 1 its normalise pass, 2 block_accumulate):
+// out[0] sharedSizeBytes (static), out[1] numRegs, out[2]
+// maxThreadsPerBlock. Returns the cudaError_t.
+extern "C" int reference_kernels_func_attributes(int which, int* out) {
+  const void* fn = which == 0   ? (const void*)matmul_softmax_logits<float>
+                   : which == 1 ? (const void*)matmul_softmax_normalise
+                   : which == 2 ? (const void*)accumulate_kernel<float>
+                                : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  out[0] = (int)attr.sharedSizeBytes;
+  out[1] = attr.numRegs;
+  out[2] = attr.maxThreadsPerBlock;
+  return 0;
+}
+
 // acc and delta: `count` elements of one dtype (codes as above), both
-// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
-extern "C" int block_accumulate(void* acc, const void* delta, int dtype, long long count, void* stream) {
-  if (count <= 0) return (int)cudaErrorInvalidValue;
+// 16-byte aligned. `blocks` x `threads` is the caller's launch declaration
+// (kernels/reference.py); the grid-stride loop covers any such grid, and
+// threads must be a whole number of warps up to the kernel's 256. Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int block_accumulate(void* acc, const void* delta, int dtype, long long count, int blocks, int threads,
+                                void* stream) {
+  if (count <= 0 || blocks <= 0 || threads <= 0 || threads > 256 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch_accumulate<float>(acc, delta, count, s);
+      return (int)launch_accumulate<float>(acc, delta, count, blocks, threads, s);
     case 1:
-      return (int)launch_accumulate<__nv_bfloat16>(acc, delta, count, s);
+      return (int)launch_accumulate<__nv_bfloat16>(acc, delta, count, blocks, threads, s);
     case 2:
-      return (int)launch_accumulate<__half>(acc, delta, count, s);
+      return (int)launch_accumulate<__half>(acc, delta, count, blocks, threads, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

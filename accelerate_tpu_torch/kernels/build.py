@@ -27,7 +27,8 @@ NVCC_FLAGS = (
 )
 # name -> {C function: (argtypes, restype)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_STRIDES = _LONGS = ctypes.POINTER(ctypes.c_longlong)
+_INTS = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "paged_attention": {
         "paged_decode_attention": ((*[_P] * 9, *[_I] * 10, _F, _I, _P), _I),
@@ -41,8 +42,15 @@ SIGNATURES = {
         "int4_matmul": ((*[_P] * 5, *[_I] * 8, _P), _I),
     },
     "reference_kernels": {
-        "block_matmul_softmax": ((*[_P] * 5, *[_I] * 4, _P), _I),
-        "block_accumulate": ((_P, _P, _I, ctypes.c_longlong, _P), _I),
+        "block_matmul_softmax": ((*[_P] * 5, *[_I] * 7, _P), _I),
+        "block_accumulate": ((_P, _P, _I, ctypes.c_longlong, _I, _I, _P), _I),
+        "reference_kernels_func_attributes": ((_I, _INTS), _I),
+    },
+    "kernel_fixtures": {
+        "tile_copy": ((_P, _P, _P, *[_I] * 6, _LONGS, _P), _I),
+        "tile_add": ((*[_P] * 4, *[_I] * 5, _P), _I),
+        "tile_scale": ((_P, _P, _P, *[_I] * 5, _P), _I),
+        "kernel_fixtures_func_attributes": ((_I, _INTS), _I),
     },
 }
 
@@ -105,3 +113,14 @@ def load(name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = restype
     return lib
+
+
+def func_attributes(name: str, which: int) -> dict:
+    """What the compiler made of kernel ``which`` of library ``name``
+    (``cudaFuncGetAttributes`` through its ``<name>_func_attributes``
+    entry): static shared memory, registers a thread, threads a block."""
+    out = (ctypes.c_int * 3)()
+    err = getattr(load(name), f"{name}_func_attributes")(which, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_func_attributes({which}) failed: cudaError {err}")
+    return {"shared_size_bytes": out[0], "num_regs": out[1], "max_threads_per_block": out[2]}

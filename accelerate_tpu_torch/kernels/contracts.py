@@ -11,10 +11,12 @@ the call. Registration is keyed by the kernel's name.
 One field differs from the reference. Its ``vmem_peak_bytes`` is a TPU
 quantity (the VMEM a grid step holds); a CUDA block has shared memory
 instead, so the port's specs declare ``smem_bytes``: the shared memory one
-block of the kernel asks for. The analyzers that check a declaration
-against a walk of the kernel body (``kernel-check``) are not ported yet
-(ROADMAP.md); until then ``chip_smoke.py`` holds each kernel's time
-against the bound its spec gives.
+block of the kernel asks for. ``kernel-check``
+(:mod:`accelerate_tpu_torch.analysis`) holds a declaration to a recount:
+the FLOPs of the kernel's plain version and the bytes of its declared
+tiles (TPU1006), and flags a launch with no contract (TPU1005);
+``chip_smoke.py`` holds each kernel's time against the bound its spec
+gives.
 """
 
 from __future__ import annotations

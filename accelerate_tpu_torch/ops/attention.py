@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels.launch import runs_on_card
 from .flash_attention import flash_attention
 
 # Query length from which the card takes the flash kernels by default. 2048
@@ -43,9 +44,9 @@ def dot_product_attention(
         raise ValueError("window requires causal=True (sliding-window is a causal band)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 (got {window}); a 0-width band masks everything")
-    auto_flash = use_flash is None and q.device.type == "cuda" and seq_len >= FLASH_MIN_SEQ
+    auto_flash = use_flash is None and runs_on_card(q) and seq_len >= FLASH_MIN_SEQ
     if use_flash or auto_flash:
-        if window is not None and q.device.type != "cuda":
+        if window is not None and not runs_on_card(q):
             # the JAX package's off-TPU flash path has no band either
             raise ValueError("banded flash (window=) runs on the CUDA kernels only; drop use_flash=True off the GPU")
         return flash_attention(q, k, v, causal=causal, scale=scale, window=window)

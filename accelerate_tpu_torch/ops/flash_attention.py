@@ -8,6 +8,7 @@ kernels with ``_flash``'s custom VJP. What the kernels compute, and their
 layout and masking, is in ``accelerate_tpu_torch/csrc/flash_attention.cu``.
 
 On CUDA tensors :func:`flash_attention` launches the kernels or raises;
+on ``meta`` tensors under ``kernel_check`` it records their launch sites;
 on CPU tensors it computes the plain versions, which repeat the kernels'
 arithmetic block by block (online softmax over 64-key blocks, the same
 rounding points) and serve the card as its oracle.
@@ -16,10 +17,13 @@ rounding points) and serve the card as its oracle.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
+
+from ..kernels.launch import LaunchSite, record
 
 # Kernel launches since import (or since a caller reset them to 0).
 launches_fwd = 0
@@ -265,9 +269,36 @@ def flash_dkv_kernel(q, k, v, dout, lse, delta, causal, scale, window):
 
 
 def _device_of(q: torch.Tensor) -> str:
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     return q.device.type
+
+
+def _record(name: str, grid: tuple, plain, operands: tuple) -> None:
+    """The launch site of one flash kernel on ``meta`` tensors: its grid of
+    64-row blocks, 128 threads; no tiles declared and no contract
+    registered, as the reference's ops kernels carry none."""
+    record(LaunchSite(name, grid, 128, plain=plain, operands=operands))
+
+
+def _record_fwd(q, k, v, causal, scale, window):
+    b, sq, h, d = q.shape
+    plain = functools.partial(flash_attention_plain, causal=causal, scale=scale, window=window)
+    _record("flash_attention_fwd", (b * h, -(-sq // _BLOCK)), plain, (q, k, v))
+    return (torch.empty(b, sq, h, d, dtype=q.dtype, device="meta"),
+            torch.empty(b, h, sq, dtype=torch.float32, device="meta"))
+
+
+def _record_bwd(q, k, v, dout, lse, delta, causal, scale, window):
+    b, sq, h, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    operands = (q, k, v, dout, lse, delta)
+    _record("flash_attention_dq", (b * h, -(-sq // _BLOCK)),
+            functools.partial(flash_attention_plain_dq, causal=causal, scale=scale, window=window), operands)
+    _record("flash_attention_dkv", (b * hkv, -(-sk // _BLOCK)),
+            functools.partial(flash_attention_plain_dkv, causal=causal, scale=scale, window=window), operands)
+    dk = torch.empty(k.shape, dtype=torch.float32, device="meta")
+    return torch.empty(q.shape, dtype=torch.float32, device="meta"), dk, torch.empty_like(dk)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -277,8 +308,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
-        if _device_of(q) == "cuda":
+        device = _device_of(q)
+        if device == "cuda":
             out, lse = flash_fwd_kernel(q, k, v, causal, scale, window)
+        elif device == "meta":
+            out, lse = _record_fwd(q, k, v, causal, scale, window)
         else:
             out, lse = flash_attention_plain(q, k, v, causal, scale, window)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -289,10 +323,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        if _device_of(q) == "cuda":
+        device = _device_of(q)
+        if device == "cuda":
             delta = _delta(out, dout)
             dq = flash_dq_kernel(q, k, v, dout, lse, delta, *ctx.args)
             dk, dv = flash_dkv_kernel(q, k, v, dout, lse, delta, *ctx.args)
+        elif device == "meta":
+            dq, dk, dv = _record_bwd(q, k, v, dout, lse, _delta(out, dout), *ctx.args)
         else:
             dq, dk, dv = flash_attention_plain_bwd(q, k, v, out, lse, dout, *ctx.args)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None

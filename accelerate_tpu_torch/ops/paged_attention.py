@@ -10,10 +10,13 @@ raises; on a CPU tensor it computes :func:`paged_decode_attention_plain`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+
+from ..kernels.launch import LaunchSite, record
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -74,11 +77,15 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """One decode step of paged attention (see the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    built from ``csrc/paged_attention.cu``."""
+    built from ``csrc/paged_attention.cu``; ``meta`` tensors under
+    ``kernel_check`` record its launch site."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, key_pool, value_pool, block_table, cur, sliding_window=sliding_window, scale=scale
         )
+    if q.device.type == "meta":
+        record(_site(q, key_pool, value_pool, block_table, cur, sliding_window, scale))
+        return torch.empty_like(q)
     _check(q, key_pool, value_pool, block_table, cur, sliding_window)
     from ..kernels.build import load
 
@@ -104,6 +111,17 @@ def paged_decode_attention(
     global launches
     launches += 1
     return out
+
+
+def _site(q, key_pool, value_pool, block_table, cur, sliding_window, scale) -> LaunchSite:
+    """The split pass's grid, (row x kv head, 128-key split), 128 threads;
+    no tiles declared (its pages are gathered through the block table) and
+    no contract registered, as the reference's ops kernels carry none."""
+    split_pages = max(1, _SPLIT_KEYS // key_pool.shape[1])
+    grid = (q.shape[0] * key_pool.shape[2], -(-block_table.shape[1] // split_pages))
+    plain = functools.partial(paged_decode_attention_plain, sliding_window=sliding_window, scale=scale)
+    return LaunchSite("paged_decode_attention", grid, 128, plain=plain,
+                      operands=(q, key_pool, value_pool, block_table, cur))
 
 
 def _check(q, key_pool, value_pool, block_table, cur, sliding_window) -> None:

@@ -20,7 +20,11 @@ out here. On a CUDA tensor :func:`int4_matmul` launches the hand-written kernel
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from ..kernels.launch import LaunchSite, record, runs_on_card
 
 # Kernel launches since import (or since a caller reset it to 0): one per
 # int4_matmul call on a CUDA tensor, whatever passes the call takes.
@@ -82,9 +86,18 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, g
     Returns ``[M, out]`` in ``x.dtype``. ``in`` must divide by
     ``group_size``, ``group_size`` by 64 and ``out`` by 128. CPU tensors
     take the plain version; CUDA tensors launch the kernel built from
-    ``csrc/int4_matmul.cu``."""
+    ``csrc/int4_matmul.cu``; ``meta`` tensors under ``kernel_check`` record
+    its launch site (the main pass's grid; no tiles, no contract)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, group_size=group_size)
+    if x.device.type == "meta":
+        _check_shapes(x, packed, scale, group_size)
+        m, n_groups, out_features = x.shape[0], packed.shape[0], packed.shape[2]
+        m_tiles, _, splits = _split_plan(m, n_groups, out_features)
+        grid = (out_features // N_TILE, splits, -(-m // (16 * m_tiles)))
+        plain = functools.partial(int4_matmul_plain, group_size=group_size)
+        record(LaunchSite("int4_matmul", grid, 128, plain=plain, operands=(x, packed, scale)))
+        return torch.empty((m, out_features), dtype=x.dtype, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu tensors, got {x.device}")
     _check_shapes(x, packed, scale, group_size)
@@ -125,11 +138,12 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, g
 def int4_supported(x: torch.Tensor, method: str, group_size, n_groups: int, features: int) -> bool:
     """Whether ``QuantDense`` sends this product to the kernel: grouped
     int4 with ``group_size % 64 == 0`` and ``features % 128 == 0``, on a
-    CUDA tensor (where the reference asks for the TPU backend)."""
+    CUDA tensor, or a ``meta`` one traced for the card (where the
+    reference asks for the TPU backend)."""
     if method != "int4" or group_size is None or group_size % 64 != 0:
         return False
     if features % N_TILE != 0:
         return False
-    if x.dim() < 1 or x.device.type != "cuda":
+    if x.dim() < 1 or not runs_on_card(x):
         return False
     return True

@@ -27,7 +27,14 @@ PyTorch version on the card. Then the three slices:
   model checked against a no-cache loop over ``nn.Linear`` layers holding
   the decoded weights. The two reference kernels (K6, K7) are held
   against their plain versions and timed against the bounds their
-  registered cost contracts give.
+  registered cost contracts give;
+* the kernel-check path: the analyzer's capacity against the card's own,
+  its selfcheck, ``Accelerator().kernel_check`` over the six seeded-defect
+  fixtures and the clean twins K6/K7, each probed on the card (the fixture
+  kernels K8: the shared-memory hog refused, the rest launched), and over
+  the TinyLlama decode and train steps traced on meta; every fixture's
+  outcome on the card asserted, every declared shared-memory occupancy
+  held to what ``nvcc`` built, the three K8 bodies timed.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -1091,9 +1098,10 @@ def phase_reference_kernels(torch):
         got = ref.block_accumulate(acc, delta)
         torch.cuda.synchronize()
         check(got is acc and torch.equal(acc, want), f"K7 in place and equal to acc.add_(delta) ({name})")
+        err = float((acc.float() - want.float()).abs().max())
         bound_ms, bound_by = spec_bound(acc_spec, acc, delta)  # the contract's bytes are the least: 2 reads, 1 write
         rows["accumulate"][name] = {
-            "max_abs_err": 0.0,
+            "max_abs_err": err,
             "ms": time_ms(torch, lambda: ref.block_accumulate(acc, delta), flush=flush),
             "plain_ms": time_ms(torch, lambda: ref.block_accumulate_plain(acc, delta), flush=flush),
             "library_ms": time_ms(torch, lambda: acc.add_(delta), flush=flush),
@@ -1222,6 +1230,246 @@ def phase_quant_consistency(torch):
     return row
 
 
+def bound_of(torch, nbytes: float, flops: float, dtype) -> tuple:
+    """``(ms, "bytes" or "operations")``: the larger of the bytes over the
+    memory rate and the operations over the type's peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def meta_llama(torch):
+    """The TinyLlama shape with every parameter on ``meta``: what the
+    analyzer traces at full width without a byte on the card."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models.llama import LlamaModel
+
+    cfg = LlamaConfig(**TINYLLAMA)
+    with torch.device("meta"):
+        module = LlamaModel(cfg)
+    return Model(module.to(torch.bfloat16), cfg)
+
+
+def analysis_model_traces(torch, acc):
+    """kernel_check over the serving decode step and the training step of the
+    TinyLlama shape, traced on meta at full width (no probe: the serve and
+    train phases run them): the sites must be the launches those phases
+    count, K4 once a layer, K1 twice a layer (remat) and K2, K3 once, each
+    unregistered (TPU1005), as the reference's ops kernels are."""
+    from accelerate_tpu_torch import causal_lm_loss
+    from accelerate_tpu_torch.ops.paged_kv import PagedKVCache
+
+    model = meta_llama(torch)
+    layers = model.config.num_hidden_layers
+
+    def decode_step(params, ids, key_pool, value_pool, table, index):
+        cache = PagedKVCache(key_pool, value_pool, table, index)
+        return model.apply_fn(params, ids, decode=True, cache=cache)[0]
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    pool = meta(layers, 1025, 16, 4, 64, dtype=torch.bfloat16)
+    decode = acc.kernel_check(decode_step, model.params, meta(8, 1), pool, pool, meta(8, 128), meta(8), probe=False)
+    check([(s.kernel_name, s.count, s.grid) for s in decode.sites] == [("paged_decode_attention", layers, (32, 16))],
+          f"the decode step's trace lists K4 once a layer: {[(s.kernel_name, s.count) for s in decode.sites]}")
+
+    model.module.train()
+    params = {k: v.detach().float().requires_grad_(True) for k, v in model.params.items()}
+
+    def train_step(params, ids):
+        loss = causal_lm_loss({k: v.to(torch.bfloat16) for k, v in params.items()}, {"input_ids": ids}, model.apply_fn)
+        loss.backward()
+        return loss
+
+    train = acc.kernel_check(train_step, params, meta(8, 2048), probe=False)
+    got = {s.kernel_name: s.count for s in train.sites}
+    want = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": layers, "flash_attention_dkv": layers}
+    check(got == want, f"the train step's trace lists K1-K3 as the train phase launches them: {got}")
+    for report in (decode, train):
+        check({f.rule for f in report.findings} == {"TPU1005"}, "the ops kernels are unregistered (TPU1005) only")
+    return {"decode_sites": {s.kernel_name: s.count for s in decode.sites}, "train_sites": got}
+
+
+def phase_analysis(torch):
+    """The kernel-check path (slice 4) on the card. The analyzer's
+    shared-memory capacity against the card's own; its selfcheck; then the
+    main path, counted: ``Accelerator().kernel_check`` over every K8
+    fixture and both clean twins (K6, K7), each probed on the card (the
+    hog's launch refused, the rest launched: tile_copy 3, tile_add 1,
+    tile_scale 1), and over the TinyLlama decode and train steps traced on
+    meta. Then each fixture launched on its own with its outcome asserted
+    (the hog refused with its cudaError beside TPU1001's prediction; the
+    copies and the scale bit-equal to their plain versions; the gap left
+    NaN and the raced tile one of its two sources; the aliased add one of
+    its two orderings, and its gap to plain ``a + d`` measured), every
+    declared shared-memory occupancy against the built kernel's static
+    shared memory plus the dynamic bytes its launch asks for, and the three
+    K8 bodies held bit for bit to their plain versions at the fixture
+    shapes (the add on a map free of hazards) and timed there (CUDA events,
+    L2 flushed) beside their byte bounds, plain versions and one library
+    call each."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.analysis import run_kernel_selfcheck
+    from accelerate_tpu_torch.analysis.costmodel import device_generation, smem_bytes
+    from accelerate_tpu_torch.analysis.kernelmodel import kernel_check, smem_occupancy_bytes
+    from accelerate_tpu_torch.analysis.selfcheck import _kernel_clean_fixtures, _kernel_fixtures, drift_contract
+    from accelerate_tpu_torch.kernels import build, fixtures
+    from accelerate_tpu_torch.kernels.contracts import register_kernel_cost, unregister_kernel_cost
+
+    t0 = time.perf_counter()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    generation = device_generation()
+    check(generation == "h100", f"generation=None resolves to h100 on {torch.cuda.get_device_name(0)}: {generation}")
+    check(smem_bytes() == optin == smem_bytes("h100") == 232_448,
+          f"the capacity read from the card ({smem_bytes()}), the card's per-block opt-in maximum ({optin}) and "
+          f"the H100 row a trace without a card is judged against ({smem_bytes('h100')}) agree")
+    ok, lines = run_kernel_selfcheck()
+    check(ok, "kernel selfcheck on the card:\n" + "\n".join(lines))
+
+    # the main path: a user's kernel_check calls, each probed on the card
+    fixture_set, drifty = _kernel_fixtures()
+    twins = _kernel_clean_fixtures()
+    acc = Accelerator()
+    fixtures.launches_copy = fixtures.launches_add = fixtures.launches_scale = 0
+    register_kernel_cost(drift_contract(drifty))
+    try:
+        reports = {rule: acc.kernel_check(fn, *args) for rule, (fn, args) in sorted(fixture_set.items())}
+        twin_reports = {}
+        for name, rule in (("block_matmul_softmax", "TPU1001"), ("block_accumulate", "TPU1004")):
+            fn, args = twins[rule]
+            twin_reports[name] = acc.kernel_check(fn, *args)
+    finally:
+        unregister_kernel_cost(drifty)
+    torch.cuda.synchronize()
+    launches = {"tile_copy": fixtures.launches_copy, "tile_add": fixtures.launches_add,
+                "tile_scale": fixtures.launches_scale}
+    check(launches == {"tile_copy": 3, "tile_add": 1, "tile_scale": 1}, f"K8 launches on the main path: {launches}")
+    traces = analysis_model_traces(torch, acc)
+    for rule, report in reports.items():
+        check(rule in {f.rule for f in report.findings}, f"{rule} fires on its fixture through Accelerator.kernel_check")
+        refused = rule == "TPU1001"
+        check(report.interpret_probe.startswith("failed on cuda: RuntimeError: tile_copy launch refused: cudaError"
+                                                if refused else "ran on cuda"),
+              f"{rule}'s probe on the card: {report.interpret_probe}")
+    for name, report in twin_reports.items():
+        check(not report.findings and report.interpret_probe == "ran on cuda: outputs finite",
+              f"{name} (clean twin) on the card: {report.interpret_probe}, {[f.rule for f in report.findings]}")
+
+    # each fixture on its own, its outcome asserted
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    requests = {}
+    refused = None
+    try:
+        fixture_set["TPU1001"][0](torch.zeros(1024, 512, device="cuda"))
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "cudaError" in refused, "vmem_hog's launch is refused")
+    requests["TPU1001"] = fixtures.last_copy_smem_request
+    predicted = next(f.message for f in reports["TPU1001"].findings if f.rule == "TPU1001")
+    x, xr = rand(16, 128), rand(16, 100)
+    check(torch.equal(fixture_set["TPU1002"][0](xr), xr), "ragged_tile bit-equal to its plain version (a copy)")
+    requests["TPU1002"] = fixtures.last_copy_smem_request
+    check(torch.equal(fixture_set["TPU1005"][0](x), x), "unregistered_call bit-equal to its plain version (a copy)")
+    requests["TPU1005"] = fixtures.last_copy_smem_request
+    check(torch.equal(fixture_set["TPU1006"][0](x), fixtures.tile_scale_plain(x)), "drifting_call bit-equal to 2 x")
+    out = torch.full_like(x, float("nan"))
+    fixture_set["TPU1003"][0](x, out=out)
+    torch.cuda.synchronize()
+    requests["TPU1003"] = fixtures.last_copy_smem_request
+    check(bool(out[8:].isnan().all()), "gapped_map leaves the uncovered tile (1, 0) as it was (NaN)")
+    from_0, from_1 = out[:8] == x[:8], out[:8] == x[8:]
+    check(bool((from_0 | from_1).all()), "the raced tile (0, 0) holds, element by element, one of its two sources")
+    gap = {"uncovered_tile_nan": True, "raced_tile": "block 0's (x rows 0-7)" if bool(from_0.all())
+           else "block 1's (x rows 8-15)" if bool(from_1.all())
+           else f"mixed: {int(from_0.sum())} elements from block 0, {int((~from_0).sum())} from block 1"}
+    a, d = rand(16, 128), rand(16, 128)
+    a0 = a.clone()
+    fixture_set["TPU1004"][0](a, d)
+    torch.cuda.synchronize()
+    check(torch.equal(a[:8], a0[:8] + d[:8]), "hazardous_alias: block 0's tile is a + d")
+    before, after = a0[:8] + d[8:], (a0[:8] + d[:8]) + d[8:]  # block 1 read a before / after block 0 wrote it
+    read_before, read_after = a[8:] == before, a[8:] == after
+    check(bool((read_before | read_after).all()), "hazardous_alias: block 1's tile is one of the two orderings")
+    alias = {"ordering": "block 1 read a before block 0 wrote it" if bool(read_before.all())
+             else "block 1 read a after block 0 wrote it" if bool(read_after.all())
+             else f"mixed: {int(read_before.sum())} elements read before, {int((~read_before).sum())} after",
+             "matches_hazard_free_plain": bool(torch.equal(a, fixtures.tile_add_plain(a0, d))),
+             "max_abs_err_to_plain": float((a - fixtures.tile_add_plain(a0, d)).abs().max())}
+
+    # declared shared memory against what nvcc built plus what each launch asks for
+    def occupancy(fn, args):
+        return smem_occupancy_bytes(kernel_check(fn, *args, probe=False).sites[0])
+
+    attrs = {"block_matmul_softmax": build.func_attributes("reference_kernels", 0),
+             "block_accumulate": build.func_attributes("reference_kernels", 2),
+             "tile_copy": build.func_attributes("kernel_fixtures", 0),
+             "tile_add": build.func_attributes("kernel_fixtures", 1),
+             "tile_scale": build.func_attributes("kernel_fixtures", 2)}
+    smem = []
+    for label, kernel, (fn, args), dynamic in (
+        ("K6 clean twin", "block_matmul_softmax", twins["TPU1001"], 0),
+        ("K7 clean twin", "block_accumulate", twins["TPU1004"], 0),
+        ("vmem_hog", "tile_copy", fixture_set["TPU1001"], requests["TPU1001"]),
+        ("ragged_tile", "tile_copy", fixture_set["TPU1002"], requests["TPU1002"]),
+        ("gapped_map", "tile_copy", fixture_set["TPU1003"], requests["TPU1003"]),
+        ("hazardous_alias", "tile_add", fixture_set["TPU1004"], 0),
+        ("unregistered_call", "tile_copy", fixture_set["TPU1005"], requests["TPU1005"]),
+        ("drifting_call", "tile_scale", fixture_set["TPU1006"], 0),
+    ):
+        declared = occupancy(fn, args)
+        built = attrs[kernel]["shared_size_bytes"] + dynamic
+        check(declared == built, f"{label}: declared shared memory {declared} == built {built}")
+        smem.append({"fixture": label, "kernel": kernel, "declared_bytes": declared,
+                     "static_bytes": attrs[kernel]["shared_size_bytes"], "dynamic_bytes": dynamic,
+                     "num_regs": attrs[kernel]["num_regs"]})
+
+    # the three K8 bodies at the fixture shapes: each call's output against its plain version, then timed.
+    # tile_add is measured and timed with a map free of hazards (block i reads and writes tile i), where plain
+    # a + d is its answer; the hazardous fixture's gap to plain is alias["max_abs_err_to_plain"]
+    def clean_add(a, d):
+        return fixtures.tile_add(a, d, tile=(8, 128), grid=(2,), a_map=lambda i: (i, 0), d_map=lambda i: (i, 0),
+                                 out_map=lambda i: (i, 0), alias=True)
+
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    x, a, d, out = rand(16, 128), rand(16, 128), rand(16, 128), torch.empty(16, 128, device="cuda")
+    nbytes = x.numel() * 4
+    timing = {}
+    for name, case, kernel, plain, library, moved, flops in (
+        ("tile_copy", "unregistered_call (16, 128) f32", lambda: fixture_set["TPU1005"][0](x),
+         lambda: fixtures.tile_copy_plain(x), lambda: out.copy_(x), 2 * nbytes, 0),
+        ("tile_add", "aliased add, maps agree (16, 128) f32", lambda: clean_add(a, d),
+         lambda: fixtures.tile_add_plain(a, d), lambda: a + d, 3 * nbytes, x.numel()),
+        ("tile_scale", "drifting_call (16, 128) f32", lambda: fixture_set["TPU1006"][0](x),
+         lambda: fixtures.tile_scale_plain(x), lambda: torch.mul(x, 2), 2 * nbytes, x.numel()),
+    ):
+        want = plain()  # before the kernel: the aliased add overwrites a
+        got = kernel()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"{name} ({case}) bit-equal to its plain version: max_abs_err {err}")
+        bound_ms, bound_by = bound_of(torch, moved, flops, torch.float32)
+        timing[name] = {
+            "case": case, "max_abs_err": err,
+            "ms": time_ms(torch, kernel, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
+            "library_ms": time_ms(torch, library, flush=flush), "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    row = {
+        "phase": "analysis", "generation": generation, "smem_per_block_optin": optin, "selfcheck": lines,
+        "launches": launches, "probes": {rule: r.interpret_probe for rule, r in reports.items()},
+        "vmem_hog": {"refused": refused, "smem_requested": requests["TPU1001"], "tpu1001_predicted": predicted},
+        "gapped_map": gap, "hazardous_alias": alias, "smem": smem, "model_traces": traces, "timing": timing,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(row)
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -1247,8 +1495,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,serve,consistency,train` runs some groups of phases while a
-    # kernel is being worked on; it prints no kernels line and no "ok"
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train` runs some groups of phases
+    # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
     phase_build()
@@ -1265,6 +1513,8 @@ def main() -> int:
         phase_int4_host_cost(torch)
     if not only or "reference" in only:
         reference = phase_reference_kernels(torch)
+    if not only or "analysis" in only:
+        analysis = phase_analysis(torch)
     if not only or "serve" in only:
         serve, model = phase_serve(torch)
         phase_profile(torch, model)
@@ -1334,6 +1584,16 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K7: acc.add_(delta); K6: no single call (F.softmax(x @ w) is two, timed in reference_kernels)
             "library_ms": row["library_ms"] if key == "accumulate" else None,
+        })
+    for name, line in (("tile_copy", 1156), ("tile_add", 1159), ("tile_scale", 1235)):
+        row = analysis["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "accelerate_tpu_torch/csrc/kernel_fixtures.cu",
+            "replaces": f"accelerate_tpu/analysis/selfcheck.py:{line}", "case": row["case"],
+            # the main path's launches: Accelerator.kernel_check's probes of the six fixtures
+            "launches": analysis["launches"][name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],  # out.copy_(x), a + d, torch.mul(x, 2)
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("serving", "accelerator", "ops.flash_attention", "state", "optimizer", "scheduler", "generation",
-                 "utils.quantization", "ops.qmatmul", "ops.qdense", "kernels.contracts", "kernels.reference"):
+                 "utils.quantization", "ops.qmatmul", "ops.qdense", "kernels.contracts", "kernels.reference",
+                 "kernels.launch", "kernels.fixtures", "analysis", "analysis.rules", "analysis.report",
+                 "analysis.costmodel", "analysis.perfmodel", "analysis.kernelmodel", "analysis.kernel_rules",
+                 "analysis.selfcheck", "analysis.changed", "commands.kernelcheck"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -118,7 +121,7 @@ def test_new_kernel_wrappers_take_plain_versions_on_cpu_only():
     acc = torch.zeros(8, 40)
     assert reference.block_accumulate(acc, soft) is acc and torch.equal(acc, soft)
     assert (qmatmul.launches, reference.launches_matmul_softmax, reference.launches_accumulate) == before
-    for name in ("int4_matmul", "reference_kernels"):
+    for name in ("int4_matmul", "reference_kernels", "kernel_fixtures"):
         assert name in build.SIGNATURES and (build.CSRC / f"{name}.cu").exists()
 
 
