@@ -2,8 +2,9 @@
 //
 // Replaces the three Pallas TPU kernels of accelerate_tpu/ops/pallas_attention.py
 // that its _flash custom_vjp binds together:
-//   K1 _fwd_kernel -> flash_fwd: out = softmax(q k^T * scale) v and the row
-//      log-sum-exp lse, online softmax in f32;
+//   K1 _fwd_kernel -> flash_fwd_f32 here for f32, flash_fwd_sm90.cu for bf16
+//      and fp16: out = softmax(q k^T * scale) v and the row log-sum-exp lse,
+//      online softmax in f32;
 //   K2 _dq_kernel  -> flash_dq: dq = sum_k dS k with P recomputed from lse,
 //      dS = P * (dP - delta) * scale, dP = dO v^T, delta = rowsum(dO * out);
 //   K3 _dkv_kernel -> flash_dkv: dv = sum_q P^T dO, dk = sum_q dS^T q.
@@ -23,17 +24,18 @@
 // 64 x 64 x D tiles per pair of live tiles: about 137 GFLOP for K1, 206 for K2
 // and 275 for K3, against some 150 MB of HBM traffic. So the tensor cores bound
 // all three (0.14 / 0.21 / 0.28 ms at 989 TFLOP/s), and what matters is how
-// close the products come to their rate.
+// close the products come to their rate. The 16-bit K1 comes closest: it
+// runs on wgmma fed by TMA with a producer warpgroup (flash_fwd_sm90.cu).
 //
-// What the design does about it. One block of 4 warps owns 64 rows (query rows
+// What the design here does about it. One block of 4 warps owns 64 rows (query rows
 // in K1 and K2, key rows in K3), 16 a warp, and walks the live tiles of the
 // other side in a loop inside the block: the TPU grid's sequential axis
 // becomes this loop, and nothing is carried between blocks. Tiles that
 // _block_live skips are never loaded, so causal costs half and a band
-// O(S * W). bf16 and fp16 run on the tensor cores with mma.sync m16n8k16
+// O(S * W). K2 and K3 in bf16 and fp16 run on the tensor cores with mma.sync m16n8k16
 // (f32 accumulate) fed by ldmatrix from padded shared tiles (row pitch D + 8
 // elements: conflict-free), and the next tile streams in with cp.async while
-// the current one is multiplied (two stages). Each warp's P or dS tile is
+// the current one is multiplied (two stages). Each warp's dS or P tile is
 // rounded to the operand type in registers and becomes the A operand of the
 // next product as it stands (the m16n8 accumulator and the m16k16 A
 // fragment line up). Registers, not shared memory, set how many blocks an
@@ -41,9 +43,8 @@
 // the block, so the GQA sum of the Pallas backward happens in registers: no
 // [B, H, Sk, D] intermediate and no atomics. f32 runs the same blocks with
 // the products done by scalar FMAs on the CUDA cores (no TF32), one stage,
-// P and dS through a small shared buffer per warp.
-// wgmma, TMA and warp specialisation, which the card needs for its full rate,
-// are later work. Blocks take the heaviest causal tiles first.
+// P and dS through a small shared buffer per warp. wgmma, TMA and warp
+// specialisation for K2 and K3 are later work. Blocks take the heaviest causal tiles first.
 // It allocates nothing and launches on the caller's stream.
 
 #include <cuda_bf16.h>
@@ -150,15 +151,9 @@ struct Mma<__half> {
   }
 };
 
-// Two f32 values stored as a pair of T (the operand type's rounding).
+// Two f32 values stored as a pair (the f32 kernels' P, dS and outputs).
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void store2(__half* p, float x, float y) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 // One k-step of a warp's product: acc[NT][4] += a (16 x 16, an A fragment in
@@ -337,19 +332,24 @@ constexpr size_t warp_buf_bytes() {
   return kRegOperands<T> ? 0 : (size_t)kWarps * 16 * kLdP * sizeof(T);
 }
 
-template <typename T, int D, int STAGES>
-constexpr size_t fwd_smem() {
-  return (size_t)(1 + 2 * STAGES) * kTile * (D + kPad) * sizeof(T) + warp_buf_bytes<T>();
+// K1 in f32 (bf16 and fp16 run flash_fwd_sm90.cu): one stage, the products
+// by scalar FMAs, P through the warp's shared buffer.
+template <int D>
+constexpr size_t fwd_smem_f32() {
+  return (size_t)3 * kTile * (D + kPad) * sizeof(float) + warp_buf_bytes<float>();
 }
 
-template <typename T, int D, int STAGES>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
+inline dim3 fwd_grid(int b, int h, int sq) { return dim3(b * h, (sq + kTile - 1) / kTile); }
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
+  using T = float;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kTile * LD;
-  T* vs = ks + STAGES * kTile * LD;
-  T* pw = vs + STAGES * kTile * LD + (threadIdx.x >> 5) * 16 * kLdP;
+  T* vs = ks + kTile * LD;
+  T* pw = vs + kTile * LD + (threadIdx.x >> 5) * 16 * kLdP;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / p.h, h = blockIdx.x % p.h, hk = h / (p.h / p.hkv);
@@ -372,22 +372,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   const float sl2 = p.scale * kLog2e;  // scores in the log2 domain
 
   for (int kt = lo; kt <= hi; ++kt) {
-    const int st = STAGES == 2 ? (kt - lo) & 1 : 0;
-    if (STAGES == 2 && kt < hi) {
-      const int nx = (kt + 1) * kTile;
-      load_tile<T, D>(ks + (st ^ 1) * kTile * LD, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, tid);
-      load_tile<T, D>(vs + (st ^ 1) * kTile * LD, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
-    const T* kst = ks + st * kTile * LD;
-    const T* vst = vs + st * kTile * LD;
 
     float s[kTile / 8][4] = {};
-    warp_gemm<T, kTile / 8, D / 16, false>(s, qs + warp * 16 * LD, LD, kst, LD, lane);
+    warp_gemm<T, kTile / 8, D / 16, false>(s, qs + warp * 16 * LD, LD, ks, LD, lane);
 
     const int k0 = kt * kTile;
     const bool full = tile_full(q0, k0, p);
@@ -429,21 +418,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
     }
-    if constexpr (kRegOperands<T>) {  // P, rounded to v's type, straight into the A operand of P v
-      unsigned pf[kTile / 16][4];
-      acc_to_afrags<T, kTile / 16>(pf, s);
-      warp_gemm_ra<T, D / 8, kTile / 16, true>(o, pf, vst, LD, lane);
-    } else {
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        store2(pw + g * kLdP + j * 8 + 2 * t, s[j][0], s[j][1]);
-        store2(pw + (g + 8) * kLdP + j * 8 + 2 * t, s[j][2], s[j][3]);
-      }
-      __syncwarp();
-      warp_gemm<T, D / 8, kTile / 16, true>(o, pw, kLdP, vst, LD, lane);
+    for (int j = 0; j < kTile / 8; ++j) {
+      store2(pw + g * kLdP + j * 8 + 2 * t, s[j][0], s[j][1]);
+      store2(pw + (g + 8) * kLdP + j * 8 + 2 * t, s[j][2], s[j][3]);
     }
+    __syncwarp();
+    warp_gemm<T, D / 8, kTile / 16, true>(o, pw, kLdP, vs, LD, lane);
     __syncthreads();
-    if (STAGES == 1 && kt < hi) {  // one stage: the next tile loads once this one is done
+    if (kt < hi) {  // one stage: the next tile loads once this one is done
       const int nx = (kt + 1) * kTile;
       load_tile<T, D>(ks, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, tid);
       load_tile<T, D>(vs, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, tid);
@@ -738,8 +721,12 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t s) {
   constexpr int ST = sizeof(T) == 4 ? 1 : 2;  // f32 tiles are twice the bytes: one stage fits
   const int nq = (p.sq + kTile - 1) / kTile, nk = (p.sk + kTile - 1) / kTile;
   switch (kind) {
-    case kFwd:
-      return launch_with(flash_fwd<T, D, ST>, fwd_smem<T, D, ST>(), dim3(p.b * p.h, nq), p, s);
+    case kFwd:  // f32 only: bf16 and fp16 launch flash_fwd_sm90.cu
+      if constexpr (std::is_same<T, float>::value) {
+        return launch_with(flash_fwd_f32<D>, fwd_smem_f32<D>(), fwd_grid(p.b, p.h, p.sq), p, s);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     case kDq:
       return launch_with(flash_dq<T, D, ST>, dq_smem<T, D, ST>(), dim3(p.b * p.h, nq), p, s);
     case kDkv:
@@ -796,6 +783,7 @@ Params make_params(const void* q, const void* k, const void* v, int b, int h, in
 // strides: 9 element strides (batch, seq, head) of q, k and v.
 // dtype: 0 f32, 1 bf16, 2 f16. Each returns the launch's cudaError_t.
 
+// dtype 0 only: the 16-bit forward is flash_fwd_sm90.cu's.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
                                    int b, int h, int hkv, int sq, int sk, int d, const long long* strides,
                                    float scale, int causal, int window, void* stream) {
@@ -828,4 +816,17 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
   p.dk = dk;
   p.dv = dv;
   return run(kDkv, dtype, d, p, stream);
+}
+
+// What flash_attention_fwd launches for these shapes (f32, dtype 0):
+// out[0..1] grid x, y, out[2] threads a block, out[3] dynamic shared memory
+// bytes.
+extern "C" int flash_attention_fwd_config(int dtype, int b, int h, int sq, int d, int* out) {
+  if (dtype != 0 || (d != 64 && d != 128) || b <= 0 || h <= 0 || sq <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 g = fwd_grid(b, h, sq);
+  out[0] = (int)g.x;
+  out[1] = (int)g.y;
+  out[2] = kThreads;
+  out[3] = (int)(d == 64 ? fwd_smem_f32<64>() : fwd_smem_f32<128>());
+  return 0;
 }

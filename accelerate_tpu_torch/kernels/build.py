@@ -37,6 +37,11 @@ SIGNATURES = {
         "flash_attention_fwd": ((*[_P] * 5, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_attention_dq": ((*[_P] * 7, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_attention_dkv": ((*[_P] * 8, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_attention_fwd_config": ((*[_I] * 5, _INTS), _I),
+    },
+    "flash_fwd_sm90": {
+        "flash_fwd_sm90": ((*[_P] * 5, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_fwd_sm90_config": ((*[_I] * 5, _INTS), _I),
     },
     "int4_matmul": {
         "int4_matmul": ((*[_P] * 5, *[_I] * 8, _P), _I),
@@ -47,9 +52,9 @@ SIGNATURES = {
         "reference_kernels_func_attributes": ((_I, _INTS), _I),
     },
     "kernel_fixtures": {
-        "tile_copy": ((_P, _P, _P, *[_I] * 6, _LONGS, _P), _I),
-        "tile_add": ((*[_P] * 4, *[_I] * 5, _P), _I),
-        "tile_scale": ((_P, _P, _P, *[_I] * 5, _P), _I),
+        "tile_copy": ((_P, _P, _INTS, *[_I] * 6, _LONGS, _P), _I),
+        "tile_add": ((_P, _P, _P, _INTS, *[_I] * 5, _P), _I),
+        "tile_scale": ((_P, _P, _INTS, *[_I] * 5, _P), _I),
         "kernel_fixtures_func_attributes": ((_I, _INTS), _I),
     },
 }
@@ -124,3 +129,14 @@ def func_attributes(name: str, which: int) -> dict:
     if err != 0:
         raise RuntimeError(f"{name}_func_attributes({which}) failed: cudaError {err}")
     return {"shared_size_bytes": out[0], "num_regs": out[1], "max_threads_per_block": out[2]}
+
+
+def launch_config(name: str, entry: str, *args: int) -> dict:
+    """What ``entry`` of library ``name`` launches for ``args`` (its
+    ``<entry>_config`` C entry, the launcher's own arithmetic): grid (x, y),
+    threads a block, dynamic shared memory bytes."""
+    out = (ctypes.c_int * 4)()
+    err = getattr(load(name), f"{entry}_config")(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{entry}_config{args} failed: cudaError {err}")
+    return {"grid": (out[0], out[1]), "threads": out[2], "smem_bytes": out[3]}

@@ -8,11 +8,12 @@ declaration a fixture makes (tile shape, grid, index maps, alias)
 and builds its :class:`~.launch.LaunchSite` from it; the CUDA kernels
 (``csrc/kernel_fixtures.cu``) read their tiles from the table of tile
 origins the site's maps give, so the card runs exactly what the analyzer
-judges, defects included. On a CPU tensor a wrapper computes its plain
-version, the fixture's intended function (a copy, ``a + d`` from the
-unmodified ``a``, ``2 x``), whatever the maps say; on a ``meta`` tensor
-under ``kernel_check`` it records its site; on a CUDA tensor it launches
-the kernel or raises.
+judges, defects included. The table travels in the launch's parameters
+(:func:`pack_origins`), so a call is one launch and no copy. On a CPU
+tensor a wrapper computes its plain version, the fixture's intended
+function (a copy, ``a + d`` from the unmodified ``a``, ``2 x``), whatever
+the maps say; on a ``meta`` tensor under ``kernel_check`` it records its
+site; on a CUDA tensor it launches the kernel or raises.
 
 The kernels carry no cost contract: they are the seeded defects
 (``tile_scale``'s is registered by the selfcheck, deliberately wrong, for
@@ -30,6 +31,7 @@ import torch
 from .launch import LaunchSite, TileSpec, record
 
 THREADS = 256  # threads a block of csrc/kernel_fixtures.cu
+MAX_BLOCKS = 8  # blocks a launch's table of tile origins holds: kMaxBlocks of csrc/kernel_fixtures.cu
 # shared buffers a copied tile goes through: the reference's double buffering of a grid of 2+ steps
 STAGES = 2
 
@@ -66,6 +68,18 @@ def _check(tensors: dict, tile: tuple) -> None:
         raise ValueError(f"tile must be (rows, cols) >= 1, got {tile}")
 
 
+def pack_origins(site: LaunchSite) -> ctypes.Array:
+    """``site.tile_origins()`` flattened into the ``int32`` array the C entry
+    copies into the kernel's parameters (``Origins``, at most
+    :data:`MAX_BLOCKS` blocks)."""
+    table = site.tile_origins()
+    if table.shape[0] > MAX_BLOCKS:
+        raise ValueError(f"{site.kernel}: {table.shape[0]} blocks; the launch's parameters carry the tile origins "
+                         f"of at most MAX_BLOCKS = {MAX_BLOCKS}")
+    flat = table.flatten().tolist()
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 def _run(site: LaunchSite, out: Optional[torch.Tensor], launch: Callable) -> torch.Tensor:
     """CPU: the plain version (into ``out`` when given); meta: record;
     CUDA: ``launch(origins, out)`` returns the cudaError."""
@@ -83,9 +97,8 @@ def _run(site: LaunchSite, out: Optional[torch.Tensor], launch: Callable) -> tor
     for t in (*site.operands, out):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{site.kernel}: operands must be contiguous")
+    origins = pack_origins(site)
     out = torch.empty_like(first) if out is None else out
-    # from pinned memory the copy is queued on the stream and the host goes on (a pageable one waits for the card)
-    origins = site.tile_origins().pin_memory().to(first.device, non_blocking=True)
     err = launch(origins, out)
     if err != 0:
         raise RuntimeError(f"{site.kernel} launch refused: cudaError {err}")
@@ -115,7 +128,7 @@ def tile_copy(x, *, tile, grid, in_map, out_map, out=None) -> torch.Tensor:
         lib = load("kernel_fixtures")
         request = ctypes.c_longlong(0)
         err = lib.tile_copy(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
-            x.data_ptr(), out.data_ptr(), origins.data_ptr(), site.blocks, x.shape[0], x.shape[1], *tile, STAGES,
+            x.data_ptr(), out.data_ptr(), origins, site.blocks, x.shape[0], x.shape[1], *tile, STAGES,
             ctypes.byref(request), _stream(x),
         )
         last_copy_smem_request = request.value
@@ -148,7 +161,7 @@ def tile_add(a, d, *, tile, grid, a_map, d_map, out_map, alias: bool = False, ou
         global launches_add
         lib = load("kernel_fixtures")
         err = lib.tile_add(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
-            a.data_ptr(), d.data_ptr(), out.data_ptr(), origins.data_ptr(), site.blocks, a.shape[0], a.shape[1],
+            a.data_ptr(), d.data_ptr(), out.data_ptr(), origins, site.blocks, a.shape[0], a.shape[1],
             *tile, _stream(a),
         )
         if err == 0:
@@ -174,7 +187,7 @@ def tile_scale(x, *, tile, grid, in_map, out_map, out=None) -> torch.Tensor:
         global launches_scale
         lib = load("kernel_fixtures")
         err = lib.tile_scale(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
-            x.data_ptr(), out.data_ptr(), origins.data_ptr(), site.blocks, x.shape[0], x.shape[1], *tile, _stream(x),
+            x.data_ptr(), out.data_ptr(), origins, site.blocks, x.shape[0], x.shape[1], *tile, _stream(x),
         )
         if err == 0:
             launches_scale += 1

@@ -5,7 +5,9 @@ Counterpart of :mod:`accelerate_tpu.ops.pallas_attention`: the forward
 kernel K1 and the backward kernels K2 (dq) and K3 (dk, dv), bound as one
 :class:`FlashAttention` the way the JAX package binds its three Pallas
 kernels with ``_flash``'s custom VJP. What the kernels compute, and their
-layout and masking, is in ``accelerate_tpu_torch/csrc/flash_attention.cu``.
+layout and masking, is in ``accelerate_tpu_torch/csrc/flash_attention.cu``;
+K1 in bf16 and fp16 is ``csrc/flash_fwd_sm90.cu`` (TMA, wgmma and a
+producer warpgroup), in f32 ``flash_attention.cu``'s (:func:`fwd_launch`).
 
 On CUDA tensors :func:`flash_attention` launches the kernels or raises;
 on ``meta`` tensors under ``kernel_check`` it records their launch sites;
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -170,6 +173,37 @@ def flash_attention_plain_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
 # ---------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class FwdLaunch:
+    """One launch of K1: the library and C entry, the grid ``(B * H, query
+    blocks)``, threads a block and dynamic shared memory bytes."""
+
+    library: str
+    entry: str
+    grid: tuple
+    threads: int
+    smem_bytes: int
+
+
+def fwd_launch(dtype: torch.dtype, b: int, h: int, sq: int, d: int) -> FwdLaunch:
+    """What K1 launches for q ``[b, sq, h, d]``. In bf16 and fp16 the Hopper
+    kernel (``csrc/flash_fwd_sm90.cu``): a producer warpgroup and 64 query
+    rows for each consumer warpgroup, three at D 64 (192 rows, 512 threads)
+    and two at D 128 (128 rows, 384 threads); Q plus two stages of 128-key
+    K and V tiles in shared memory. In f32 ``csrc/flash_attention.cu``'s: 64
+    rows and 4 warps, one stage. The grid is ``(B * H, query blocks)``. Each
+    C launcher reports the same through its ``<entry>_config`` entry
+    (``kernels.build.launch_config``). What the kernels refuse is
+    :func:`_check_cuda`'s to say."""
+    if dtype in (torch.bfloat16, torch.float16):
+        consumers, keys, stages = (3 if d == 64 else 2), 128, 2
+        rows = 64 * consumers
+        smem = 1024 + rows * d * 2 + 2 * stages * keys * d * 2 + (1 + 4 * stages) * 8  # align, Q, K and V, barriers
+        return FwdLaunch("flash_fwd_sm90", "flash_fwd_sm90", (b * h, -(-sq // rows)), 128 * (consumers + 1), smem)
+    smem = 3 * _BLOCK * (d + 8) * 4 + 4 * 16 * (_BLOCK + 8) * 4  # q, k, v tiles (pitch D + 8) and P a warp
+    return FwdLaunch("flash_attention", "flash_attention_fwd", (b * h, -(-sq // _BLOCK)), 128, smem)
+
+
 def _check_cuda(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -193,6 +227,11 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError(f"the CUDA flash kernels take head_dim in {_HEAD_DIMS}; got {d}")
     if sq < 1 or k.shape[1] < 1 or b < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype != torch.float32:  # K1 reads q, k and v through TMA tensor maps
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if any(st == 0 for st in t.stride()[:3]) or max(t.stride()[:3]) * t.element_size() >= 1 << 40:
+                raise ValueError(f"{name}: TMA takes batch, seq and head strides of 16 bytes to 2**40 bytes; "
+                                 f"got {t.stride()[:3]} elements")
 
 
 def _shape_args(q, k, v, scale, causal, window):
@@ -203,22 +242,31 @@ def _shape_args(q, k, v, scale, causal, window):
 
 
 def _raise_on(err: int, what: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a tensor map: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
 def flash_fwd_kernel(q, k, v, causal, scale, window):
-    """K1 on the card: ``(out [B, Sq, H, D] q.dtype, lse [B, H, Sq] f32)``."""
+    """K1 on the card: ``(out [B, Sq, H, D] q.dtype, lse [B, H, Sq] f32)``;
+    bf16 and fp16 through the Hopper kernel, f32 through the 64-row one
+    (:func:`fwd_launch`)."""
     _check_cuda(q, k, v)
     from ..kernels.build import load
 
-    lib = load("flash_attention")
     b, sq, h, d = q.shape
+    launch = fwd_launch(q.dtype, b, h, sq, d)
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     dims, tail = _shape_args(q, k, v, scale, causal, window)
-    _raise_on(lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                      *dims, *tail), "flash_attention_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if launch.library == "flash_fwd_sm90":
+        lib16 = load("flash_fwd_sm90")
+        _raise_on(lib16.flash_fwd_sm90(*ptrs, *dims, *tail), "flash_fwd_sm90")
+    else:
+        lib = load("flash_attention")
+        _raise_on(lib.flash_attention_fwd(*ptrs, *dims, *tail), "flash_attention_fwd")
     global launches_fwd
     launches_fwd += 1
     return out, lse
@@ -274,17 +322,18 @@ def _device_of(q: torch.Tensor) -> str:
     return q.device.type
 
 
-def _record(name: str, grid: tuple, plain, operands: tuple) -> None:
-    """The launch site of one flash kernel on ``meta`` tensors: its grid of
-    64-row blocks, 128 threads; no tiles declared and no contract
-    registered, as the reference's ops kernels carry none."""
-    record(LaunchSite(name, grid, 128, plain=plain, operands=operands))
+def _record(name: str, grid: tuple, plain, operands: tuple, threads: int = 128) -> None:
+    """The launch site of one flash kernel on ``meta`` tensors: its grid and
+    threads (K2 and K3: 64-row blocks of 128 threads); no tiles declared and
+    no contract registered, as the reference's ops kernels carry none."""
+    record(LaunchSite(name, grid, threads, plain=plain, operands=operands))
 
 
 def _record_fwd(q, k, v, causal, scale, window):
     b, sq, h, d = q.shape
     plain = functools.partial(flash_attention_plain, causal=causal, scale=scale, window=window)
-    _record("flash_attention_fwd", (b * h, -(-sq // _BLOCK)), plain, (q, k, v))
+    launch = fwd_launch(q.dtype, b, h, sq, d)
+    _record("flash_attention_fwd", launch.grid, plain, (q, k, v), launch.threads)
     return (torch.empty(b, sq, h, d, dtype=q.dtype, device="meta"),
             torch.empty(b, h, sq, dtype=torch.float32, device="meta"))
 

@@ -6,7 +6,11 @@
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. It builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card. Then the three slices:
+PyTorch version on the card: K1-K3 in bf16, fp16 and f32 (K1 in 16 bits is
+the Hopper kernel of ``flash_fwd_sm90.cu``), with each one's TFLOP/s and
+share of its bound, and K1's launch as the C launcher reports it, as
+``fwd_launch`` gives it and as ``kernel_check`` records it, all three
+equal. Then the slices:
 
 * serving: a TinyLlama-1.1B-shape Llama (seeded random weights, bf16)
   served through ``ServingEngine``, every decode step through the paged
@@ -436,21 +440,26 @@ def live_pairs(sq, sk, causal, window) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
+def flash_flops(kind, q, k, causal, window) -> int:
+    """The products of K1 (fwd), K2 (dq) or K3 (dkv) over the live pairs: 2,
+    3 or 4 of them, 2 D FLOPs a pair each."""
+    b, sq, h, d = q.shape
+    return {"fwd": 2, "dq": 3, "dkv": 4}[kind] * 2 * b * h * d * live_pairs(sq, k.shape[1], causal, window)
+
+
 def flash_bound(kind, q, k, causal, window):
     """Least time for one call of K1 (fwd), K2 (dq) or K3 (dkv): every input
     read once and every output written once over the HBM rate, against the
-    products over the live pairs (2, 3 or 4 of them, 2 D FLOPs a pair each)
-    at the peak rate of the input type."""
+    products over the live pairs at the peak rate of the input type."""
     b, sq, h, d = q.shape
     elt = q.element_size()
-    pairs = live_pairs(sq, k.shape[1], causal, window)
     qo, kv, rows = q.numel() * elt, k.numel() * elt, b * h * sq * 4
     nbytes = {
         "fwd": qo + 2 * kv + qo + rows,  # q, k, v -> out, lse
         "dq": 2 * qo + 2 * kv + 2 * rows + q.numel() * 4,  # q, dO, k, v, lse, delta -> dq f32
         "dkv": 2 * qo + 2 * kv + 2 * rows + 2 * k.numel() * 4,  # -> dk, dv f32
     }[kind]
-    flops = {"fwd": 2, "dq": 3, "dkv": 4}[kind] * 2 * b * h * d * pairs
+    flops = flash_flops(kind, q, k, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -508,17 +517,19 @@ def check_flash(errs, what: str) -> None:
 
 def phase_flash_kernel(torch):
     """K1-K3 against their plain versions at the training slice's attention
-    shape (B 8, H 32, H_kv 4, D 64, S 2048, causal, bf16), again in f32 and
-    at D 128; their times beside the bound, the plain version's and
+    shape (B 8, H 32, H_kv 4, D 64, S 2048, causal, bf16), again in fp16 and
+    f32 and at D 128; their times beside the bound, the plain version's and
     scaled_dot_product_attention's (forward; backward, which computes dq,
-    dk and dv in one call). Tolerances: FLASH_TOL."""
+    dk and dv in one call), with each one's achieved TFLOP/s and share of
+    its bound. Tolerances: FLASH_TOL."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
-    cases = [("bf16", torch.bfloat16, 64, 30), ("f32", torch.float32, 64, 5), ("bf16-d128", torch.bfloat16, 128, 30)]
+    cases = [("bf16", torch.bfloat16, 64, 30), ("fp16", torch.float16, 64, 30), ("f32", torch.float32, 64, 5),
+             ("bf16-d128", torch.bfloat16, 128, 30)]
     b, s, h, h_kv = 8, 2048, 32, 4
     results = {}
     for name, dtype, d, reps in cases:
@@ -548,11 +559,12 @@ def phase_flash_kernel(torch):
                "library_max_abs_err_fwd": lib_err}
         for kind in kernels:
             bound_ms, bound_by = flash_bound(kind, q, k, True, None)
+            ms = time_ms(torch, kernels[kind], reps=reps, flush=flush)
             row[kind] = {
-                "max_abs_err": errs[kind][0], "err_over_tol": errs[kind][1],
-                "ms": time_ms(torch, kernels[kind], reps=reps, flush=flush),
+                "max_abs_err": errs[kind][0], "err_over_tol": errs[kind][1], "ms": ms,
                 "plain_ms": time_ms(torch, plains[kind], reps=min(reps, 5), warmup=1, flush=flush),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "tflops": flash_flops(kind, q, k, True, None) / (ms * 1e-3) / 1e12, "share_of_bound": bound_ms / ms,
             }
         row["library_fwd_ms"] = time_ms(torch, library["fwd"], reps=reps, flush=flush)
         row["library_bwd_ms"] = time_ms(torch, library["bwd"], reps=reps, flush=flush)
@@ -585,6 +597,36 @@ def phase_flash_sweep(torch):
             worst[key] = max(worst.get(key, 0.0), over)
         n += 1
     emit({"phase": "flash_sweep", "cases": n, "worst_err_over_tol": worst})
+
+
+def phase_flash_launch(torch):
+    """K1's launch for every dtype x D, three ways: what the C launcher
+    reports (its ``*_config`` entry, the arithmetic it launches with), what
+    ``fwd_launch`` says, and the grid and threads ``kernel_check`` records on
+    meta tensors; all must agree. The shared memory each asks for fits an
+    H100 block."""
+    from accelerate_tpu_torch.analysis import kernel_check
+    from accelerate_tpu_torch.kernels import build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    def fwd(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    b, s, h, h_kv = 8, 2048, 32, 4
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (64, 128):
+            launch = fa.fwd_launch(dtype, b, h, s, d)
+            built = build.launch_config(launch.library, launch.entry, fa._DTYPE_CODES[dtype], b, h, s, d)
+            meta = [torch.empty(shape, dtype=dtype, device="meta") for shape in ((b, s, h, d), (b, s, h_kv, d))]
+            (site,) = kernel_check(fwd, meta[0], meta[1], meta[1], probe=False).sites
+            recorded = {"grid": tuple(site.grid), "threads": site.threads}
+            check(built == {"grid": launch.grid, "threads": launch.threads, "smem_bytes": launch.smem_bytes}
+                  and recorded == {"grid": launch.grid, "threads": launch.threads} and launch.smem_bytes <= optin,
+                  f"K1 {dtype_name(dtype)} D{d}: launcher {built}, fwd_launch {launch}, recorded {recorded}")
+            rows.append({"dtype": dtype_name(dtype), "d": d, "library": launch.library, **built})
+    emit({"phase": "flash_launch", "shape": [b, s, h, h_kv], "cases": rows})
 
 
 def llama_step_flops(module, cfg, tokens: int, seq_len: int) -> float:
@@ -723,7 +765,8 @@ def phase_train_profile(torch, step, batches):
     def share(pred):
         return sum(ms for name, (ms, _) in by_name.items() if pred(name.lower()))
 
-    flash = {k: share(lambda nm, k=k: f"flash_{k}<" in nm or f"flash_{k}(" in nm) for k in ("fwd", "dq", "dkv")}
+    names = {"fwd": ("flash_fwd_wgmma<", "flash_fwd_f32<"), "dq": ("flash_dq<",), "dkv": ("flash_dkv<",)}
+    flash = {k: share(lambda nm, k=k: any(n in nm for n in names[k])) for k in names}
     gemm = share(lambda nm: any(t in nm for t in ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     row = {
@@ -1507,6 +1550,7 @@ def main() -> int:
     if not only or "flash" in only:
         flash = phase_flash_kernel(torch)["bf16"]  # the training slice's dtype and shapes
         phase_flash_sweep(torch)
+        phase_flash_launch(torch)
     if not only or "int4" in only:
         int4 = phase_int4_kernel(torch)[INT4_MAIN_CASE]
         phase_int4_sweep(torch)
@@ -1557,8 +1601,9 @@ def main() -> int:
     for kind, name, line in (("fwd", "flash_attention_fwd", 89), ("dq", "flash_attention_dq", 177),
                              ("dkv", "flash_attention_dkv", 210)):
         row = flash[kind]
+        source = "flash_fwd_sm90.cu" if kind == "fwd" else "flash_attention.cu"  # K1 in bf16: the Hopper kernel
         kernels.append({
-            "name": name, "route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
             "launches": train["launches"][kind], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

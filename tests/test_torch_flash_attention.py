@@ -174,6 +174,71 @@ def test_kernel_wrappers_check_their_inputs():
         fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_forward_launch_config(dtype, d):
+    """K1's launch at the training shape and at ragged ones: bf16 and fp16
+    the Hopper kernel (a producer warpgroup and a consumer warpgroup for
+    each 64 query rows: three at D 64, two at D 128), f32 the 64-row kernel;
+    shared memory within a block's 232,448 bytes, and for the Hopper kernel
+    room for Q and two stages of 128-key K and V tiles."""
+    launch = fa.fwd_launch(dtype, 8, 32, 2048, d)
+    if dtype == torch.float32:
+        library, entry, rows, threads = "flash_attention", "flash_attention_fwd", 64, 128
+    else:
+        library, entry = "flash_fwd_sm90", "flash_fwd_sm90"
+        rows, threads = (192, 512) if d == 64 else (128, 384)
+        assert launch.smem_bytes >= (rows + 2 * 2 * 128) * d * 2
+    assert (launch.library, launch.entry, launch.grid, launch.threads) == (
+        library, entry, (256, -(-2048 // rows)), threads)
+    for sq in (1, rows - 1, rows, rows + 1, 300):
+        assert fa.fwd_launch(dtype, 2, 3, sq, d).grid == (6, -(-sq // rows))
+    assert 0 < launch.smem_bytes <= 232_448
+    assert fa.fwd_launch(dtype, 1, 1, 1, d).smem_bytes == launch.smem_bytes  # fixed by dtype and D alone
+
+
+def test_forward_wrapper_refuses_strides_tma_cannot_read(monkeypatch):
+    """A q view whose head stride is not a multiple of 16 bytes, or a
+    broadcast (stride-0) k, raises ValueError in the wrapper before any
+    kernel is built or launched."""
+    from accelerate_tpu_torch.kernels import build
+
+    def no_build(name):
+        raise AssertionError(f"{name} built before the strides were checked")
+
+    monkeypatch.setattr(build, "load", no_build)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 76, dtype=torch.bfloat16)[..., :64]  # head stride 152 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd_kernel(q, k, k, True, 0.125, None)
+    broadcast = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16).expand(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd_kernel(k, broadcast, broadcast, True, 0.125, None)
+    before = fa.launches_fwd
+    q32 = torch.zeros(1, 8, 2, 66)[..., :64]  # head stride 264 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd_kernel(q32, k.float(), k.float(), True, 0.125, None)
+    assert fa.launches_fwd == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float16, 1e-2)])
+def test_cuda_hopper_forward_matches_plain(dtype, atol, d):
+    """The Hopper K1 against its plain version: ragged S, Sq < Sk, Sq > Sk
+    (dead rows), non-causal and a band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode (chip_smoke.py runs them on the H100)")
+    for seed, (sq, sk, causal, window) in enumerate(((200, 200, True, None), (100, 300, False, None),
+                                                     (300, 100, True, None), (200, 200, True, 16))):
+        q, k, v = (torch.tensor(x).cuda().to(dtype) for x in _qkv(seed, 2, sq, sk, 8, 2, d))
+        out, lse = fa.flash_fwd_kernel(q, k, v, causal, d**-0.5, window)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, causal, d**-0.5, window)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(), want_out.float().cpu().numpy(), atol=atol, rtol=atol)
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 1e-2)])
 def test_cuda_kernels_match_plain(dtype, atol):

@@ -261,6 +261,27 @@ def test_training_step_lists_the_flash_kernels():
     assert _rules(report) == ["TPU1005"] * 3
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_training_step_lists_the_hopper_forward(dtype):
+    """In bf16 and fp16 K1 is the Hopper kernel: at D 64, 192 query rows
+    and 512 threads (a producer and three consumer warpgroups) a block; K2
+    and K3 keep their 64-row blocks of 128 threads."""
+    from accelerate_tpu_torch.ops.flash_attention import flash_attention
+
+    def step(q, k, v):
+        q.requires_grad_(True)
+        out = flash_attention(q, k, v, causal=True)
+        out.float().sum().backward()
+        return out
+
+    report = kernel_check(step, _meta(2, 128, 4, 64, dtype=dtype), _meta(2, 128, 2, 64, dtype=dtype),
+                          _meta(2, 128, 2, 64, dtype=dtype), probe=False)
+    assert [(s.kernel_name, s.grid, s.threads) for s in report.sites] == [
+        ("flash_attention_fwd", (8, 1), 512), ("flash_attention_dq", (8, 2), 128),
+        ("flash_attention_dkv", (4, 2), 128)]
+    assert _rules(report) == ["TPU1005"] * 3
+
+
 def test_int4_projection_lists_the_int4_kernel():
     from accelerate_tpu_torch.ops.qdense import QuantDense
 
@@ -292,6 +313,35 @@ def test_fixture_wrappers_take_plain_versions_on_cpu():
     got = fixture_set["TPU1004"][0](a, d)
     assert got is a and torch.equal(a, want)  # aliased: written in place, from the unmodified a
     assert (fixtures.launches_copy, fixtures.launches_add, fixtures.launches_scale) == before
+
+
+@pytest.mark.parametrize("rule", ["TPU1001", "TPU1002", "TPU1003", "TPU1004", "TPU1005", "TPU1006"])
+def test_tile_origins_pack_into_the_launch_parameters(rule):
+    """Each fixture's table of tile origins, packed for the kernel's
+    parameters, unpacks to ``site.tile_origins()``: the card reads the maps
+    the analyzer judged."""
+    fn, args = _kernel_fixtures()[0][rule]
+    (site,) = kernel_check(fn, *args, probe=False).sites
+    from accelerate_tpu_torch.kernels.launch import LaunchSite
+
+    launch = LaunchSite(site.kernel_name, site.grid, site.threads, ins=tuple(site.in_tiles),
+                        outs=tuple(site.out_tiles))
+    table = launch.tile_origins()
+    packed = fixtures.pack_origins(launch)
+    assert len(packed) == table.numel() <= fixtures.MAX_BLOCKS * 3 * 2
+    assert torch.equal(torch.tensor(list(packed), dtype=torch.int32).view(table.shape), table)
+
+
+def test_tile_origins_above_capacity_raise():
+    from accelerate_tpu_torch.kernels.launch import LaunchSite, TileSpec
+
+    def site(blocks):
+        spec = TileSpec("x", (8, 128), (8 * blocks, 128), torch.float32, lambda i: (i, 0))
+        return LaunchSite("tile_scale", (blocks,), fixtures.THREADS, ins=(spec,), outs=(spec,))
+
+    assert len(fixtures.pack_origins(site(fixtures.MAX_BLOCKS))) == fixtures.MAX_BLOCKS * 2 * 2
+    with pytest.raises(ValueError, match=f"at most MAX_BLOCKS = {fixtures.MAX_BLOCKS}"):
+        fixtures.pack_origins(site(fixtures.MAX_BLOCKS + 1))
 
 
 def test_tile_origins_are_the_declared_maps():
@@ -392,13 +442,14 @@ def test_scan_paths_fires_and_respects_suppression(tmp_path):
 
 def test_scan_paths_over_the_port():
     """kernels/ (K6, K7 registered; the K8 fixtures suppressed) is clean;
-    ops/ holds the five unregistered launches, as the reference's ops
-    kernels carry no contract."""
+    ops/ holds the six unregistered launches (K1 in f32 and in 16 bits,
+    K2-K5), as the reference's ops kernels carry no contract."""
     pkg = os.path.join(REPO, "accelerate_tpu_torch")
     assert scan_paths([os.path.join(pkg, "kernels")]) == []
     found = scan_paths([os.path.join(pkg, "ops")])
     assert sorted(f.message.split("`")[1] for f in found) == [
-        "flash_attention_dkv", "flash_attention_dq", "flash_attention_fwd", "int4_matmul", "paged_decode_attention"]
+        "flash_attention_dkv", "flash_attention_dq", "flash_attention_fwd", "flash_fwd_sm90", "int4_matmul",
+        "paged_decode_attention"]
 
 
 def _run_cli(*args, cwd=REPO):
