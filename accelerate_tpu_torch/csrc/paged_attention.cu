@@ -30,16 +30,21 @@
 //     table entry and skips the dead ones). It reads its own table entries
 //     (no scalar prefetch on this card), loads whole pages of K and V for
 //     its head in tiles of about 64 keys with 16-byte loads, so a tile's
-//     loads are in flight together, and keeps the G = H / Hkv query rows of
-//     its group in shared memory as f32: GQA never repeats K/V. Scores,
+//     loads are in flight together (part of a page where a wide head and a
+//     big page would not fit the block's shared memory), and keeps the G =
+//     H / Hkv query rows of its group in shared memory as f32: GQA never
+//     repeats K/V. Scores,
 //     masking, the running max/sum (one warp a query row) and the [G, D]
 //     accumulator follow the Pallas kernel step for step, and the split's
 //     (m, l, acc) go to f32 scratch.
 //  2. combine pass, one block a query row: rescale each live split by
 //     exp(m_s - max m) and divide by max(sum l, 1).
-// It allocates nothing (the caller passes the scratch) and launches on the
-// caller's stream. Taking launch latency off the decode step (CUDA graphs,
-// one persistent launch for all layers) is work for a later change.
+// Head dims: every multiple of 16 from 16 to 256 (the Pallas kernel takes
+// the whole head dim as its block), in one build that reads D at run time
+// (its rows of 16 bytes are whole for any multiple of 8). It allocates nothing
+// (the caller passes the scratch) and launches on the caller's stream.
+// Taking launch latency off the decode step (CUDA graphs, one persistent
+// launch for all layers) is work for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,7 +57,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileKeys = 64;  // a tile holds max(1, kTileKeys / bs) whole pages
+constexpr int kTileKeys = 64;  // a tile holds max(1, kTileKeys / bs) whole pages, if they fit
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -99,18 +104,34 @@ inline int tile_pages(int bs) { return bs >= kTileKeys ? 1 : kTileKeys / bs; }
 // Shared memory of the split pass, in floats: q [G][D+1], k [TK][D+1],
 // v [TK][D], s [G][TK], acc [G][D], m/l/alpha [G] each (TK = keys a
 // tile). The +1 pads the rows the score loop reads across, so
-// neighbouring threads fall in different banks. Above the card's 227 KB
-// a block the launch is refused and its error returned.
+// neighbouring threads fall in different banks.
 inline size_t smem_floats(int g, int d, int tk) {
   return (size_t)g * (d + 1) + (size_t)tk * (d + 1) + (size_t)tk * d + (size_t)g * tk + (size_t)g * d + 3 * (size_t)g;
 }
 
-template <typename T, int D>
+// Keys a tile of the split pass holds: split_pages pages or kTileKeys keys
+// of whole pages, whichever is fewer, halved until the block's shared
+// memory fits the card (a wide head and a big page: then a tile is part of
+// a page). Past what even one key needs, the launch is refused and its error
+// returned.
+int tile_keys(int g, int d, int bs, int split_pages) {
+  static const int limit = [] {
+    int dev = 0, bytes = 48 * 1024;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return bytes;
+  }();
+  int tk = min(tile_pages(bs), split_pages) * bs;
+  while (tk > 1 && smem_floats(g, d, tk) * sizeof(float) > (size_t)limit) tk = (tk + 1) / 2;
+  return tk;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_decode_split(
     const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
     const int32_t* __restrict__ table, const int32_t* __restrict__ cur_arr, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int heads, int kv_heads, int num_blocks, int bs,
-    int max_blocks, int split_pages, int num_splits, int tpages, float scale, int window) {
+    float* __restrict__ part_l, float* __restrict__ part_acc, int heads, int kv_heads, int D, int num_blocks, int bs,
+    int max_blocks, int split_pages, int num_splits, int tk, float scale, int window) {
   const int b = blockIdx.x / kv_heads;
   const int h = blockIdx.x % kv_heads;
   const int split = blockIdx.y;
@@ -124,7 +145,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   if (j_begin > last) return;  // the whole block leaves: this split holds no live page
   const int j_end = min(j_begin + split_pages - 1, last);
 
-  const int tk = tpages * bs;
   extern __shared__ float smem[];
   float* q_s = smem;                     // [G][D+1]
   float* k_s = q_s + g_count * (D + 1);  // [TK][D+1]
@@ -148,28 +168,27 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   __syncthreads();
 
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecsPerRow = D / kVec;
+  const int kVecsPerRow = D / kVec;
   const size_t row_stride = (size_t)kv_heads * D;  // between two positions of one page
-  // The tile's page count comes from a running remainder: written as
-  // min(tpages, j_end - j + 1), the optimised build computed it as
-  // -tpages for the first tile of a one-page split (right under -G).
-  int remaining = j_end - j_begin + 1;
-  for (int j = j_begin; j <= j_end; j += tpages) {
-    const int np = remaining < tpages ? remaining : tpages;
-    remaining -= np;
-    const int nk = np * bs;  // keys in this tile
+  // The split's keys j_begin * bs .. (j_end + 1) * bs - 1 in tiles of tk.
+  // The tile's key count comes from a running remainder: written as
+  // min(tk, end - lo), the optimised build computed it as -tk for the
+  // first tile of a one-page split (right under -G).
+  int remaining = (j_end - j_begin + 1) * bs;
+  for (int lo = j_begin * bs; remaining > 0; lo += tk) {
+    const int nk = remaining < tk ? remaining : tk;  // keys in this tile
+    remaining -= nk;
     for (int i = tid; i < nk * kVecsPerRow; i += kThreads) {
-      const int kk = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
-      int blk = table[(size_t)b * max_blocks + j + kk / bs];
+      const int kk = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec, pos = lo + kk;
+      int blk = table[(size_t)b * max_blocks + pos / bs];
       blk = min(max(blk, 0), num_blocks - 1);
-      const size_t off = ((size_t)blk * bs + kk % bs) * row_stride + (size_t)h * D + c;
+      const size_t off = ((size_t)blk * bs + pos % bs) * row_stride + (size_t)h * D + c;
       load16(kpool + off, k_s + kk * (D + 1) + c);
       load16(vpool + off, v_s + kk * D + c);
     }
     __syncthreads();
 
     // scores [G, nk], masked to (cur - W, cur]
-    const int lo = j * bs;
     for (int i = tid; i < g_count * nk; i += kThreads) {
       const int g = i / nk, kk = i % nk;
       const float* qv = q_s + g * (D + 1);
@@ -190,16 +209,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
       float mx = -INFINITY;
       for (int kk = lane; kk < nk; kk += 32) mx = fmaxf(mx, srow[kk]);
       const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(mx));  // finite: every live page has a live key
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      // -inf only while every key so far is masked, which a tile of part of
+      // a page can be: exp against 0 then, so p and alpha are 0, not NaN
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
       float sum = 0.f;
       for (int kk = lane; kk < nk; kk += 32) {
-        const float p = expf(srow[kk] - m_new);
+        const float p = expf(srow[kk] - m_safe);
         srow[kk] = p;
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 while m was -inf
+        const float alpha = expf(m_old - m_safe);  // 0 while m was -inf
         l_s[g] = l_s[g] * alpha + sum;
         m_s[g] = m_new;
         alpha_s[g] = alpha;
@@ -251,43 +273,27 @@ __global__ void paged_decode_combine(const float* __restrict__ part_m, const flo
   out[row * dim + c] = from_f32<T>(acc / fmaxf(l, 1.f));  // no live split: 0 / 1
 }
 
-template <typename T, int D>
+template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int32_t* table, const int32_t* cur,
                    void* out, float* part_m, float* part_l, float* part_acc, int batch, int heads, int kv_heads,
-                   int num_blocks, int bs, int max_blocks, int split_pages, int num_splits, float scale, int window,
-                   cudaStream_t stream) {
-  const int tpages = min(tile_pages(bs), split_pages);
-  const size_t smem = smem_floats(heads / kv_heads, D, tpages * bs) * sizeof(float);
-  auto split_kernel = paged_decode_split<T, D>;
+                   int dim, int num_blocks, int bs, int max_blocks, int split_pages, int num_splits, float scale,
+                   int window, cudaStream_t stream) {
+  const int tk = tile_keys(heads / kv_heads, dim, bs, split_pages);
+  const size_t smem = smem_floats(heads / kv_heads, dim, tk) * sizeof(float);
+  auto split_kernel = paged_decode_split<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   split_kernel<<<dim3(batch * kv_heads, num_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), table, cur, part_m, part_l,
-      part_acc, heads, kv_heads, num_blocks, bs, max_blocks, split_pages, num_splits, tpages, scale, window);
+      part_acc, heads, kv_heads, dim, num_blocks, bs, max_blocks, split_pages, num_splits, tk, scale, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine<T><<<batch * heads, D, 0, stream>>>(part_m, part_l, part_acc, cur, static_cast<T*>(out),
-                                                           heads, D, bs, max_blocks, split_pages, num_splits, window);
+  paged_decode_combine<T><<<batch * heads, dim, 0, stream>>>(part_m, part_l, part_acc, cur, static_cast<T*>(out),
+                                                             heads, dim, bs, max_blocks, split_pages, num_splits,
+                                                             window);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_dim(int dim, const void* q, const void* kp, const void* vp, const int32_t* table,
-                         const int32_t* cur, void* out, float* part_m, float* part_l, float* part_acc, int batch,
-                         int heads, int kv_heads, int num_blocks, int bs, int max_blocks, int split_pages,
-                         int num_splits, float scale, int window, cudaStream_t stream) {
-  switch (dim) {
-    case 64:
-      return launch<T, 64>(q, kp, vp, table, cur, out, part_m, part_l, part_acc, batch, heads, kv_heads,
-                           num_blocks, bs, max_blocks, split_pages, num_splits, scale, window, stream);
-    case 128:
-      return launch<T, 128>(q, kp, vp, table, cur, out, part_m, part_l, part_acc, batch, heads, kv_heads,
-                            num_blocks, bs, max_blocks, split_pages, num_splits, scale, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -303,23 +309,11 @@ extern "C" int paged_decode_attention(const void* q, const void* key_pool, const
                                       int head_dim, int num_blocks, int block_size, int max_blocks, int split_pages,
                                       int num_splits, float scale, int window, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || block_size <= 0 || max_blocks <= 0 ||
-      num_blocks <= 0 || split_pages <= 0 || (long long)num_splits * split_pages < max_blocks)
+      num_blocks <= 0 || split_pages <= 0 || (long long)num_splits * split_pages < max_blocks || dtype < 0 ||
+      dtype > 2 || head_dim % 16 != 0 || head_dim < 16 || head_dim > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)dispatch_dim<float>(head_dim, q, key_pool, value_pool, block_table, cur, out, part_m, part_l,
-                                      part_acc, batch, heads, kv_heads, num_blocks, block_size, max_blocks,
-                                      split_pages, num_splits, scale, window, s);
-    case 1:
-      return (int)dispatch_dim<__nv_bfloat16>(head_dim, q, key_pool, value_pool, block_table, cur, out, part_m,
-                                              part_l, part_acc, batch, heads, kv_heads, num_blocks, block_size,
-                                              max_blocks, split_pages, num_splits, scale, window, s);
-    case 2:
-      return (int)dispatch_dim<__half>(head_dim, q, key_pool, value_pool, block_table, cur, out, part_m, part_l,
-                                       part_acc, batch, heads, kv_heads, num_blocks, block_size, max_blocks,
-                                       split_pages, num_splits, scale, window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const auto run = dtype == 0 ? launch<float> : dtype == 1 ? launch<__nv_bfloat16> : launch<__half>;
+  return (int)run(q, key_pool, value_pool, block_table, cur, out, part_m, part_l, part_acc, batch, heads, kv_heads,
+                  head_dim, num_blocks, block_size, max_blocks, split_pages, num_splits, scale, window, s);
 }

@@ -3,8 +3,9 @@
 Each source under ``accelerate_tpu_torch/csrc/`` exposes a plain C
 interface, so it compiles in seconds into a shared library without
 PyTorch's headers. The library lands in :func:`kernel_build_dir` under a
-name that carries the hash of its source and flags: a changed source
-builds anew at first use, an unchanged one loads what is there.
+name that carries the hash of its source, the headers it includes and the
+flags: a changed source or header builds anew at first use, an unchanged
+one loads what is there.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
@@ -14,9 +15,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..utils.environment import kernel_build_dir
@@ -38,10 +42,18 @@ SIGNATURES = {
         "flash_attention_dq": ((*[_P] * 7, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_attention_dkv": ((*[_P] * 8, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_attention_fwd_config": ((*[_I] * 5, _INTS), _I),
+        "flash_attention_dq_config": ((*[_I] * 7, _INTS), _I),
+        "flash_attention_dkv_config": ((*[_I] * 7, _INTS), _I),
     },
     "flash_fwd_sm90": {
         "flash_fwd_sm90": ((*[_P] * 5, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
         "flash_fwd_sm90_config": ((*[_I] * 5, _INTS), _I),
+    },
+    "flash_bwd_sm90": {
+        "flash_dq_sm90": ((*[_P] * 7, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_dkv_sm90": ((*[_P] * 8, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
+        "flash_dq_sm90_config": ((*[_I] * 7, _INTS), _I),
+        "flash_dkv_sm90_config": ((*[_I] * 7, _INTS), _I),
     },
     "int4_matmul": {
         "int4_matmul": ((*[_P] * 5, *[_I] * 8, _P), _I),
@@ -71,9 +83,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path) -> list[Path]:
+    """``path`` and every header it includes with ``#include "..."``,
+    transitively, each once: what the library's content depends on."""
+    out = [path]
+    for p in out:  # grows as headers are found
+        for name in _INCLUDE.findall(p.read_bytes()):
+            dep = p.parent / name.decode()
+            if dep not in out:
+                out.append(dep)
+    return out
+
+
 def _target(name: str) -> tuple[Path, Path]:
+    """The source of kernel ``name`` and its library, named by a hash of the
+    source, the headers it includes and the flags: a changed header builds
+    anew as a changed source does."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    content = b"".join(p.read_bytes() for p in _sources(src))
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, kernel_build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -103,10 +134,18 @@ def _finish(name: str, proc, tmp: Path, lib: Path) -> str:
 
 def build_all(names=None) -> dict:
     """Build every kernel library (one ``nvcc`` per source, in parallel);
-    returns ``{name: compiler output}`` (empty for a library already built)."""
+    returns ``{name: (compiler output, seconds from the start until its
+    library was there)}`` (empty output for a library already built)."""
     names = list(names or SIGNATURES)
+    t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
-    return {n: _finish(n, *started[n]) for n in names}
+
+    def finish(n):
+        log = _finish(n, *started[n])
+        return n, (log, time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:  # each waits on its own nvcc
+        return dict(pool.map(finish, names))
 
 
 @functools.cache

@@ -5,9 +5,12 @@ with ``_xla_attention`` folded in: GQA, bottom-right causal alignment
 when ``Sq != Sk``, and the sliding-window band (the JAX package fills the
 band with the f32 minimum and the causal mask with -inf; both give the
 same softmax since every query keeps its own key). Long sequences on the
-card go to the flash kernels (:mod:`.flash_attention`); on the CPU an
-explicit ``use_flash=True`` takes their plain blockwise version, as the
-JAX package's off-TPU flash path takes its blockwise reference.
+card go to the flash kernels (:mod:`.flash_attention`) when they take the
+head dim; any other head dim stays on the einsum path, as the JAX
+package's auto path keeps off its kernel only what the kernel cannot do.
+On the CPU an explicit ``use_flash=True`` takes their plain blockwise
+version, as the JAX package's off-TPU flash path takes its blockwise
+reference.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..kernels.launch import runs_on_card
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_head_dim_ok
 
 # Query length from which the card takes the flash kernels by default. 2048
 # is the JAX package's TPU v5e crossover, kept until the H100's own
@@ -37,16 +40,22 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Multi-head attention with optional GQA (H_kv divides H). Causal
     masking is bottom-right aligned (query i attends keys
-    ``0..Sk-Sq+i``). Returns ``[B, Sq, H, D]``."""
+    ``0..Sk-Sq+i``). Returns ``[B, Sq, H, D]``. ``use_flash=None`` sends
+    ``Sq >= FLASH_MIN_SEQ`` on the card to the flash kernels if they take
+    the head dim; ``use_flash=True`` on the card with a head dim they do not
+    take raises."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     seq_len = q.shape[1]
     if window is not None and not causal:
         raise ValueError("window requires causal=True (sliding-window is a causal band)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 (got {window}); a 0-width band masks everything")
-    auto_flash = use_flash is None and runs_on_card(q) and seq_len >= FLASH_MIN_SEQ
+    on_card, head_dim = runs_on_card(q), q.shape[-1]
+    if use_flash and on_card and not flash_head_dim_ok(head_dim):
+        raise ValueError(f"use_flash=True: the CUDA flash kernels do not take head_dim {head_dim}")
+    auto_flash = use_flash is None and on_card and seq_len >= FLASH_MIN_SEQ and flash_head_dim_ok(head_dim)
     if use_flash or auto_flash:
-        if window is not None and not runs_on_card(q):
+        if window is not None and not on_card:
             # the JAX package's off-TPU flash path has no band either
             raise ValueError("banded flash (window=) runs on the CUDA kernels only; drop use_flash=True off the GPU")
         return flash_attention(q, k, v, causal=causal, scale=scale, window=window)

@@ -22,7 +22,6 @@ from ..kernels.launch import LaunchSite, record
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
 # keys one block of the kernel's split pass walks: rows longer than this
 # spread over more blocks, and a combine pass joins their partial sums
 _SPLIT_KEYS = 128
@@ -124,9 +123,15 @@ def _site(q, key_pool, value_pool, block_table, cur, sliding_window, scale) -> L
                       operands=(q, key_pool, value_pool, block_table, cur))
 
 
+def head_dim_ok(d: int) -> bool:
+    """Whether the kernel takes head dim ``d``: every multiple of 16 from 16
+    to 256, read at run time (``csrc/paged_attention.cu``)."""
+    return d % 16 == 0 and 16 <= d <= 256
+
+
 def _check(q, key_pool, value_pool, block_table, cur, sliding_window) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on cuda or cpu tensors, got {q.device}")
+    """What the kernel refuses, checked before any build or launch; the
+    device last, so the shape checks hold on any tensors."""
     tensors = {"q": q, "key_pool": key_pool, "value_pool": value_pool, "block_table": block_table, "cur": cur}
     for name, t in tensors.items():
         if t.device != q.device:
@@ -146,11 +151,13 @@ def _check(q, key_pool, value_pool, block_table, cur, sliding_window) -> None:
         raise ValueError(f"want q [B, H, D] and equal pools [NB, bs, Hkv, D]; got {q.shape}, {key_pool.shape}")
     b, heads, dim = q.shape
     kv_heads = key_pool.shape[2]
-    if dim not in _HEAD_DIMS or key_pool.shape[3] != dim:
-        raise ValueError(f"head_dim must be one of {_HEAD_DIMS} and match the pools; got {dim}")
+    if not head_dim_ok(dim) or key_pool.shape[3] != dim:
+        raise ValueError(f"head_dim must be a multiple of 16 from 16 to 256 and match the pools; got {dim}")
     if heads % kv_heads:
         raise ValueError(f"heads {heads} not divisible by kv heads {kv_heads}")
     if block_table.dim() != 2 or block_table.shape[0] != b or cur.shape != (b,):
         raise ValueError(f"want block_table [B, MB] and cur [B] for B={b}; got {block_table.shape}, {cur.shape}")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu tensors, got {q.device}")

@@ -6,16 +6,18 @@
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. It builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card: K1-K3 in bf16, fp16 and f32 (K1 in 16 bits is
-the Hopper kernel of ``flash_fwd_sm90.cu``), with each one's TFLOP/s and
-share of its bound, and K1's launch as the C launcher reports it, as
-``fwd_launch`` gives it and as ``kernel_check`` records it, all three
-equal. Then the slices:
+PyTorch version on the card: K4 at every head dim it takes (16 to 256),
+K1-K3 in bf16, fp16 and f32 (in 16 bits the Hopper kernels of
+``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``), with each one's TFLOP/s
+and share of its bound, and each one's launch as the C launcher reports it,
+as ``fwd_launch`` / ``bwd_launch`` give it and as ``kernel_check`` records
+it, all three equal. Then the slices:
 
 * serving: a TinyLlama-1.1B-shape Llama (seeded random weights, bf16)
   served through ``ServingEngine``, every decode step through the paged
   kernel (K4); one decode tick profiled; greedy serving checked against a
-  no-cache reference loop;
+  no-cache reference loop, at TinyLlama's widths and at
+  ``LlamaConfig.tiny()``'s head dim of 16;
 * training: the same shape at full depth, f32 masters and bf16 compute,
   trained for 12 steps at batch 8 x seq 2048 through ``Accelerator`` ->
   ``build_train_step``, every layer's attention through the flash kernels
@@ -111,8 +113,11 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {n: sorted({ln.split("info    : ")[-1] for ln in log.splitlines() if "registers" in ln}) for n, log in logs.items()}
-    emit({"phase": "build", "seconds": seconds, "libraries": sorted(logs), "ptxas": ptxas})
+    ptxas = {n: sorted({ln.split("info    : ")[-1] for ln in log.splitlines() if "registers" in ln})
+             for n, (log, _) in logs.items()}
+    by_library = {n: s for n, (_, s) in logs.items()}  # each nvcc's wall time, all running at once
+    emit({"phase": "build", "seconds": seconds, "seconds_by_library": by_library, "libraries": sorted(logs),
+          "ptxas": ptxas})
 
 
 def paged_inputs(torch, gen, b, heads, kv_heads, dim, bs, mb, dtype, rng):
@@ -218,9 +223,9 @@ def phase_kernel(torch):
 
 def phase_kernel_sweep(torch):
     """The kernel against its plain version over the shapes it takes: every
-    dtype, group sizes 1-8, both head dims, blocks of 4-128 rows (24: not
-    a power of two), windows of 1 and 100 keys, frontiers at 0 and past
-    the table."""
+    dtype, group sizes 1-8, head dims 16, 64, 96, 128 and 256, blocks of 4-128
+    rows (24: not a power of two; 128 rows at D 256 in tiles of part of a
+    page), windows of 1 and 100 keys, frontiers at 0 and past the table."""
     import itertools
 
     from accelerate_tpu_torch.ops import paged_attention as pa
@@ -228,9 +233,9 @@ def phase_kernel_sweep(torch):
     rng = np.random.default_rng(5)
     gen = torch.Generator(device="cuda").manual_seed(5)
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
-    worst, n = 0.0, 0
+    worst, n, worst_by_dim = 0.0, 0, {}
     for dtype, (heads, kv_heads), dim, bs, window in itertools.product(
-        tols, ((4, 4), (8, 2), (8, 1)), (64, 128), (4, 16, 24, 128), (None, 1, 100)
+        tols, ((4, 4), (8, 2), (8, 1)), (16, 64, 96, 128, 256), (4, 16, 24, 128), (None, 1, 100)
     ):
         b, mb = 3, max(2, 512 // bs)
         q, kp, vp, table, cur = paged_inputs(torch, gen, b, heads, kv_heads, dim, bs, mb, dtype, rng)
@@ -240,7 +245,8 @@ def phase_kernel_sweep(torch):
         err = (got.float() - want.float()).abs().max().item()
         check(err <= tols[dtype], f"sweep {dtype} H{heads}/{kv_heads} D{dim} bs{bs} W{window}: {err}")
         worst, n = max(worst, err / tols[dtype]), n + 1
-    emit({"phase": "kernel_sweep", "cases": n, "worst_err_over_tol": worst})
+        worst_by_dim[dim] = max(worst_by_dim.get(dim, 0.0), err / tols[dtype])
+    emit({"phase": "kernel_sweep", "cases": n, "worst_err_over_tol": worst, "worst_by_head_dim": worst_by_dim})
 
 
 def serve_engine(model):
@@ -408,6 +414,42 @@ def phase_consistency(torch):
     row = {
         "phase": "consistency", "config": "TinyLlama widths, 2 layers, f32", "prompts": [len(p) for p in prompts],
         "tokens_compared": compared, "stopped_at_near_tie": near_ties, "max_logprob_err": max_lp_err,
+    }
+    emit(row)
+    return row
+
+
+def phase_tiny_serve(torch):
+    """LlamaConfig.tiny() (head dim 16, which K4 takes since slice 6) served
+    by the paged engine on the card in f32: every decode step's attention
+    through K4 (launches == layers x decode steps, counted from 0 for this
+    run), greedy tokens and logprobs against a no-cache loop over the full
+    forward, as the consistency phase holds TinyLlama's widths."""
+    from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = LlamaConfig.tiny()
+    model = create_llama_model(cfg, seed=6, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 19, 40, 70)]
+    n_new = 16
+    eng = ServingEngine(model, num_slots=2, prompt_buckets=(16, 64), paged_block_size=8, tick_block=4)
+    pa.launches = 0
+    uids = [eng.submit(p, n_new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    launches = pa.launches
+    check(launches == cfg.num_hidden_layers * eng.decode_steps > 0,
+          f"tiny serve: K4 launches {launches} == layers x decode steps {cfg.num_hidden_layers * eng.decode_steps}")
+    served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+    check(all(len(toks) == n_new for _, toks, _ in served), "tiny serve: every request completed")
+    compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit=1e-3)
+    check(max_lp_err < 1e-3, f"tiny serve: logprob vs reference {max_lp_err} < 1e-3")
+    row = {
+        "phase": "tiny_serve", "config": "LlamaConfig.tiny() (hidden 64, 4/2 heads, head dim 16), f32",
+        "head_dim": cfg.hidden_size // cfg.num_attention_heads, "prompts": [len(p) for p in prompts],
+        "kernel_launches": launches, "decode_steps": eng.decode_steps, "tokens_compared": compared,
+        "stopped_at_near_tie": near_ties, "max_logprob_err": max_lp_err,
     }
     emit(row)
     return row
@@ -600,33 +642,42 @@ def phase_flash_sweep(torch):
 
 
 def phase_flash_launch(torch):
-    """K1's launch for every dtype x D, three ways: what the C launcher
+    """K1-K3's launches for every dtype x D, three ways: what the C launcher
     reports (its ``*_config`` entry, the arithmetic it launches with), what
-    ``fwd_launch`` says, and the grid and threads ``kernel_check`` records on
-    meta tensors; all must agree. The shared memory each asks for fits an
-    H100 block."""
+    ``fwd_launch`` / ``bwd_launch`` say, and the grid and threads
+    ``kernel_check`` records on meta tensors for a forward and backward; all
+    must agree. The shared memory each asks for fits an H100 block."""
     from accelerate_tpu_torch.analysis import kernel_check
     from accelerate_tpu_torch.kernels import build
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    def fwd(q, k, v):
-        return fa.flash_attention(q, k, v, causal=True)
+    def fwd_bwd(q, k, v):
+        q.requires_grad_(True)
+        out = fa.flash_attention(q, k, v, causal=True)
+        out.float().sum().backward()
+        return out
 
     b, s, h, h_kv = 8, 2048, 32, 4
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     rows = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in (64, 128):
-            launch = fa.fwd_launch(dtype, b, h, s, d)
-            built = build.launch_config(launch.library, launch.entry, fa._DTYPE_CODES[dtype], b, h, s, d)
+            code = fa._DTYPE_CODES[dtype]
             meta = [torch.empty(shape, dtype=dtype, device="meta") for shape in ((b, s, h, d), (b, s, h_kv, d))]
-            (site,) = kernel_check(fwd, meta[0], meta[1], meta[1], probe=False).sites
-            recorded = {"grid": tuple(site.grid), "threads": site.threads}
-            check(built == {"grid": launch.grid, "threads": launch.threads, "smem_bytes": launch.smem_bytes}
-                  and recorded == {"grid": launch.grid, "threads": launch.threads} and launch.smem_bytes <= optin,
-                  f"K1 {dtype_name(dtype)} D{d}: launcher {built}, fwd_launch {launch}, recorded {recorded}")
-            rows.append({"dtype": dtype_name(dtype), "d": d, "library": launch.library, **built})
-    emit({"phase": "flash_launch", "shape": [b, s, h, h_kv], "cases": rows})
+            sites = {site.kernel_name: {"grid": tuple(site.grid), "threads": site.threads}
+                     for site in kernel_check(fwd_bwd, meta[0], meta[1], meta[1], probe=False).sites}
+            launches = {"fwd": (fa.fwd_launch(dtype, b, h, s, d), (code, b, h, s, d))}
+            for kind in ("dq", "dkv"):
+                launches[kind] = (fa.bwd_launch(kind, dtype, b, h, h_kv, s, s, d), (code, b, h, h_kv, s, s, d))
+            for kind, (launch, args) in launches.items():
+                built = build.launch_config(launch.library, launch.entry, *args)
+                recorded = sites[f"flash_attention_{kind}"]
+                check(built == {"grid": launch.grid, "threads": launch.threads, "smem_bytes": launch.smem_bytes}
+                      and recorded == {"grid": launch.grid, "threads": launch.threads}
+                      and launch.smem_bytes <= optin,
+                      f"{kind} {dtype_name(dtype)} D{d}: launcher {built}, python {launch}, recorded {recorded}")
+                rows.append({"kernel": kind, "dtype": dtype_name(dtype), "d": d, "library": launch.library, **built})
+    emit({"phase": "flash_launch", "shape": [b, s, h, h_kv], "smem_per_block_optin": optin, "cases": rows})
 
 
 def llama_step_flops(module, cfg, tokens: int, seq_len: int) -> float:
@@ -765,7 +816,8 @@ def phase_train_profile(torch, step, batches):
     def share(pred):
         return sum(ms for name, (ms, _) in by_name.items() if pred(name.lower()))
 
-    names = {"fwd": ("flash_fwd_wgmma<", "flash_fwd_f32<"), "dq": ("flash_dq<",), "dkv": ("flash_dkv<",)}
+    names = {"fwd": ("flash_fwd_wgmma<", "flash_fwd_f32<"), "dq": ("flash_dq_wgmma<", "flash_dq_f32<"),
+             "dkv": ("flash_dkv_wgmma<", "flash_dkv_f32<")}
     flash = {k: share(lambda nm, k=k: any(n in nm for n in names[k])) for k in names}
     gemm = share(lambda nm: any(t in nm for t in ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -1575,6 +1627,7 @@ def main() -> int:
         free_memory(torch)
     if not only or "consistency" in only:
         phase_consistency(torch)
+        tiny = phase_tiny_serve(torch)
         phase_quant_consistency(torch)
     if not only or "train" in only:
         train, acc, model, step, batches = phase_train(torch)
@@ -1593,15 +1646,16 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
-        # both serving paths: the bf16 model's and the int4 model's
-        "launches": serve["kernel_launches"] + quant_serve["kernel_launches"], "max_abs_err": main_case["max_abs_err"],
+        # the serving paths: the bf16 model's, the int4 model's and LlamaConfig.tiny()'s (head dim 16)
+        "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"],
+        "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
     }]
     for kind, name, line in (("fwd", "flash_attention_fwd", 89), ("dq", "flash_attention_dq", 177),
                              ("dkv", "flash_attention_dkv", 210)):
         row = flash[kind]
-        source = "flash_fwd_sm90.cu" if kind == "fwd" else "flash_attention.cu"  # K1 in bf16: the Hopper kernel
+        source = "flash_fwd_sm90.cu" if kind == "fwd" else "flash_bwd_sm90.cu"  # bf16: the Hopper kernels
         kernels.append({
             "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",

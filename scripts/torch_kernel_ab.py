@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K1 (flash forward) and K8 (fixture tile kernels) in two
-checkouts on one CUDA card, in turns: other, this, this, other.
+"""Time the port's K1-K3 (flash forward and backward), K4 (paged decode
+attention) and K8 (fixture tile kernels) in two checkouts on one CUDA card,
+in turns: other, this, this, other.
 
     python3 scripts/torch_kernel_ab.py --other DIR
 
@@ -11,17 +12,28 @@ kernel source). Each turn is a subprocess that imports
 and times it with this checkout's ``chip_smoke.time_ms`` (CUDA events
 after warm-up, L2 flushed before each call, the median of 30 calls):
 
-* K1 through ``flash_fwd_kernel`` at the training shape (B 8, S 2048, H
-  32/4, causal) in bf16 D 64, fp16 D 64 and bf16 D 128, and in bf16 D 64
-  at the same shape's work in four times the blocks (B 32, S 1024, causal)
-  and non-causal at B 2, S 8192. At the training shape each case also
-  reports ``err_over_tol``, its output's largest error against
-  ``flash_attention_plain`` over ``chip_smoke.FLASH_TOL`` (``flash_err``:
-  at most 1 where it is within tolerance); the inputs of the bf16 case are
-  ``chip_smoke.py``'s bf16 ``flash_kernel`` case's (seed 7);
+* K1 through ``flash_fwd_kernel``, K2 through ``flash_dq_kernel`` and K3
+  through ``flash_dkv_kernel`` (fed that tree's K1 lse and delta) at the
+  training shape (B 8, S 2048, H 32/4, causal) in bf16 D 64, fp16 D 64 and
+  bf16 D 128, and in bf16 D 64 at the same shape's work in four times the
+  blocks (B 32, S 1024, causal) and non-causal at B 2, S 8192. Each case
+  also reports ``err_over_tol`` of K2's dq and K3's dk and dv (and, at the
+  training shape, of K1's output) against that tree's own plain versions
+  over ``chip_smoke.FLASH_TOL`` (``flash_err``: at most 1 where it is within
+  tolerance); the inputs are ``chip_smoke.flash_inputs``' (seed 7), so the
+  bf16 case's are ``chip_smoke.py``'s bf16 ``flash_kernel`` case's;
+* K4 through ``paged_decode_attention`` at the serving slice's shape (B 8,
+  H 32/4, 128 blocks of 16 rows, ``chip_smoke.paged_inputs``' ragged
+  frontiers, bf16) at head dims 64 and 128, with its ``max_abs_err``
+  against that tree's plain version;
 * the three K8 bodies at the fixture shapes, (16, 128) f32 (the copy and
   the scale as the ``unregistered_call`` and ``drifting_call`` fixtures,
   the add aliased on a map free of hazards), as ``chip_smoke.py`` does.
+
+Each turn first builds its tree's kernels: K4's library alone
+(``k4_build_s``), then the rest at once (``build_s``). A tree's first turn
+builds them from nothing (its own ``build/cuda``), its second finds them
+built, so the last line gives build seconds from each tree's first turn.
 
 Prints one JSON line a turn and a last line with each tree's medians over
 its two turns, beside the card's name and power limit.
@@ -39,13 +51,15 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-K1_CASES = (  # name, dtype, D, B, S, causal, checked against the plain version
+K1_CASES = (  # name, dtype, D, B, S, causal, K1 checked against the plain version (K2, K3: every case)
     ("bf16", "bfloat16", 64, 8, 2048, True, True),
     ("fp16", "float16", 64, 8, 2048, True, True),
     ("bf16-d128", "bfloat16", 128, 8, 2048, True, True),
     ("bf16-b32-s1024", "bfloat16", 64, 32, 1024, True, False),
     ("bf16-s8192-noncausal", "bfloat16", 64, 2, 8192, False, False),
 )
+K4_HEAD_DIMS = (64, 128)  # at B 8, H 32/4, 128 blocks of 16, bf16
+BUILD_KEYS = ("k4_build_s", "build_s")
 
 
 def chip_smoke():
@@ -58,28 +72,61 @@ def chip_smoke():
 
 
 def worker() -> dict:
+    import time
+
+    import numpy as np
     import torch
 
     from accelerate_tpu_torch.analysis.selfcheck import _kernel_fixtures
-    from accelerate_tpu_torch.kernels import fixtures
+    from accelerate_tpu_torch.kernels import build, fixtures
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import paged_attention as pa
 
     cs = chip_smoke()
-    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
+    t0 = time.perf_counter()
+    build.build_all(["paged_attention"])
+    out["k4_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build.build_all()
+    out["build_s"] = time.perf_counter() - t0
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d in K4_HEAD_DIMS:
+        q, kp, vp, table, cur = cs.paged_inputs(torch, gen, 8, 32, 4, d, 16, 128, torch.bfloat16, rng)
+        got = pa.paged_decode_attention(q, kp, vp, table, cur)
+        want = pa.paged_decode_attention_plain(q, kp, vp, table, cur)
+        out[f"k4_bf16-d{d}_max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        out[f"k4_bf16-d{d}_ms"] = cs.time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, table, cur),
+                                             flush=flush)
+    gen = torch.Generator(device="cuda").manual_seed(7)
     for name, dtype_name, d, b, s, causal, check in K1_CASES:
-        dtype = getattr(torch, dtype_name)
-        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-                   for shape in ((b, s, 32, d), (b, s, 4, d), (b, s, 4, d)))
+        dtype, scale, tol = getattr(torch, dtype_name), d**-0.5, cs.FLASH_TOL[dtype_name]
+        q, k, v, do = cs.flash_inputs(torch, gen, b, s, s, 32, 4, d, dtype)
+        o, lse = fa.flash_fwd_kernel(q, k, v, causal, scale, None)
         if check:
-            got, _ = fa.flash_fwd_kernel(q, k, v, causal, d**-0.5, None)
-            want, _ = fa.flash_attention_plain(q, k, v, causal, d**-0.5)
-            out[f"k1_{name}_err_over_tol"] = cs.flash_err(torch, got, want, cs.FLASH_TOL[dtype_name]["out"])[1]
-            del got, want
-        out[f"k1_{name}_ms"] = cs.time_ms(torch, lambda: fa.flash_fwd_kernel(q, k, v, causal, d**-0.5, None),
+            want, _ = fa.flash_attention_plain(q, k, v, causal, scale)
+            out[f"k1_{name}_err_over_tol"] = cs.flash_err(torch, o, want, tol["out"])[1]
+            del want
+        out[f"k1_{name}_ms"] = cs.time_ms(torch, lambda: fa.flash_fwd_kernel(q, k, v, causal, scale, None),
                                           flush=flush)
-        del q, k, v
+        delta = fa._delta(o, do)
+        floor = cs.GRAD_FLOOR * do.float().pow(2).mean().sqrt().item()
+        got = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal, scale, None)
+        want = fa.flash_attention_plain_dq(q, k, v, do, lse, delta, causal, scale)
+        out[f"k2_{name}_dq_err_over_tol"] = cs.flash_err(torch, got, want, tol["dq"], floor)[1]
+        got = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal, scale, None)
+        want = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, causal, scale)
+        out[f"k3_{name}_dk_err_over_tol"] = cs.flash_err(torch, got[0], want[0], tol["dk"], floor)[1]
+        out[f"k3_{name}_dv_err_over_tol"] = cs.flash_err(torch, got[1], want[1], tol["dv"], floor)[1]
+        del got, want
+        out[f"k2_{name}_ms"] = cs.time_ms(
+            torch, lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, causal, scale, None), flush=flush)
+        out[f"k3_{name}_ms"] = cs.time_ms(
+            torch, lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal, scale, None), flush=flush)
+        out[f"k2_k3_{name}_ms"] = out[f"k2_{name}_ms"] + out[f"k3_{name}_ms"]
+        del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     fixture_set, _ = _kernel_fixtures()
     x, a, d_ = (torch.randn(16, 128, generator=gen, device="cuda") for _ in range(3))
@@ -119,7 +166,8 @@ def main() -> int:
         row = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[which].append(row)
         print(json.dumps({"turn": which, "tree": str(tree), **row}), flush=True)
-    medians = {which: {key: statistics.median(r[key] for r in rows) for key in rows[0]} for which, rows in runs.items()}
+    medians = {which: {key: rows[0][key] if key in BUILD_KEYS else statistics.median(r[key] for r in rows)
+                       for key in rows[0]} for which, rows in runs.items()}
     print(json.dumps({"card": smi, "median_of_two_turns": medians}), flush=True)
     return 0
 

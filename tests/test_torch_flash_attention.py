@@ -174,6 +174,147 @@ def test_kernel_wrappers_check_their_inputs():
         fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_plain_forward_takes_the_kernels_key_tile(dtype):
+    """block_k=None is K1's own key tile for the dtype and D (128 for the
+    16-bit Hopper kernel, 64 for f32): the oracle rounds P where K1 does."""
+    q, k, v = (torch.tensor(x).to(dtype) for x in _qkv(9, 1, 300, 300, 4, 2, 64))
+    keys = fa.fwd_launch(dtype, 1, 4, 300, 64).keys
+    assert keys == (64 if dtype == torch.float32 else 128)
+    default = fa.flash_attention_plain(q, k, v, causal=True)
+    own = fa.flash_attention_plain(q, k, v, causal=True, block_k=keys)
+    assert torch.equal(default[0], own[0]) and torch.equal(default[1], own[1])
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,causal", CASES[1:])
+def test_plain_forward_matches_pallas_at_either_tile(block, b, sq, sk, h, h_kv, d, causal):
+    """In f32 the key tile only orders the online softmax's sums: the plain
+    forward at 64 and at 128 keys matches the Pallas kernel at the same
+    block within 2e-5."""
+    q, k, v = _qkv(10, b, sq, sk, h, h_kv, d)
+    want = np.asarray(_jax(q, k, v, causal, block=block))
+    out, _ = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=causal, block_k=block)
+    np.testing.assert_allclose(out.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+# bf16: the port's plain forward rounds P every 128 keys (K1's tile), the
+# Pallas kernel every block_k = min(512, pow2 >= Sk) keys, each against its
+# own running max. Measured gap on these cases: at most 1.95e-3 absolute,
+# 0.0055 of |ref| + RMS(ref); held to 2e-2 of it, the bf16 output tolerance
+# chip_smoke.py holds K1 to (FLASH_TOL).
+@pytest.mark.parametrize(
+    "b,s,h,h_kv,d,causal",
+    [
+        pytest.param(1, 300, 4, 2, 64, True, id="gqa-causal-d64"),
+        pytest.param(1, 256, 4, 1, 64, False, id="mqa-noncausal-d64"),
+        pytest.param(2, 200, 4, 2, 128, True, id="gqa-causal-d128"),
+    ],
+)
+def test_bf16_plain_forward_matches_pallas(b, s, h, h_kv, d, causal):
+    q, k, v = _qkv(11, b, s, s, h, h_kv, d)
+    want = np.asarray(pallas_flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal,
+                                             interpret=True).astype(jnp.float32))
+    got, _ = fa.flash_attention_plain(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)), causal=causal)
+    assert got.dtype == torch.bfloat16
+    gap = np.abs(got.float().numpy() - want)
+    assert (gap <= 2e-2 * (np.abs(want) + np.sqrt((want**2).mean()))).all(), gap.max()
+
+
+def test_flash_head_dim_predicate():
+    """One test of the head dims K1-K3 take, shared by the wrappers and the
+    dispatch."""
+    assert [d for d in (8, 16, 32, 48, 64, 96, 128, 256) if fa.flash_head_dim_ok(d)] == [64, 128]
+    for d in (16, 96, 256):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            fa._check_cuda(*(torch.zeros(1, 8, 2, d),) * 3)
+
+
+def _spy_dispatch(monkeypatch):
+    """dot_product_attention as if on the card (runs_on_card true), with
+    FLASH_MIN_SEQ at 16 and flash_attention replaced by a recorder that
+    computes the plain version."""
+    from accelerate_tpu_torch.ops import attention
+
+    calls = []
+
+    def spy(q, k, v, **kw):
+        calls.append(q.shape[-1])
+        return fa.flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(attention, "runs_on_card", lambda t: True)
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 16)
+    monkeypatch.setattr(attention, "flash_attention", spy)
+    return attention, calls
+
+
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_auto_dispatch_keeps_other_head_dims_on_einsum(monkeypatch, d):
+    """On the card, use_flash=None sends a long sequence to the flash
+    kernels only at a head dim they take; any other stays on the einsum
+    path (and gives its answer). D 64 goes to flash, for contrast."""
+    attention, calls = _spy_dispatch(monkeypatch)
+    q, k, v = (torch.tensor(x) for x in _qkv(12, 1, 32, 32, 4, 2, d))
+    got = attention.dot_product_attention(q, k, v, causal=True)
+    assert calls == []
+    want = attention.dot_product_attention(q, k, v, causal=True, use_flash=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    q64, k64, v64 = (torch.tensor(x) for x in _qkv(12, 1, 32, 32, 4, 2, 64))
+    attention.dot_product_attention(q64, k64, v64, causal=True)
+    assert calls == [64]
+
+
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_explicit_flash_with_other_head_dim_raises_on_the_card(monkeypatch, d):
+    """use_flash=True on the card at a head dim the kernels do not take
+    raises, naming it: no fallback to the einsum path."""
+    attention, calls = _spy_dispatch(monkeypatch)
+    q, k, v = (torch.tensor(x) for x in _qkv(13, 1, 32, 32, 4, 2, d))
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        attention.dot_product_attention(q, k, v, causal=True, use_flash=True)
+    assert calls == []
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_backward_launch_config(dtype, d):
+    """K2 and K3's launches, bwd_launch against the grid and threads
+    kernel_check records on meta tensors: bf16 and fp16 the Hopper kernels
+    (K2 three consumer warpgroups at D 64 and two at D 128, K3 two, each
+    beside a producer warpgroup), f32 the 64-row kernels; shared memory
+    within a block's 232,448 bytes."""
+    from accelerate_tpu_torch.analysis import kernel_check
+
+    b, s, h, hkv = 2, 300, 8, 2
+    dq = fa.bwd_launch("dq", dtype, b, h, hkv, s, s, d)
+    dkv = fa.bwd_launch("dkv", dtype, b, h, hkv, s, s, d)
+    if dtype == torch.float32:
+        assert (dq.library, dq.entry, dkv.entry) == ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+        q_rows, k_rows, dq_threads, dkv_threads = 64, 64, 128, 128
+    else:
+        assert (dq.library, dq.entry, dkv.entry) == ("flash_bwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+        q_rows, dq_threads = (192, 512) if d == 64 else (128, 384)
+        k_rows, dkv_threads = 128, 384
+        assert dkv.smem_bytes >= (2 * 128 + 2 * 2 * 64) * d * 2 and dq.smem_bytes >= (2 * q_rows + 2 * 2 * 64) * d * 2
+    assert (dq.grid, dq.threads) == ((b * h, -(-s // q_rows)), dq_threads)
+    assert (dkv.grid, dkv.threads) == ((b * hkv, -(-s // k_rows)), dkv_threads)
+    assert 0 < dq.smem_bytes <= 232_448 and 0 < dkv.smem_bytes <= 232_448
+    with pytest.raises(ValueError, match="kind"):
+        fa.bwd_launch("fwd", dtype, b, h, hkv, s, s, d)
+
+    def step(q, k, v):
+        q.requires_grad_(True)
+        out = fa.flash_attention(q, k, v, causal=True)
+        out.float().sum().backward()
+        return out
+
+    meta = [torch.empty(shape, dtype=dtype, device="meta") for shape in ((b, s, h, d), (b, s, hkv, d))]
+    sites = {site.kernel_name: (site.grid, site.threads)
+             for site in kernel_check(step, meta[0], meta[1], meta[1], probe=False).sites}
+    assert sites["flash_attention_dq"] == (dq.grid, dq.threads)
+    assert sites["flash_attention_dkv"] == (dkv.grid, dkv.threads)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_forward_launch_config(dtype, d):
@@ -258,6 +399,38 @@ def test_cuda_kernels_match_plain(dtype, atol):
     want_dk, want_dv = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, 0.125)
     for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq), (dk, want_dk), (dv, want_dv)):
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_hopper_backward_matches_plain(dtype, d):
+    """The Hopper K2 and K3 against their plain versions, per element within
+    chip_smoke.py's FLASH_TOL (t (|ref| + RMS(ref)) + 2e-5 RMS(dO)): GQA 4
+    and 8, ragged S, Sq < Sk, Sq > Sk (dead rows, lse -inf), non-causal and
+    a band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode (chip_smoke.py runs them on the H100)")
+    tol = {torch.bfloat16: {"dq": 5e-2, "dk": 2e-2, "dv": 3e-2}, torch.float16: {"dq": 1e-2, "dk": 5e-3, "dv": 5e-3}}
+    cases = ((200, 200, 8, 2, True, None), (100, 300, 8, 1, False, None), (300, 100, 8, 1, True, None),
+             (200, 200, 8, 2, True, 16))
+    for seed, (sq, sk, h, h_kv, causal, window) in enumerate(cases):
+        q, k, v = (torch.tensor(x).cuda().to(dtype) for x in _qkv(20 + seed, 2, sq, sk, h, h_kv, d))
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed)).cuda().to(dtype)
+        out, lse = fa.flash_fwd_kernel(q, k, v, causal, d**-0.5, window)
+        delta = fa._delta(out, do)
+        before = (fa.launches_dq, fa.launches_dkv)
+        got = {"dq": fa.flash_dq_kernel(q, k, v, do, lse, delta, causal, d**-0.5, window)}
+        got["dk"], got["dv"] = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal, d**-0.5, window)
+        torch.cuda.synchronize()
+        assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+        want = {"dq": fa.flash_attention_plain_dq(q, k, v, do, lse, delta, causal, d**-0.5, window)}
+        want["dk"], want["dv"] = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, causal, d**-0.5, window)
+        floor = 2e-5 * do.float().pow(2).mean().sqrt()
+        for name in ("dq", "dk", "dv"):
+            err = (got[name] - want[name]).abs()
+            limit = tol[dtype][name] * (want[name].abs() + want[name].pow(2).mean().sqrt()) + floor
+            assert bool((err <= limit).all()), (name, sq, sk, causal, window, float((err / limit).max()))
 
 
 @pytest.mark.cuda

@@ -264,8 +264,9 @@ def test_training_step_lists_the_flash_kernels():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_16bit_training_step_lists_the_hopper_forward(dtype):
     """In bf16 and fp16 K1 is the Hopper kernel: at D 64, 192 query rows
-    and 512 threads (a producer and three consumer warpgroups) a block; K2
-    and K3 keep their 64-row blocks of 128 threads."""
+    and 512 threads (a producer and three consumer warpgroups) a block; so
+    are K2 (the same split of query rows) and K3 (128 key rows, a producer
+    and two consumer warpgroups: 384 threads)."""
     from accelerate_tpu_torch.ops.flash_attention import flash_attention
 
     def step(q, k, v):
@@ -277,8 +278,8 @@ def test_16bit_training_step_lists_the_hopper_forward(dtype):
     report = kernel_check(step, _meta(2, 128, 4, 64, dtype=dtype), _meta(2, 128, 2, 64, dtype=dtype),
                           _meta(2, 128, 2, 64, dtype=dtype), probe=False)
     assert [(s.kernel_name, s.grid, s.threads) for s in report.sites] == [
-        ("flash_attention_fwd", (8, 1), 512), ("flash_attention_dq", (8, 2), 128),
-        ("flash_attention_dkv", (4, 2), 128)]
+        ("flash_attention_fwd", (8, 1), 512), ("flash_attention_dq", (8, 1), 512),
+        ("flash_attention_dkv", (4, 1), 384)]
     assert _rules(report) == ["TPU1005"] * 3
 
 
@@ -442,14 +443,14 @@ def test_scan_paths_fires_and_respects_suppression(tmp_path):
 
 def test_scan_paths_over_the_port():
     """kernels/ (K6, K7 registered; the K8 fixtures suppressed) is clean;
-    ops/ holds the six unregistered launches (K1 in f32 and in 16 bits,
-    K2-K5), as the reference's ops kernels carry no contract."""
+    ops/ holds the eight unregistered launches (K1-K3 in f32 and in 16
+    bits, K4, K5), as the reference's ops kernels carry no contract."""
     pkg = os.path.join(REPO, "accelerate_tpu_torch")
     assert scan_paths([os.path.join(pkg, "kernels")]) == []
     found = scan_paths([os.path.join(pkg, "ops")])
     assert sorted(f.message.split("`")[1] for f in found) == [
-        "flash_attention_dkv", "flash_attention_dq", "flash_attention_fwd", "flash_fwd_sm90", "int4_matmul",
-        "paged_decode_attention"]
+        "flash_attention_dkv", "flash_attention_dq", "flash_attention_fwd", "flash_dkv_sm90", "flash_dq_sm90",
+        "flash_fwd_sm90", "int4_matmul", "paged_decode_attention"]
 
 
 def _run_cli(*args, cwd=REPO):

@@ -53,6 +53,8 @@ CASES = [
     pytest.param(2, 4, 2, 32, 8, 4, 5, id="gqa-window"),
     pytest.param(4, 2, 1, 16, 4, 8, None, id="many-pages"),
     pytest.param(2, 4, 2, 32, 8, 4, 100, id="window-wider-than-history"),
+    pytest.param(2, 4, 2, 96, 8, 4, None, id="gqa-d96"),
+    pytest.param(2, 2, 1, 256, 4, 4, 9, id="mqa-d256-window"),
 ]
 
 
@@ -109,6 +111,19 @@ def test_window_excludes_old_pages_exactly():
     np.testing.assert_allclose(want, dense, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("d", [8, 16, 24, 96, 256, 272])
+def test_wrapper_takes_every_head_dim_the_kernel_does(d):
+    """The kernel takes every head dim that is a multiple of 16 from 16 to
+    256 (the Pallas kernel takes any): the wrapper's checks pass those on
+    to the device check (these tensors are on the CPU) and refuse the rest
+    by their head dim."""
+    taken = d % 16 == 0 and 16 <= d <= 256
+    assert pa.head_dim_ok(d) is taken
+    q, kp, vp, tbl, cur = (torch.tensor(x) for x in _setup(3, 2, 4, 2, d, 8, 4, max_cur=31))
+    with pytest.raises(ValueError, match="cuda or cpu" if taken else "head_dim"):
+        pa._check(q, kp, vp, tbl, cur, None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
 def test_cuda_kernel_matches_plain(dtype, atol):
@@ -124,3 +139,22 @@ def test_cuda_kernel_matches_plain(dtype, atol):
         assert pa.launches == before + 1
         want = pa.paged_decode_attention_plain(*args, sliding_window=window)
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
+def test_cuda_kernel_matches_plain_at_other_head_dims(dtype, atol, d):
+    """Head dims other than the serving slice's 64 and 128, which the kernel
+    reads at run time as it does those: held to the plain version as D 64
+    is."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode (chip_smoke.py runs it on the H100)")
+    q, kp, vp, tbl, cur = _setup(6, 3, 8, 2, d, 16, 8, max_cur=127)
+    args = [torch.tensor(x).cuda().to(dtype) for x in (q, kp, vp)] + [torch.tensor(tbl).cuda(), torch.tensor(cur).cuda()]
+    before = pa.launches
+    got = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = pa.paged_decode_attention_plain(*args)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)

@@ -215,3 +215,33 @@ def test_not_ported_surface_raises(models):
             call()
     with pytest.raises(ValueError, match="pool blocks"):
         ServingEngine(model, device="cpu", paged_block_size=4, pool_blocks=3).submit([1] * 8, max_new_tokens=8)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_head_dim_serves_through_the_kernel():
+    """LlamaConfig.tiny() (head dim 16) served by the paged engine on the
+    card: every decode step's attention is the paged kernel, and the greedy
+    tokens equal a no-cache loop over the model's full forward (a request's
+    comparison may end only at a top-2 logit gap under 1e-4, f32 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode (chip_smoke.py runs it on the H100)")
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = LlamaConfig.tiny()
+    model = create_llama_model(cfg, seed=5, dtype=torch.float32)
+    prompts = _prompts(7, (5, 19, 40))
+    engine = ServingEngine(model, num_slots=2, prompt_buckets=(16, 64), paged_block_size=8, tick_block=4)
+    before = pa.launches
+    uids = [engine.submit(p, 8) for p in prompts]
+    engine.run()
+    assert pa.launches - before == cfg.num_hidden_layers * engine.decode_steps > 0
+    with torch.no_grad():
+        for uid, p in zip(uids, prompts):
+            seq = torch.as_tensor(p, device="cuda")[None].long()
+            for tok in engine.poll(uid)[len(p):].tolist():
+                row = model(seq)[0, -1].float()
+                top2 = torch.topk(row, 2).values
+                if tok != int(row.argmax()):
+                    assert float(top2[0] - top2[1]) < 1e-4
+                    break
+                seq = torch.cat([seq, torch.tensor([[tok]], device="cuda")], dim=1)
