@@ -35,7 +35,7 @@ _STRIDES = _LONGS = ctypes.POINTER(ctypes.c_longlong)
 _INTS = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "paged_attention": {
-        "paged_decode_attention": ((*[_P] * 9, *[_I] * 10, _F, _I, _P), _I),
+        "paged_decode_attention": ((*[_P] * 8, *[_I] * 9, _F, _I, _P), _I),
     },
     "flash_attention": {
         "flash_attention_fwd": ((*[_P] * 5, *[_I] * 7, _STRIDES, _F, _I, _I, _P), _I),
@@ -56,7 +56,7 @@ SIGNATURES = {
         "flash_dkv_sm90_config": ((*[_I] * 7, _INTS), _I),
     },
     "int4_matmul": {
-        "int4_matmul": ((*[_P] * 5, *[_I] * 8, _P), _I),
+        "int4_matmul": ((*[_P] * 6, *[_I] * 10, _P), _I),
     },
     "reference_kernels": {
         "block_matmul_softmax": ((*[_P] * 5, *[_I] * 7, _P), _I),

@@ -17,14 +17,20 @@ from typing import Optional
 import torch
 
 from ..kernels.launch import LaunchSite, record
+from ..kernels.tickets import tickets
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# keys one block of the kernel's split pass walks: rows longer than this
-# spread over more blocks, and a combine pass joins their partial sums
-_SPLIT_KEYS = 128
+THREADS = 128  # a block of the kernel
+_MAX_GROUP = 16  # query heads a block serves; a larger GQA group takes more blocks
+# Blocks a launch aims for: two for each of the card's 132 SMs. A row's live
+# keys are cut into that many splits over the (row, kv head) pairs, but no
+# more than a full table's keys over _MIN_SPLIT_KEYS, nor _MAX_SPLITS.
+_TARGET_BLOCKS = 2 * 132
+_MIN_SPLIT_KEYS = 32
+_MAX_SPLITS = 256
 
 
 def paged_decode_attention_plain(
@@ -93,16 +99,15 @@ def paged_decode_attention(
     nb, bs, kv_heads, _ = key_pool.shape
     mb = block_table.shape[1]
     scale = (1.0 / math.sqrt(dim)) if scale is None else float(scale)
-    split_pages = max(1, _SPLIT_KEYS // bs)
-    num_splits = -(-mb // split_pages)
-    n = b * heads * num_splits
+    num_splits, grid = _split_plan(b, heads, kv_heads, bs, mb)
     out = torch.empty_like(q)
-    scratch = torch.empty(n * (dim + 2), dtype=torch.float32, device=q.device)  # partial m, l, acc
+    # each split's m, l and acc in f32, joined by the block that finishes last
+    scratch = torch.empty(b * heads * num_splits * (dim + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_decode_attention(
         q.data_ptr(), key_pool.data_ptr(), value_pool.data_ptr(), block_table.data_ptr(), cur.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), scratch[n:].data_ptr(), scratch[2 * n :].data_ptr(),
-        _DTYPE_CODES[q.dtype], b, heads, kv_heads, dim, nb, bs, mb, split_pages, num_splits, scale,
+        out.data_ptr(), scratch.data_ptr(), tickets(q.device, stream, grid[0]).data_ptr(),
+        _DTYPE_CODES[q.dtype], b, heads, kv_heads, dim, nb, bs, mb, num_splits, scale,
         int(sliding_window or 0), stream,
     )
     if err != 0:
@@ -112,14 +117,27 @@ def paged_decode_attention(
     return out
 
 
+def _split_plan(b: int, heads: int, kv_heads: int, bs: int, mb: int) -> tuple[int, tuple[int, int]]:
+    """``(splits, grid)`` of one launch, from the shapes alone: never from
+    ``cur``, which lives on the card (reading it would make the host wait in
+    every decode step). The grid is (row x kv head x chunk of at most 16
+    query heads, split); the kernel cuts each row's live keys into that many
+    equal runs itself."""
+    pairs = b * kv_heads * -(-(heads // kv_heads) // _MAX_GROUP)
+    splits = max(1, min(-(-_TARGET_BLOCKS // pairs), -(-(mb * bs) // _MIN_SPLIT_KEYS), _MAX_SPLITS))
+    return splits, (pairs, splits)
+
+
 def _site(q, key_pool, value_pool, block_table, cur, sliding_window, scale) -> LaunchSite:
-    """The split pass's grid, (row x kv head, 128-key split), 128 threads;
-    no tiles declared (its pages are gathered through the block table) and
-    no contract registered, as the reference's ops kernels carry none."""
-    split_pages = max(1, _SPLIT_KEYS // key_pool.shape[1])
-    grid = (q.shape[0] * key_pool.shape[2], -(-block_table.shape[1] // split_pages))
+    """The kernel's grid (row x kv head x chunk of query heads, split), 128
+    threads; no tiles declared (its pages are gathered through the block
+    table) and no contract registered, as the reference's ops kernels carry
+    none."""
+    b, heads, _ = q.shape
+    _, bs, kv_heads, _ = key_pool.shape
+    grid = _split_plan(b, heads, kv_heads, bs, block_table.shape[1])[1]
     plain = functools.partial(paged_decode_attention_plain, sliding_window=sliding_window, scale=scale)
-    return LaunchSite("paged_decode_attention", grid, 128, plain=plain,
+    return LaunchSite("paged_decode_attention", grid, THREADS, plain=plain,
                       operands=(q, key_pool, value_pool, block_table, cur))
 
 

@@ -21,22 +21,31 @@ out here. On a CUDA tensor :func:`int4_matmul` launches the hand-written kernel
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..kernels.launch import LaunchSite, record, runs_on_card
+from ..kernels.tickets import tickets
 
 # Kernel launches since import (or since a caller reset it to 0): one per
-# int4_matmul call on a CUDA tensor, whatever passes the call takes.
+# int4_matmul call on a CUDA tensor.
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-N_TILE = 128  # output columns a block owns; ``out`` must divide by it
-# blocks a launch aims for (one for each of the card's 132 SMs): the
-# contraction splits into at most _MAX_SPLITS slices of whole groups until
-# the grid has about this many blocks
+N_TILE = 128  # output columns a prefill block owns; ``out`` must divide by it
+DECODE_ROWS = 16  # M up to this runs the decode kernel
+# Prefill (M > 16): blocks a launch aims for (one for each of the card's
+# 132 SMs); the contraction splits into at most _MAX_SPLITS slices of whole
+# groups until the grid has about this many blocks.
 _TARGET_BLOCKS = 132
 _MAX_SPLITS = 8
+# Decode: one group of the contraction a warp, up to 4 warps (a split of 4
+# groups) and 32 columns a block; where that gives fewer than one block for
+# each of the card's 132 SMs, fewer groups a split, then 16 columns.
+_DECODE_MIN_BLOCKS = 132
+_DECODE_COLUMNS = (32, 16)
+_DECODE_WARPS = 4
 
 
 def _check_shapes(x, packed, scale, group_size: int) -> None:
@@ -70,14 +79,46 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     return out.to(x.dtype)
 
 
-def _split_plan(m: int, n_groups: int, out_features: int) -> tuple[int, int, int]:
-    """``(row tiles of 16 a block owns, groups a split walks, splits)`` for
-    one launch: shapes alone decide, so a shape always sums in one order."""
-    m_tiles = 1 if m <= 16 else 2 if m <= 32 else 4
+class Plan(NamedTuple):
+    """One launch of the kernel. ``m <= 16``: the decode kernel, a block of
+    ``warps`` warps owning ``columns`` (16 or 32) output columns;
+    otherwise the prefill kernel, 4 warps owning 128 columns and
+    ``m_tiles`` 16-row tiles of x. Either way a block walks one split of
+    ``groups_per_split`` whole groups of the contraction."""
+
+    m_tiles: int
+    columns: int
+    warps: int
+    groups_per_split: int
+    splits: int
+
+    def grid(self, m: int, out_features: int) -> tuple:
+        """(column tiles, splits), and row tiles for prefill."""
+        grid = (out_features // self.columns, self.splits)
+        return grid if m <= DECODE_ROWS else (*grid, -(-m // (16 * self.m_tiles)))
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+
+def _split_plan(m: int, n_groups: int, out_features: int) -> Plan:
+    """The launch for these shapes: shapes alone decide, so a shape always
+    sums in one order. Decode gives each warp one group of the contraction,
+    4 warps and 32 columns a block; where that makes fewer than
+    ``_DECODE_MIN_BLOCKS`` blocks, a split takes 2 groups, then 1, then the
+    same with 16 columns. A split joins its partial sums to the others' in
+    the same launch."""
+    if m <= DECODE_ROWS:
+        plans = [(c, min(per, n_groups)) for c in _DECODE_COLUMNS for per in (_DECODE_WARPS, 2, 1)]
+        columns, per = next(((c, p) for c, p in plans if (out_features // c) * -(-n_groups // p) >= _DECODE_MIN_BLOCKS),
+                            plans[-1])
+        return Plan(1, columns, per, per, -(-n_groups // per))
+    m_tiles = 2 if m <= 32 else 4
     blocks = (out_features // N_TILE) * -(-m // (16 * m_tiles))
     want = max(1, min(n_groups, _MAX_SPLITS, _TARGET_BLOCKS // blocks))
     groups_per_split = -(-n_groups // want)
-    return m_tiles, groups_per_split, -(-n_groups // groups_per_split)
+    return Plan(m_tiles, N_TILE, 4, groups_per_split, -(-n_groups // groups_per_split))
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, group_size: int) -> torch.Tensor:
@@ -87,16 +128,16 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, g
     ``group_size``, ``group_size`` by 64 and ``out`` by 128. CPU tensors
     take the plain version; CUDA tensors launch the kernel built from
     ``csrc/int4_matmul.cu``; ``meta`` tensors under ``kernel_check`` record
-    its launch site (the main pass's grid; no tiles, no contract)."""
+    its launch site (its grid and threads; no tiles, no contract)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, group_size=group_size)
     if x.device.type == "meta":
         _check_shapes(x, packed, scale, group_size)
         m, n_groups, out_features = x.shape[0], packed.shape[0], packed.shape[2]
-        m_tiles, _, splits = _split_plan(m, n_groups, out_features)
-        grid = (out_features // N_TILE, splits, -(-m // (16 * m_tiles)))
+        plan = _split_plan(m, n_groups, out_features)
         plain = functools.partial(int4_matmul_plain, group_size=group_size)
-        record(LaunchSite("int4_matmul", grid, 128, plain=plain, operands=(x, packed, scale)))
+        record(LaunchSite("int4_matmul", plan.grid(m, out_features), plan.threads, plain=plain,
+                          operands=(x, packed, scale)))
         return torch.empty((m, out_features), dtype=x.dtype, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu tensors, got {x.device}")
@@ -120,13 +161,18 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, g
     from ..kernels.build import load
 
     lib = load("int4_matmul")
-    m_tiles, groups_per_split, splits = _split_plan(m, n_groups, out_features)
-    # f32 partial sums of the splits, joined in split order by a second pass
-    scratch = torch.empty((splits, m, out_features), dtype=torch.float32, device=x.device) if splits > 1 else out
+    plan = _split_plan(m, n_groups, out_features)
+    grid = plan.grid(m, out_features)
+    # the splits' f32 partial sums, joined in split order: at decode by the last block of each
+    # column tile (taking tickets), at prefill by a second pass
+    scratch = out if plan.splits == 1 else torch.empty((plan.splits, m, out_features), dtype=torch.float32,
+                                                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        _DTYPE_CODES[x.dtype], m, in_features, out_features, group_size, m_tiles, groups_per_split, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        tickets(x.device, stream, grid[0]).data_ptr() if m <= DECODE_ROWS else None,
+        _DTYPE_CODES[x.dtype], m, in_features, out_features, group_size, plan.m_tiles, plan.columns, plan.warps,
+        plan.groups_per_split, plan.splits, stream,
     )
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {err}")

@@ -179,6 +179,7 @@ def phase_kernel(torch):
         ("bf16-d128", torch.bfloat16, 32, 4, 128, None, 2e-2),
     ]
     b, bs, mb = 8, 16, 128
+    one = torch.zeros(1, device="cuda")
     results = {}
     for name, dtype, heads, kv_heads, dim, window, atol in cases:
         q, kp, vp, table, cur = paged_inputs(torch, gen, b, heads, kv_heads, dim, bs, mb, dtype, rng)
@@ -189,11 +190,12 @@ def phase_kernel(torch):
         def plain():
             return pa.paged_decode_attention_plain(q, kp, vp, table, cur, sliding_window=window)
 
-        got, want = kernel(), plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"kernel output finite ({name})")
         check(err <= atol, f"kernel vs plain max_abs_err {err} <= {atol} ({name})")
+        check(torch.equal(got, again), f"two calls on the same inputs bit-equal ({name})")  # splits joined in order
 
         # yardstick: one library call over K/V gathered contiguous beforehand
         kg = kp[table.long()].reshape(b, mb * bs, kv_heads, dim).transpose(1, 2).contiguous()
@@ -215,6 +217,8 @@ def phase_kernel(torch):
             "max_abs_err": err, "atol": atol, "library_max_abs_err": lib_err,
             "ms": time_ms(torch, kernel, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
             "library_ms": time_ms(torch, library, flush=flush), "bound_ms": bound_ms, "bound_by": bound_by,
+            # the protocol's floor: a one-element fill timed the same way (events around it, L2 flushed)
+            "floor_ms": time_ms(torch, lambda: one.zero_(), flush=flush),
         }
         emit(row)
         results[name] = row
@@ -322,13 +326,51 @@ def phase_serve(torch):
     return row, model
 
 
+def traced(torch, run, leads=(256, 2048, 8192)):
+    """``run()`` under torch.profiler: ``(its device events, wall ms of run,
+    attempts, lead markers lost)``, the events without user annotations
+    or markers. The profiler loses the first few device events of a
+    window, more the longer the process has run, whether the host or the
+    card waited before them (``scripts/torch_profile_lead_in.py``). So
+    ``lead`` marker kernels
+    (``torch.cuda._sleep``'s spin, a microsecond each) open the window and
+    take that loss, and one more follows ``run``. Where a lead marker and
+    the last one are traced, so is everything between them. Otherwise
+    ``run`` is traced again behind a longer lead; the phase fails if none
+    does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt, lead in enumerate(leads, 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
+        kept = [ev for ev in events if "spin_kernel" not in ev.name]
+        spins = [ev.time_range.start for ev in events if "spin_kernel" in ev.name]
+        first, last = min(ev.time_range.start for ev in kept), max(ev.time_range.start for ev in kept)
+        led = sum(t < first for t in spins)
+        if led and sum(t > last for t in spins) == 1:
+            return kept, wall_ms, attempt, lead - led
+    check(False, f"torch.profiler traced a lead marker and the last one around the run (leads up to {leads[-1]})")
+
+
 def phase_profile(torch, model, phase="profile", what="TinyLlama shape bf16"):
     """Where one decode tick's time goes: 8 slots decoding (prompts of
     200 tokens), ``tick_block`` steps. The tick's wall time is taken
-    without the profiler; the next tick is traced with torch.profiler for
-    the device's busy time (the sum of the traced kernels, one stream)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    without the profiler; the next is traced with torch.profiler
+    (``traced``) for the device's busy time (the sum of the traced kernels,
+    one stream)."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import qmatmul as qm
 
     eng = serve_engine(model)
     rng = np.random.default_rng(4)
@@ -342,31 +384,38 @@ def phase_profile(torch, model, phase="profile", what="TinyLlama shape bf16"):
     eng.step()  # the same tick without the profiler's host overhead
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def tick():
+        pa.launches = qm.launches = 0
         eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    events, wall_ms, attempts, lost = traced(torch, tick)
+    k4_calls, k5_calls = pa.launches, qm.launches
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+    for ev in events:
+        ms, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
-    paged = sum(ms for name, (ms, _) in by_name.items() if "paged_decode_" in name)  # split + combine pass
-    int4 = [(ms, n) for name, (ms, n) in by_name.items() if "int4_matmul_" in name]  # main + combine pass
+    paged = [(ms, n) for name, (ms, n) in by_name.items() if "paged_decode_" in name]
+    int4 = [(ms, n) for name, (ms, n) in by_name.items() if "int4_matmul_" in name]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     row = {
         "phase": phase, "what": f"one decode tick, 8 slots x 8 steps, {what}",
         "tick_wall_ms": plain_wall_ms, "tick_wall_ms_profiled": wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / plain_wall_ms if busy else None,
-        "paged_attention_ms": paged, "paged_attention_kernels": sum(
-            n for name, (_, n) in by_name.items() if "paged_decode_" in name),
+        "paged_attention_ms": sum(ms for ms, _ in paged), "paged_attention_kernels": sum(n for _, n in paged),
+        "paged_attention_launches": k4_calls,
         "int4_matmul_ms": sum(ms for ms, _ in int4), "int4_matmul_kernels": sum(n for _, n in int4),
-        "kernels_traced": sum(n for _, n in by_name.values()),
+        "int4_matmul_launches": k5_calls,
+        "kernels_traced": sum(n for _, n in by_name.values()), "trace_attempts": attempts, "trace_lead_lost": lost,
         "top": [[name[:80], ms, n] for name, (ms, n) in top],
     }
     emit(row)
+    # one device kernel for each wrapper launch: the splits are joined inside the launch
+    check(k4_calls > 0 and row["paged_attention_kernels"] == k4_calls,
+          f"{phase}: K4 device kernels {row['paged_attention_kernels']} == its launches {k4_calls}")
+    check(row["int4_matmul_kernels"] == k5_calls,
+          f"{phase}: K5 device kernels {row['int4_matmul_kernels']} == its launches {k5_calls}")
     return row
 
 
@@ -783,30 +832,23 @@ def phase_train(torch):
 
 
 def phase_train_profile(torch, step, batches):
-    """One more train step under torch.profiler: device busy time (the union
-    of the traced kernels' intervals; user annotations left out), idle share
-    against the traced step's wall time, and where the device time goes.
-    The step's wall time without the profiler is given beside it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One more train step under torch.profiler (``traced``): device busy
+    time (the union of the traced kernels' intervals; user annotations
+    left out), idle share against the traced step's wall time, and where the
+    device time goes. The step's wall time without the profiler is given
+    beside it."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step({"input_ids": batches[0]})
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step({"input_ids": batches[1]})
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, wall_ms, attempts, lost = traced(torch, lambda: step({"input_ids": batches[1]}))
     by_name: dict = {}
     spans = []
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-            ms, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
-            spans.append((ev.time_range.start, ev.time_range.end))
+    for ev in events:
+        ms, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+        spans.append((ev.time_range.start, ev.time_range.end))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
@@ -827,7 +869,7 @@ def phase_train_profile(torch, step, batches):
         "idle_share": 1.0 - busy / wall_ms if busy else None,
         "flash_ms": flash, "flash_share": sum(flash.values()) / busy if busy else None,
         "gemm_ms": gemm, "gemm_share": gemm / busy if busy else None,
-        "kernels_traced": sum(n for _, n in by_name.values()),
+        "kernels_traced": sum(n for _, n in by_name.values()), "trace_attempts": attempts, "trace_lead_lost": lost,
         "top": [[name[:90], ms, n] for name, (ms, n) in top],
     }
     emit(row)
@@ -946,12 +988,49 @@ def int4_bound(x, packed, scale):
 
 def int4_compare(torch, qm, x, packed, scale, g):
     """``(max abs error, max error over its tolerance)`` of K5 against its
-    plain version on these inputs."""
-    got = qm.int4_matmul(x, packed, scale, group_size=g)
+    plain version on these inputs; two calls must agree bit for bit."""
+    got, again = qm.int4_matmul(x, packed, scale, group_size=g), qm.int4_matmul(x, packed, scale, group_size=g)
     torch.cuda.synchronize()
     check(got.dtype == x.dtype and bool(torch.isfinite(got).all()), "int4 kernel output finite, in x's type")
+    check(torch.equal(got, again), "int4 kernel: two calls on the same inputs bit-equal")  # splits joined in order
     want = qm.int4_matmul_plain(x, packed, scale, group_size=g)
     return flash_err(torch, got, want, INT4_TOL[dtype_name(x.dtype)])
+
+
+def int4pack_library(torch, qm, x, packed, scale, g):
+    """PyTorch's own int4 weight-only product as K5's yardstick (timed here,
+    never called by the port): ``torch.ops.aten._weight_int4pack_mm``
+    computes, per group of ``g``, ``x @ ((code - 8) * scale + zero)``; with
+    zero 0 that is K5's function with the scale rounded to bf16. The codes go
+    through ``_convert_weight_to_int4pack`` as ``[N, K/2]`` bytes; which
+    nibble of a byte holds the even contraction row is not assumed: both
+    orders are tried and the one that agrees with K5's plain version kept.
+    Returns ``(call or None, {"library_max_abs_err", "nibble_order"} or
+    {"library_error"})``."""
+    k, n = x.shape[1], packed.shape[-1]
+    rows = packed.reshape(k // 2, n)  # byte row r: code 2r low, 2r + 1 high
+    lo, hi = (rows & 0x0F), (rows >> 4)
+    sz = torch.stack([scale[:, 0, :].to(torch.bfloat16), torch.zeros_like(scale[:, 0, :], dtype=torch.bfloat16)],
+                     dim=-1).contiguous()  # [K/g, N, 2]: scale, zero
+    want = qm.int4_matmul_plain(x, packed, scale, group_size=g).float()
+    best, errors = None, {}
+    try:
+        for order, byte in (("even_high", (lo << 4) | hi), ("even_low", rows)):
+            w = torch.ops.aten._convert_weight_to_int4pack(byte.t().contiguous(), 8)
+
+            def call(w=w):
+                return torch.ops.aten._weight_int4pack_mm(x, w, g, sz)
+
+            err = (call().float() - want).abs().max().item()
+            errors[order] = err
+            if best is None or err < errors[best[0]]:
+                best = (order, call)
+    except Exception as exc:  # the op refused on this card: the row keeps null
+        return None, {"library_error": f"{type(exc).__name__}: {exc}"[:300]}
+    order, call = best
+    if errors[order] > 0.05 * want.abs().max().item():
+        return None, {"library_error": f"no nibble order agrees with the plain version: {errors}"}
+    return call, {"library_max_abs_err": errors[order], "nibble_order": order, "library_err_by_order": errors}
 
 
 def phase_int4_kernel(torch):
@@ -959,9 +1038,10 @@ def phase_int4_kernel(torch):
     M in {1, 8, 64, 256} (generate's and the tick's batches, the prefill
     windows), x in bf16, fp16 and f32, groups of 128 and 64 (INT4_TOL). In
     bf16 at group 128, the slice's configuration, its time (CUDA events, L2
-    flushed) beside its bound, its plain version's time and, as no single
-    PyTorch call computes this function, torch.matmul against the weight
-    decoded to bf16 beforehand, which reads four times the bytes."""
+    flushed) beside its bound, its plain version's time, the one PyTorch call
+    that computes the same function (``_weight_int4pack_mm``, see
+    ``int4pack_library``) and torch.matmul against the weight decoded to
+    bf16 beforehand, which reads four times the bytes."""
     from accelerate_tpu_torch.ops import qmatmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -981,17 +1061,20 @@ def phase_int4_kernel(torch):
                     if g != 128 or dtype != torch.bfloat16:
                         continue
                     bound_ms, bound_by = int4_bound(x, packed, scale)
-                    lib_err = (torch.matmul(x, w_bf16).float()
-                               - qm.int4_matmul_plain(x, packed, scale, group_size=g).float()).abs().max().item()
+                    dense_err = (torch.matmul(x, w_bf16).float()
+                                 - qm.int4_matmul_plain(x, packed, scale, group_size=g).float()).abs().max().item()
+                    library, lib_info = int4pack_library(torch, qm, x, packed, scale, g)
                     case = {
                         "max_abs_err": err, "err_over_tol": over,
                         "ms": time_ms(torch, lambda: qm.int4_matmul(x, packed, scale, group_size=g), flush=flush),
                         "plain_ms": time_ms(torch, lambda: qm.int4_matmul_plain(x, packed, scale, group_size=g),
                                             reps=5, warmup=1, flush=flush),
-                        "library_ms": time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
-                        "library": "torch.matmul on the weight decoded to bf16 beforehand (4x the bytes)",
-                        "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "plan": list(qm._split_plan(m, k // g, n)),
+                        "library_ms": time_ms(torch, library, flush=flush) if library else None,
+                        "library": "torch.ops.aten._weight_int4pack_mm (zero 0, scale in bf16)", **lib_info,
+                        "dense_ms": time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+                        "dense": "torch.matmul on the weight decoded to bf16 beforehand (4x the bytes)",
+                        "dense_max_abs_err": dense_err, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "plan": qm._split_plan(m, k // g, n)._asdict(),
                     }
                     row["cases"][f"M{m}"] = case
                     results[f"{k}x{n} M{m}"] = case
@@ -1367,7 +1450,10 @@ def analysis_model_traces(torch, acc):
 
     pool = meta(layers, 1025, 16, 4, 64, dtype=torch.bfloat16)
     decode = acc.kernel_check(decode_step, model.params, meta(8, 1), pool, pool, meta(8, 128), meta(8), probe=False)
-    check([(s.kernel_name, s.count, s.grid) for s in decode.sites] == [("paged_decode_attention", layers, (32, 16))],
+    from accelerate_tpu_torch.ops.paged_attention import _split_plan
+
+    k4_grid = _split_plan(8, 32, 4, 16, 128)[1]  # what the serve phases launch at this shape
+    check([(s.kernel_name, s.count, s.grid) for s in decode.sites] == [("paged_decode_attention", layers, k4_grid)],
           f"the decode step's trace lists K4 once a layer: {[(s.kernel_name, s.count) for s in decode.sites]}")
 
     model.module.train()
@@ -1671,7 +1757,8 @@ def main() -> int:
         "launches": quant_serve["int4_launches"] + quant_generate["int4"]["int4_launches"],
         "max_abs_err": int4["max_abs_err"], "ms": int4["ms"], "plain_ms": int4["plain_ms"],
         "bound_ms": int4["bound_ms"], "bound_by": int4["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes it; int4_kernel times torch.matmul on a decoded weight
+        # torch.ops.aten._weight_int4pack_mm on the same codes (null, with the error in int4_kernel, if it refused)
+        "library_ms": int4["library_ms"],
     })
     for key, name, line, case in (("matmul_softmax", "block_matmul_softmax", 79, "logits-bf16"),
                                   ("accumulate", "block_accumulate", 139, "4096-f32")):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's K1-K3 (flash forward and backward), K4 (paged decode
-attention) and K8 (fixture tile kernels) in two checkouts on one CUDA card,
-in turns: other, this, this, other.
+attention), K5 (int4 dequantize-matmul) and K8 (fixture tile kernels) in two
+checkouts on one CUDA card, in turns: other, this, this, other.
 
     python3 scripts/torch_kernel_ab.py --other DIR
 
@@ -24,8 +24,13 @@ after warm-up, L2 flushed before each call, the median of 30 calls):
   bf16 case's are ``chip_smoke.py``'s bf16 ``flash_kernel`` case's;
 * K4 through ``paged_decode_attention`` at the serving slice's shape (B 8,
   H 32/4, 128 blocks of 16 rows, ``chip_smoke.paged_inputs``' ragged
-  frontiers, bf16) at head dims 64 and 128, with its ``max_abs_err``
-  against that tree's plain version;
+  frontiers, bf16) at head dims 64 and 128, and at a serving tick's rows
+  (``tick``: the same table, rows of 100 to 464 live keys, D 64), with its
+  ``max_abs_err`` against that tree's plain version;
+* K5 through ``int4_matmul`` at TinyLlama's four projection shapes (int4,
+  groups of 128, ``chip_smoke.int4_weight``) at M 1, 8 and 64 in bf16, with
+  its ``err_over_tol`` against that tree's plain version over
+  ``chip_smoke.INT4_TOL``;
 * the three K8 bodies at the fixture shapes, (16, 128) f32 (the copy and
   the scale as the ``unregistered_call`` and ``drifting_call`` fixtures,
   the add aliased on a map free of hazards), as ``chip_smoke.py`` does.
@@ -59,6 +64,8 @@ K1_CASES = (  # name, dtype, D, B, S, causal, K1 checked against the plain versi
     ("bf16-s8192-noncausal", "bfloat16", 64, 2, 8192, False, False),
 )
 K4_HEAD_DIMS = (64, 128)  # at B 8, H 32/4, 128 blocks of 16, bf16
+K4_TICK_KEYS = (100, 464)  # live keys a row at the serving tick's shape (D 64)
+K5_BATCHES = (1, 8, 64)  # at each of chip_smoke.INT4_SHAPES, bf16, groups of 128
 BUILD_KEYS = ("k4_build_s", "build_s")
 
 
@@ -81,6 +88,7 @@ def worker() -> dict:
     from accelerate_tpu_torch.kernels import build, fixtures
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import qmatmul as qm
 
     cs = chip_smoke()
     out = {}
@@ -100,6 +108,20 @@ def worker() -> dict:
         out[f"k4_bf16-d{d}_max_abs_err"] = (got.float() - want.float()).abs().max().item()
         out[f"k4_bf16-d{d}_ms"] = cs.time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, table, cur),
                                              flush=flush)
+    q, kp, vp, table, _ = cs.paged_inputs(torch, gen, 8, 32, 4, 64, 16, 128, torch.bfloat16, rng)
+    cur = torch.as_tensor(rng.integers(K4_TICK_KEYS[0] - 1, K4_TICK_KEYS[1], size=8).astype(np.int32), device="cuda")
+    got, want = pa.paged_decode_attention(q, kp, vp, table, cur), pa.paged_decode_attention_plain(q, kp, vp, table, cur)
+    out["k4_bf16-tick_max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    out["k4_bf16-tick_ms"] = cs.time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, table, cur), flush=flush)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for k, n in cs.INT4_SHAPES:
+        packed, scale, _ = cs.int4_weight(torch, gen, k, n, 128)
+        for m in K5_BATCHES:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out[f"k5_{k}x{n}_m{m}_err_over_tol"] = cs.int4_compare(torch, qm, x, packed, scale, 128)[1]
+            out[f"k5_{k}x{n}_m{m}_ms"] = cs.time_ms(
+                torch, lambda: qm.int4_matmul(x, packed, scale, group_size=128), flush=flush)
+        del packed, scale
     gen = torch.Generator(device="cuda").manual_seed(7)
     for name, dtype_name, d, b, s, causal, check in K1_CASES:
         dtype, scale, tol = getattr(torch, dtype_name), d**-0.5, cs.FLASH_TOL[dtype_name]

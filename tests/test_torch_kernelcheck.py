@@ -227,8 +227,8 @@ def test_decode_step_lists_the_paged_kernel():
     i32 = torch.int32
     report = kernel_check(k4_call, _meta(8, 32, 64), _meta(33, 16, 4, 64), _meta(33, 16, 4, 64),
                           _meta(8, 128, dtype=i32), _meta(8, dtype=i32), probe=False)
-    (site,) = report.sites
-    assert site.kernel_name == "paged_decode_attention" and site.grid == (8 * 4, 16) and site.spec is None
+    (site,) = report.sites  # (row x kv head, split): about two blocks for each of the card's 132 SMs
+    assert site.kernel_name == "paged_decode_attention" and site.grid == (8 * 4, 9) and site.spec is None
     assert _rules(report) == ["TPU1005"]
 
     cfg = LlamaConfig.tiny()
@@ -292,8 +292,9 @@ def test_int4_projection_lists_the_int4_kernel():
         return torch.func.functional_call(layer, {"qdata": qdata, "qscale": qscale}, (x,))
 
     report = kernel_check(project, _meta(8, 256, dtype=torch.bfloat16), layer.qdata, layer.qscale, probe=False)
-    (site,) = report.sites
-    assert site.kernel_name == "int4_matmul" and site.grid[0] == 3 and _rules(report) == ["TPU1005"]
+    (site,) = report.sites  # decode: 16-column tiles, one group of 64 a split, one warp a block
+    assert site.kernel_name == "int4_matmul" and site.grid == (24, 4) and site.threads == 32
+    assert _rules(report) == ["TPU1005"]
     assert counted_cost(site)[0] > 2 * 8 * 256 * 384  # the two nibble products, the zero point and the scale
 
 

@@ -158,3 +158,56 @@ def test_cuda_kernel_matches_plain_at_other_head_dims(dtype, atol, d):
     assert pa.launches == before + 1
     want = pa.paged_decode_attention_plain(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)
+
+
+def test_split_plan_fills_the_card_at_the_serving_shapes():
+    """TinyLlama's decode (8 rows, 32/4 heads, a 128-page table of 16 keys):
+    about two blocks for each of the H100's 132 SMs, and every one of them
+    with keys to attend to when the rows hold 100 to 464 keys, as a serving
+    tick's do (the kernel cuts each row's live keys into the splits)."""
+    num_splits, grid = pa._split_plan(8, 32, 4, 16, 128)
+    assert grid == (8 * 4, num_splits) and grid[0] * grid[1] >= 2 * 132
+    live = np.random.default_rng(0).integers(100, 465, size=8)
+    live_blocks = 4 * int(sum(min(num_splits, n) for n in live))
+    assert live_blocks >= 2 * 132, (num_splits, live, live_blocks)
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,bs,mb", [(8, 32, 4, 16, 128), (3, 8, 1, 4, 128), (2, 64, 2, 8, 64), (64, 32, 8, 16, 128)]
+)
+def test_split_count_depends_on_shapes_only(b, h, hkv, bs, mb):
+    """The split count (and the grid) comes from the shapes, never from
+    ``cur``: rows at 0 and rows far past the table launch the same grid, so
+    the wrapper never reads ``cur`` back from the card. A GQA group over 16
+    heads takes more blocks; a split is never planned shorter than 32 keys
+    of a full table."""
+    q, kp, vp, tbl, _ = (torch.tensor(x) for x in _setup(7, b, h, hkv, 16, bs, mb, max_cur=0))
+    grids = {pa._site(q, kp, vp, tbl, torch.full((b,), c, dtype=torch.int32), None, None).grid
+             for c in (0, mb * bs - 1, 10 * mb * bs)}
+    num_splits, grid = pa._split_plan(b, h, hkv, bs, mb)
+    assert grids == {grid}
+    assert grid == (b * hkv * -(-(h // hkv) // 16), num_splits) and 32 * num_splits <= max(32, mb * bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
+def test_cuda_kernel_joins_many_splits_bit_exactly(dtype, atol):
+    """Rows cut into many splits (a 1,024-key table, 32 splits): the
+    one launch joins them and agrees with the plain version, and two calls
+    on the same inputs are bit-equal (the last block to finish joins the
+    splits in split order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode (chip_smoke.py runs it on the H100)")
+    q, kp, vp, tbl, cur = _setup(8, 4, 8, 2, 64, 16, 64, max_cur=1023)
+    assert pa._split_plan(4, 8, 2, 16, 64)[0] > 1
+    args = [torch.tensor(x).cuda().to(dtype) for x in (q, kp, vp)]
+    args += [torch.tensor(tbl).cuda(), torch.tensor(cur).cuda()]
+    for window in (None, 300):
+        before = pa.launches
+        got = pa.paged_decode_attention(*args, sliding_window=window)
+        again = pa.paged_decode_attention(*args, sliding_window=window)
+        torch.cuda.synchronize()
+        assert pa.launches == before + 2
+        assert torch.equal(got, again)
+        want = pa.paged_decode_attention_plain(*args, sliding_window=window)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)

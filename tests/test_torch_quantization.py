@@ -212,11 +212,42 @@ def test_int4_matmul_rejects_bad_shapes_as_jax():
 )
 def test_int4_split_plan_covers_every_group(m, n_groups, out):
     """The launch plan is a function of the shapes alone; its splits are
-    whole groups, none empty, and together they cover the contraction."""
-    m_tiles, per_split, splits = qmatmul._split_plan(m, n_groups, out)
-    assert (m_tiles, per_split, splits) == qmatmul._split_plan(m, n_groups, out)
-    assert m_tiles in (1, 2, 4) and (m_tiles == 4 or m <= 16 * m_tiles)
-    assert (splits - 1) * per_split < n_groups <= splits * per_split and 1 <= splits <= 8
+    whole groups, none empty, and together they cover the contraction. M
+    up to 16 takes the decode kernel (16 or 32 columns, 1-4 warps a block, no
+    more warps than a split has groups), larger M the prefill kernel."""
+    plan = qmatmul._split_plan(m, n_groups, out)
+    assert plan == qmatmul._split_plan(m, n_groups, out)
+    assert (plan.splits - 1) * plan.groups_per_split < n_groups <= plan.splits * plan.groups_per_split
+    if m <= qmatmul.DECODE_ROWS:
+        assert plan.m_tiles == 1 and plan.columns in (16, 32) and out % plan.columns == 0
+        assert 1 <= plan.warps <= min(4, plan.groups_per_split)
+        assert plan.grid(m, out) == (out // plan.columns, plan.splits)
+    else:
+        assert plan.m_tiles in (2, 4) and (plan.m_tiles == 4 or m <= 16 * plan.m_tiles)
+        assert plan.columns == qmatmul.N_TILE and plan.warps == 4 and 1 <= plan.splits <= 8
+        assert plan.grid(m, out) == (out // 128, plan.splits, -(-m // (16 * plan.m_tiles)))
+
+
+TINYLLAMA_PROJECTIONS = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]  # q/o, k/v, gate/up, down
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("infeat,out", TINYLLAMA_PROJECTIONS)
+def test_int4_decode_plan_fills_the_card(infeat, out, m):
+    """At decode batches every TinyLlama projection (int4, groups of 128)
+    runs at least one block for each of the H100's 132 SMs."""
+    plan = qmatmul._split_plan(m, infeat // 128, out)
+    blocks = int(np.prod(plan.grid(m, out)))
+    assert blocks >= 132, (plan, blocks)
+
+
+@pytest.mark.parametrize("infeat,out", TINYLLAMA_PROJECTIONS)
+def test_int4_decode_plan_is_one_for_every_decode_batch(infeat, out):
+    """The decode plan depends on the weight's shape alone: every M from 1
+    to 16 launches the same grid, so a row sums in the same order whatever
+    else is in the batch."""
+    plans = {qmatmul._split_plan(m, infeat // 128, out) for m in range(1, 17)}
+    assert len(plans) == 1
 
 
 def test_int4_supported_mirrors_the_reference_gate():
@@ -242,6 +273,29 @@ def test_cuda_int4_kernel_matches_plain(dtype, tol):
         assert qmatmul.launches == before + 1
         want = qmatmul.int4_matmul_plain(*args, group_size=g).float()
         assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,infeat,out", [(8, 2048, 256), (8, 5632, 2048), (64, 2048, 256)])
+def test_cuda_int4_kernel_joins_splits_bit_exactly(b, infeat, out):
+    """Shapes whose plan has several splits (the decode kernel at M 8, the
+    prefill kernel at M 64): the kernel's one launch joins them, agrees with
+    the plain version, and two calls on the same inputs are bit-equal (the
+    splits are summed in split order, whichever block finishes last)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    assert qmatmul._split_plan(b, infeat // 128, out).splits > 1
+    x, qt = _int4_inputs(b, infeat, out, 128)
+    args = (torch.tensor(x).cuda().to(torch.bfloat16), torch.tensor(np.asarray(qt.data)).cuda(),
+            torch.tensor(np.asarray(qt.scale)).cuda())
+    before = qmatmul.launches
+    got = qmatmul.int4_matmul(*args, group_size=128)
+    again = qmatmul.int4_matmul(*args, group_size=128)
+    torch.cuda.synchronize()
+    assert qmatmul.launches == before + 2
+    assert torch.equal(got, again)
+    want = qmatmul.int4_matmul_plain(*args, group_size=128).float()
+    assert (got.float() - want).abs().max().item() <= 1e-2 * want.abs().max().item()
 
 
 # ---- QuantDense -------------------------------------------------------------
