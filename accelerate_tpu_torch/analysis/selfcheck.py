@@ -109,10 +109,13 @@ def _kernel_reference() -> tuple:
 
     report = kernel_check(decode_step, _meta((B, D)), _meta((D, N)), probe=False)
     site = report.sites[0] if report.sites else None
-    # hand: the f32 chunk of x (512 contraction rows x 8 rows) + 8 rows x 4 warps of partials
-    want_occ = 512 * 8 * 4 + 8 * 4 * 4  # = 16,512
+    # hand: the logits block's dynamic shared memory in f32: 4 ring stages, each 32 contraction rows of w
+    # (128 columns x 4 bytes + 16 of padding) and the 8 x 32 block of x (128 bytes + 16 a row); the logits
+    # tile 8 x 132 f32; 8 rows x 4 warps of reductions; the join's flag (16 bytes)
+    want_occ = 4 * (32 * 528 + 8 * 144) + 8 * 132 * 4 + 8 * 4 * 4 + 16  # = 76,560
     # hand: 2 B D N + 14 B N = 524,288 + 28,672 = 552,960 FLOPs (the reference's);
-    # bytes: 2 blocks x (x tile 8 x 128 + w tile 128 x 128 + out tile 8 x 128) x 4 B = 147,456
+    # bytes: grid (2, 1, 1), one split (D = 128 is 4 stages of 32 rows, the least a split streams):
+    # 2 blocks x (x tile 8 x 128 + w tile 128 x 128 + out tile 8 x 128) x 4 B = 147,456
     want_cost = (2 * B * D * N + 14 * B * N, 2 * (8 * D + D * 128 + 8 * 128) * 4)
     # hand, what the contract declares: w once per 8 rows + x once per 128-column tile + the
     # logits written, reread and rewritten + the tile maxima and sums: 164,096 B

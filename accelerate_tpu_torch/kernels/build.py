@@ -59,7 +59,8 @@ SIGNATURES = {
         "int4_matmul": ((*[_P] * 6, *[_I] * 10, _P), _I),
     },
     "reference_kernels": {
-        "block_matmul_softmax": ((*[_P] * 5, *[_I] * 7, _P), _I),
+        "block_matmul_softmax": ((*[_P] * 7, *[_I] * 10, _P), _I),
+        "block_matmul_softmax_smem": ((_I,), _I),
         "block_accumulate": ((_P, _P, _I, ctypes.c_longlong, _I, _I, _P), _I),
         "reference_kernels_func_attributes": ((_I, _INTS), _I),
     },

@@ -28,18 +28,26 @@ import torch
 
 from .contracts import kernel_cost
 from .launch import LaunchSite, TileSpec, record
+from .tickets import tickets
 
 #: rows of the tiled operand a block owns
 BLOCK_ROWS = 8
 # geometry of csrc/reference_kernels.cu. The launch sites below are the
 # launches' only declaration: each wrapper passes its site's grid and
 # threads to the kernel library, which refuses a declaration its kernel
-# cannot run (the logits pass's 128 threads and 8 rows are compiled in).
-_LOGIT_COLS = 128  # columns a block of the logits pass owns, one a thread
+# cannot run (the logits pass's 128 threads, 128 columns and 8 rows are
+# compiled in).
+_LOGIT_COLS = 128  # columns a block of the logits pass owns
+_LOGIT_THREADS = 128
+_STAGES = 4  # stages of the logits pass's ring
+_X_ROW_BYTES = 128  # bytes of an x row a stage holds: its depth is 128 / itemsize contraction rows
+_RING_PAD = 16  # bytes after every ring row
+_TILE_PITCH = _LOGIT_COLS + 4  # floats a row of the block's logits tile
 _NORM_COLS = 1024  # columns a block of the normalise pass owns
-_D_CHUNK = 512  # contraction rows of x staged in shared memory at a time
-_ACC_THREADS = 256  # threads a block of the accumulate kernel
-_ACC_MAX_BLOCKS = 132 * 16  # its grid-stride cap: 16 blocks an SM
+_H100_SMS = 132
+_TARGET_BLOCKS = _H100_SMS  # the logits grid splits the contraction until it has a block an SM
+_MIN_SPLIT_CHUNKS = _STAGES  # a split streams at least a ring's worth of stages
+_ACC_THREADS = 256  # threads a block of the accumulate kernel, a 16-byte vector each
 
 # Kernel launches since import (or since a caller reset them to 0).
 launches_matmul_softmax = 0
@@ -52,6 +60,28 @@ def _itemsize(t) -> int:
     return torch.empty((), dtype=t.dtype).element_size()
 
 
+def _depth(itemsize: int) -> int:
+    """Contraction rows of one ring stage (64 in 16 bits, 32 in f32)."""
+    return _X_ROW_BYTES // itemsize
+
+
+def _softmax_plan(x, w) -> tuple:
+    """``(row_blocks, splits, tiles, split_rows)`` of the logits pass: 8-row
+    blocks, 128-column tiles, and the contraction cut into ``splits`` runs
+    of ``split_rows`` (whole stages; the last may be shorter), as many as
+    bring the grid to a block for each of the H100's 132 SMs while every
+    split keeps at least four stages. At the decode-logits shape the 250
+    tiles take no split: more splits measured slower there on the H100
+    (``scripts/torch_reference_variants.py``, PERF.md)."""
+    (b, d), n = x.shape, w.shape[1]
+    depth = _depth(_itemsize(w))
+    tiles, row_blocks = -(-n // _LOGIT_COLS), b // BLOCK_ROWS
+    chunks = -(-d // depth)
+    want = max(1, min(chunks // _MIN_SPLIT_CHUNKS, -(-_TARGET_BLOCKS // (tiles * row_blocks))))
+    per = -(-chunks // want)
+    return row_blocks, -(-chunks // per), tiles, per * depth
+
+
 def _softmax_flops(x, w) -> float:
     """``2 B D N`` (the product) + ``14 B N`` (max, subtract, exp counted
     as 10, sum, divide): the reference's count, term for term."""
@@ -61,22 +91,45 @@ def _softmax_flops(x, w) -> float:
 
 def _softmax_hbm_bytes(x, w) -> float:
     """``w`` once for every 8 rows; ``x`` once for every 128-column tile;
-    the f32 logits written, read again and overwritten by the normalise
-    pass; the tile maxima and sums written once and read by every
-    normalise block of their row."""
+    with splits, each split's partial logits written and read back by the
+    joining block; the f32 logits written, read again and overwritten by
+    the normalise pass; the tile maxima and sums written once and read by
+    every normalise block of their row."""
     (b, d), n = x.shape, w.shape[1]
-    tiles, norm_blocks = -(-n // _LOGIT_COLS), -(-n // _NORM_COLS)
+    _, splits, tiles, _ = _softmax_plan(x, w)
+    norm_blocks = -(-n // _NORM_COLS)
+    partials = (2 * splits - 1) * b * n * 4 if splits > 1 else 0
     return float(
         (b // BLOCK_ROWS) * d * n * _itemsize(w)
         + tiles * b * d * _itemsize(x)
+        + partials
         + 3 * b * n * 4
         + 2 * b * tiles * 4 * (1 + norm_blocks)
     )
 
 
 def _softmax_smem(x, w) -> float:
-    """The logits block: a chunk of x as f32 plus the row reductions."""
-    return float(_D_CHUNK * BLOCK_ROWS * 4 + BLOCK_ROWS * (_LOGIT_COLS // 32) * 4)
+    """The logits block's dynamic shared memory: four ring stages (``KD``
+    rows of 128 columns of w and the 8 x ``KD`` block of x, each row padded
+    by 16 bytes), the f32 logits tile [8][132], the row reductions [8][4],
+    the join's flag (16 bytes)."""
+    item = _itemsize(w)
+    depth = _depth(item)
+    stage = depth * (_LOGIT_COLS * item + _RING_PAD) + BLOCK_ROWS * (_X_ROW_BYTES + _RING_PAD)
+    return float(_STAGES * stage + BLOCK_ROWS * _TILE_PITCH * 4 + BLOCK_ROWS * (_LOGIT_THREADS // 32) * 4 + 16)
+
+
+def _softmax_copy_bytes(x, w) -> int:
+    """Bytes one copy of the ring moves: the largest of 16, 8, 4 that
+    divides a row of w and of x and both pointers, else 2 (16-bit rows of
+    odd length); 16 at the decode-logits shape, 8 for w (300, 1500) in
+    bf16."""
+    item = _itemsize(w)
+    (_, d), n = x.shape, w.shape[1]
+    for vec in (16, 8, 4):
+        if not (n * item % vec or d * item % vec or x.data_ptr() % vec or w.data_ptr() % vec):
+            return vec
+    return 2  # 16-bit rows of odd length
 
 
 def block_matmul_softmax_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -90,21 +143,34 @@ def block_matmul_softmax_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor
 
 def _softmax_site(x, w) -> LaunchSite:
     """The logits pass as ``csrc/reference_kernels.cu`` launches it: grid
-    ``(ceil(N / 128), B / 8)``, 128 threads; block ``(t, r)`` reads rows
-    ``8r..8r+7`` of x and column tile ``t`` of w into registers and writes
-    that tile of the logits. Its shared memory is static scratch: the f32
-    chunk of x it stages, 512 contraction rows at a time, and the row
-    reductions (:func:`_softmax_smem`). The normalise pass, which rereads
-    and rewrites the logits, is priced in the contract and not declared
-    here."""
+    ``(B / 8, splits, ceil(N / 128))`` (:func:`_softmax_plan`), 128
+    threads; block ``(r, s, t)`` streams rows ``8r..8r+7`` of x and column
+    tile ``t`` of w over split ``s`` of the contraction through its ring.
+    With one split it writes its logits tile; with more, every block writes
+    its partial tile and the block that takes the tile's last ticket reads
+    the other splits' and writes the logits tile: declared here as the last
+    split (which split joins is settled on the card, one block a tile). Its
+    shared memory is the dynamic scratch of :func:`_softmax_smem`; the
+    normalise pass, which rereads and rewrites the logits, is priced in the
+    contract and not declared here."""
     (b, d), n = x.shape, w.shape[1]
+    row_blocks, splits, tiles, split_rows = _softmax_plan(x, w)
+    last = splits - 1
+
+    def joined(rows, split, tile):
+        return [(rows, tile)] if split == last else []
+
+    outs = [TileSpec("out", (BLOCK_ROWS, _LOGIT_COLS), (b, n), torch.float32, joined)]
+    ins = [TileSpec("x", (BLOCK_ROWS, split_rows), (b, d), x.dtype, lambda rows, split, tile: (rows, split)),
+           TileSpec("w", (split_rows, _LOGIT_COLS), (d, n), w.dtype, lambda rows, split, tile: (split, tile))]
+    if splits > 1:
+        part = ((1, BLOCK_ROWS, _LOGIT_COLS), (splits, b, n), torch.float32)
+        outs.append(TileSpec("partials", *part, lambda rows, split, tile: (split, rows, tile)))
+        ins.append(TileSpec("partials", *part, lambda rows, split, tile:
+                            [(s, rows, tile) for s in range(last)] if split == last else []))
     return LaunchSite(
-        "block_matmul_softmax", (-(-n // _LOGIT_COLS), b // BLOCK_ROWS), _LOGIT_COLS,
-        ins=(TileSpec("x", (BLOCK_ROWS, d), (b, d), x.dtype, lambda tile, rows: (rows, 0)),
-             TileSpec("w", (d, _LOGIT_COLS), (d, n), w.dtype, lambda tile, rows: (0, tile))),
-        outs=(TileSpec("out", (BLOCK_ROWS, _LOGIT_COLS), (b, n), torch.float32, lambda tile, rows: (rows, tile)),),
-        smem_scratch=int(_softmax_smem(x, w)),
-        plain=block_matmul_softmax_plain, operands=(x, w),
+        "block_matmul_softmax", (row_blocks, splits, tiles), _LOGIT_THREADS, ins=tuple(ins), outs=tuple(outs),
+        smem_scratch=int(_softmax_smem(x, w)), plain=block_matmul_softmax_plain, operands=(x, w),
     )
 
 
@@ -131,12 +197,15 @@ def _check_cuda(tensors: dict) -> None:
     hbm_bytes=_softmax_hbm_bytes,
     smem_bytes=_softmax_smem,
     interval=lambda ins: (0.0, 1.0),  # row softmax: every output in [0, 1]
-    notes="fused block matmul + row softmax (decode logits step), two passes over 128-column tiles",
+    notes="fused block matmul + row softmax (decode logits step): w streamed through a cp.async ring, "
+    "tensor-core products in 16 bits, splits joined by ticket, then a normalise pass",
 )
 def block_matmul_softmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``softmax(x [B, D] @ w [D, N], axis=-1)`` as f32 ``[B, N]``; ``B``
     must divide by 8. CPU tensors take the plain version; CUDA tensors
-    launch the two passes built from ``csrc/reference_kernels.cu``."""
+    launch the two passes built from ``csrc/reference_kernels.cu``, whose
+    ring copies ``_softmax_copy_bytes`` at a time: 16 bytes where the rows
+    and pointers allow, fewer for ragged rows, never the plain version."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"want x [B, D] and w [D, N]; got {tuple(x.shape)}, {tuple(w.shape)}")
     b, d = x.shape
@@ -152,13 +221,18 @@ def block_matmul_softmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     from .build import load
 
     lib = load("reference_kernels")
+    (row_blocks, splits, tiles), split_rows = site.grid, site.ins[1].tile[0]
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    tiles, row_blocks = site.grid
-    scratch = torch.empty((2, b, tiles), dtype=torch.float32, device=x.device)  # tile maxima, tile sums
+    # one buffer: the splits' partial logits (none with one split), then the tile maxima and sums
+    parts = splits * b * n if splits > 1 else 0
+    scratch = torch.empty(parts + 2 * b * tiles, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = tickets(x.device, stream, row_blocks * tiles).data_ptr() if splits > 1 else None
     err = lib.block_matmul_softmax(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        _DTYPE_CODES[x.dtype], b, d, n, tiles, row_blocks, site.threads,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), scratch.data_ptr() if parts else None,
+        scratch[parts:].data_ptr(), scratch[parts + b * tiles:].data_ptr(), counters, _DTYPE_CODES[x.dtype],
+        b, d, n, row_blocks, splits, split_rows // _depth(_itemsize(w)), tiles, site.threads,
+        _softmax_copy_bytes(x, w), stream,
     )
     if err != 0:
         raise RuntimeError(f"block_matmul_softmax kernel launch failed: cudaError {err}")
@@ -178,22 +252,17 @@ def _acc_hbm_bytes(acc, delta) -> float:
 
 
 def _accumulate_site(acc, delta) -> LaunchSite:
-    """The launch over the flattened operands: 256 threads a block, 16-byte
-    vectors, ``min(ceil(vectors / 256), 2112)`` blocks striding over chunks
-    of 256 vectors; block ``b`` walks chunks ``b, b + blocks, ...`` of acc
-    and delta through registers and writes the same chunks of acc (aliased
-    in place). The scalar tail, under 16 bytes, lies in the last chunk."""
+    """The launch over the flattened operands: 256 threads a block, one
+    16-byte vector a thread (a tile of ``256 x 16`` bytes), a block for
+    each tile; block ``b`` reads tile ``b`` of acc and delta into registers
+    and writes tile ``b`` of acc (aliased in place). The last tile may be
+    partial; the scalar tail, under 16 bytes, lies in it."""
     numel = acc.numel()
-    vec = 16 // _itemsize(acc)
-    chunk = _ACC_THREADS * vec
-    blocks = min(max(1, -(-(numel // vec) // _ACC_THREADS)), _ACC_MAX_BLOCKS)
-    chunks = -(-numel // chunk)
-
-    def walk(block):
-        return [(c,) for c in range(block, chunks, blocks)]
+    tile_elems = _ACC_THREADS * (16 // _itemsize(acc))
+    blocks = -(-numel // tile_elems)
 
     def tile(name):
-        return TileSpec(name, (chunk,), (numel,), acc.dtype, walk)
+        return TileSpec(name, (tile_elems,), (numel,), acc.dtype, lambda block: (block,))
 
     return LaunchSite(
         "block_accumulate", (blocks,), _ACC_THREADS, ins=(tile("acc"), tile("delta")), outs=(tile("acc"),),
@@ -211,7 +280,7 @@ def block_accumulate_plain(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tens
     hbm_bytes=_acc_hbm_bytes,
     smem_bytes=lambda acc, delta: 0.0,  # registers only
     interval=lambda ins: (ins[0][0] + ins[1][0], ins[0][1] + ins[1][1]),
-    notes="in-place accumulation (16-byte loads, grid-stride)",
+    notes="in-place accumulation (a 16-byte pair a thread, the whole call in one grid)",
 )
 def block_accumulate(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """``acc [B, N] += delta [B, N]`` in place (one dtype; ``B`` must

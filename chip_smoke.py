@@ -32,8 +32,8 @@ it, all three equal. Then the slices:
   step's attention through K4; the int4 tick profiled; a 2-layer int4
   model checked against a no-cache loop over ``nn.Linear`` layers holding
   the decoded weights. The two reference kernels (K6, K7) are held
-  against their plain versions and timed against the bounds their
-  registered cost contracts give;
+  against their plain versions (ragged rows included), two calls bit-equal,
+  and timed against the bounds their registered cost contracts give;
 * the kernel-check path: the analyzer's capacity against the card's own,
   its selfcheck, ``Accelerator().kernel_check`` over the six seeded-defect
   fixtures and the clean twins K6/K7, each probed on the card (the fixture
@@ -1194,6 +1194,10 @@ def phase_int4_host_cost(torch):
     return row
 
 
+# K6 is held per element to SOFTMAX_TOL (|ref| + RMS(ref)) of its plain version: f32 sums in another order
+SOFTMAX_TOL = 1e-4
+
+
 def spec_bound(spec, *operands):
     """Least time by a registered cost contract: its declared HBM bytes over
     the memory rate against its declared FLOPs at the peak rate of the
@@ -1206,15 +1210,20 @@ def spec_bound(spec, *operands):
 def phase_reference_kernels(torch):
     """K6 (softmax(x @ w)) and K7 (acc += delta) through their public
     wrappers, the counts read around that drive; then each against its plain
-    version. K6 at the selfcheck shape (8, 128) @ (128, 256) and at the
-    decode-logits shape (8, 2048) @ (2048, 32000), f32 and bf16: every
-    probability within 1e-4 (|ref| + RMS(ref)) (f32 sums in another order),
-    rows summing to 1 within 1e-5. K7 at [8, 256] and [4096, 4096], f32 and
-    bf16: equal bit for bit (one f32 add, one rounding, as torch's add).
-    Times (CUDA events, L2 flushed) beside the bound from each kernel's
+    version. K6 at the selfcheck shape (8, 128) @ (128, 256), at the
+    decode-logits shape (8, 2048) @ (2048, 32000) in f32 and bf16, and at
+    the ragged (16, 300) @ (300, 1500) bf16 (rows of 600 and 3,000 bytes:
+    the ring's 8-byte copies) and (8, 2048) @ (2048, 1000) bf16 (8 tiles:
+    the contraction in 8 splits, joined by ticket): every probability within SOFTMAX_TOL
+    (|ref| + RMS(ref)) (f32 sums in another order), rows summing to 1
+    within 1e-5, two calls bit-equal. K7 at [8, 256] and [4096, 4096], f32
+    and bf16, and [8, 1001] bf16: equal bit for bit to ``acc.add_(delta)``
+    (one f32 add, one rounding, as torch's add), two calls alike. Times
+    (CUDA events, L2 flushed) beside the bound from each kernel's
     registered cost contract, the bound with every input read once and the
     output written once, the plain version's time and one library call's
-    (F.softmax(x @ w) is two; acc.add_(delta))."""
+    (F.softmax(x @ w) is two; acc.add_(delta)); beside the 16-bit K6 cases
+    the product ``x @ w`` alone, the floor a fused kernel competes with."""
     from accelerate_tpu_torch.kernels import reference as ref
     from accelerate_tpu_torch.kernels.contracts import registered_spec
 
@@ -1247,22 +1256,27 @@ def phase_reference_kernels(torch):
         ("selfcheck-f32", (8, 128), (128, 256), torch.float32),
         ("logits-f32", (8, 2048), (2048, 32000), torch.float32),
         ("logits-bf16", (8, 2048), (2048, 32000), torch.bfloat16),
+        ("ragged-bf16", (16, 300), (300, 1500), torch.bfloat16),
+        ("split-bf16", (8, 2048), (2048, 1000), torch.bfloat16),
     ):
         x, w = operands(shape_x, shape_w, dtype)
-        got, want = ref.block_matmul_softmax(x, w), ref.block_matmul_softmax_plain(x, w)
+        got, again, want = ref.block_matmul_softmax(x, w), ref.block_matmul_softmax(x, w), ref.block_matmul_softmax_plain(x, w)
         torch.cuda.synchronize()
-        err, over = flash_err(torch, got, want, 1e-4)
+        err, over = flash_err(torch, got, want, SOFTMAX_TOL)
         check(over <= 1.0, f"K6 vs plain ({name}): {over} x its tolerance")
         check(float((got.sum(-1) - 1.0).abs().max()) < 1e-5 and float(got.min()) >= 0.0, f"K6 rows sum to 1 ({name})")
+        check(torch.equal(got, again), f"K6 two calls bit-equal ({name})")
         bound_ms, bound_by = spec_bound(soft_spec, x, w)
         # every input read once, the output written once, against the contract's operations
         t_bytes = (x.numel() * x.element_size() + w.numel() * w.element_size() + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
         t_ops = soft_spec.flops(x, w) / PEAK_FLOPS[dtype_name(dtype)] * 1e3
         rows["matmul_softmax"][name] = {
-            "max_abs_err": err, "err_over_tol": over,
+            "max_abs_err": err, "err_over_tol": over, "plan": list(ref._softmax_plan(x, w)),
+            "copy_bytes": ref._softmax_copy_bytes(x, w),
             "ms": time_ms(torch, lambda: ref.block_matmul_softmax(x, w), flush=flush),
             "plain_ms": time_ms(torch, lambda: ref.block_matmul_softmax_plain(x, w), flush=flush),
             "library_ms": time_ms(torch, lambda: torch.softmax(x.float() @ w.float(), dim=-1), flush=flush),
+            "matmul_ms": time_ms(torch, lambda: x @ w, flush=flush) if dtype != torch.float32 else None,
             "spec_bound_ms": bound_ms, "spec_bound_by": bound_by, "spec_flops": soft_spec.flops(x, w),
             "spec_hbm_bytes": soft_spec.hbm_bytes(x, w), "spec_smem_bytes": soft_spec.smem_bytes(x, w),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1273,9 +1287,12 @@ def phase_reference_kernels(torch):
         acc = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
         delta = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
         want = ref.block_accumulate_plain(acc.clone(), delta)
+        again = acc.clone()
         got = ref.block_accumulate(acc, delta)
+        ref.block_accumulate(again, delta)
         torch.cuda.synchronize()
         check(got is acc and torch.equal(acc, want), f"K7 in place and equal to acc.add_(delta) ({name})")
+        check(torch.equal(again, acc), f"K7 two calls alike ({name})")
         err = float((acc.float() - want.float()).abs().max())
         bound_ms, bound_by = spec_bound(acc_spec, acc, delta)  # the contract's bytes are the least: 2 reads, 1 write
         rows["accumulate"][name] = {
@@ -1593,8 +1610,9 @@ def phase_analysis(torch):
              "tile_add": build.func_attributes("kernel_fixtures", 1),
              "tile_scale": build.func_attributes("kernel_fixtures", 2)}
     smem = []
+    k6_dynamic = build.load("reference_kernels").block_matmul_softmax_smem(0)  # the f32 twin's ring and tile
     for label, kernel, (fn, args), dynamic in (
-        ("K6 clean twin", "block_matmul_softmax", twins["TPU1001"], 0),
+        ("K6 clean twin", "block_matmul_softmax", twins["TPU1001"], k6_dynamic),
         ("K7 clean twin", "block_accumulate", twins["TPU1004"], 0),
         ("vmem_hog", "tile_copy", fixture_set["TPU1001"], requests["TPU1001"]),
         ("ragged_tile", "tile_copy", fixture_set["TPU1002"], requests["TPU1002"]),

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's K1-K3 (flash forward and backward), K4 (paged decode
-attention), K5 (int4 dequantize-matmul) and K8 (fixture tile kernels) in two
-checkouts on one CUDA card, in turns: other, this, this, other.
+attention), K5 (int4 dequantize-matmul), K6 and K7 (the reference kernels)
+and K8 (fixture tile kernels) in two checkouts on one CUDA card, in turns:
+other, this, this, other.
 
-    python3 scripts/torch_kernel_ab.py --other DIR
+    python3 scripts/torch_kernel_ab.py --other DIR [--only k6,k7]
+
+``--only`` names the groups to time (``k4``, ``k5``, ``flash`` for K1-K3,
+``k6``, ``k7``, ``k8``; all by default).
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``, or a copy with one change to a
@@ -31,6 +35,15 @@ after warm-up, L2 flushed before each call, the median of 30 calls):
   groups of 128, ``chip_smoke.int4_weight``) at M 1, 8 and 64 in bf16, with
   its ``err_over_tol`` against that tree's plain version over
   ``chip_smoke.INT4_TOL``;
+* K6 through ``block_matmul_softmax`` at the decode-logits shape (8, 2048)
+  @ (2048, 32000) in bf16 and f32, the same at B 64, and the ragged
+  (16, 300) @ (300, 1500) bf16 (rows of 3,000 bytes: the ring's 8-byte
+  copies), each with ``max_abs_err`` and ``err_over_tol`` against that
+  tree's plain version over ``chip_smoke.SOFTMAX_TOL`` and whether two
+  calls are bit-equal; beside the logits cases in bf16, the product
+  ``x @ w`` alone (cuBLAS): the floor a fused design competes with;
+* K7 through ``block_accumulate`` at [4096, 4096] f32 and bf16, with
+  ``max_abs_err`` against ``acc.add_(delta)`` and that call's own time;
 * the three K8 bodies at the fixture shapes, (16, 128) f32 (the copy and
   the scale as the ``unregistered_call`` and ``drifting_call`` fixtures,
   the add aliased on a map free of hazards), as ``chip_smoke.py`` does.
@@ -66,6 +79,15 @@ K1_CASES = (  # name, dtype, D, B, S, causal, K1 checked against the plain versi
 K4_HEAD_DIMS = (64, 128)  # at B 8, H 32/4, 128 blocks of 16, bf16
 K4_TICK_KEYS = (100, 464)  # live keys a row at the serving tick's shape (D 64)
 K5_BATCHES = (1, 8, 64)  # at each of chip_smoke.INT4_SHAPES, bf16, groups of 128
+K6_CASES = (  # name, B, D, N, dtype
+    ("logits-bf16", 8, 2048, 32000, "bfloat16"),
+    ("logits-f32", 8, 2048, 32000, "float32"),
+    ("logits-b64-bf16", 64, 2048, 32000, "bfloat16"),
+    ("logits-b64-f32", 64, 2048, 32000, "float32"),
+    ("ragged-bf16", 16, 300, 1500, "bfloat16"),
+)
+K7_CASES = (("4096-f32", "float32"), ("4096-bf16", "bfloat16"))  # [4096, 4096]
+GROUPS = ("k4", "k5", "flash", "k6", "k7", "k8")  # in the order they run
 BUILD_KEYS = ("k4_build_s", "build_s")
 
 
@@ -78,17 +100,12 @@ def chip_smoke():
     return module
 
 
-def worker() -> dict:
+def worker(only) -> dict:
     import time
 
-    import numpy as np
     import torch
 
-    from accelerate_tpu_torch.analysis.selfcheck import _kernel_fixtures
-    from accelerate_tpu_torch.kernels import build, fixtures
-    from accelerate_tpu_torch.ops import flash_attention as fa
-    from accelerate_tpu_torch.ops import paged_attention as pa
-    from accelerate_tpu_torch.ops import qmatmul as qm
+    from accelerate_tpu_torch.kernels import build
 
     cs = chip_smoke()
     out = {}
@@ -99,6 +116,17 @@ def worker() -> dict:
     build.build_all()
     out["build_s"] = time.perf_counter() - t0
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    for group in GROUPS:  # each adds its keys to out
+        if group in only:
+            TIMERS[group](cs, torch, out, flush)
+    return out
+
+
+def time_k4(cs, torch, out, flush):
+    import numpy as np
+
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for d in K4_HEAD_DIMS:
@@ -113,6 +141,11 @@ def worker() -> dict:
     got, want = pa.paged_decode_attention(q, kp, vp, table, cur), pa.paged_decode_attention_plain(q, kp, vp, table, cur)
     out["k4_bf16-tick_max_abs_err"] = (got.float() - want.float()).abs().max().item()
     out["k4_bf16-tick_ms"] = cs.time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, table, cur), flush=flush)
+
+
+def time_k5(cs, torch, out, flush):
+    from accelerate_tpu_torch.ops import qmatmul as qm
+
     gen = torch.Generator(device="cuda").manual_seed(17)
     for k, n in cs.INT4_SHAPES:
         packed, scale, _ = cs.int4_weight(torch, gen, k, n, 128)
@@ -122,6 +155,11 @@ def worker() -> dict:
             out[f"k5_{k}x{n}_m{m}_ms"] = cs.time_ms(
                 torch, lambda: qm.int4_matmul(x, packed, scale, group_size=128), flush=flush)
         del packed, scale
+
+
+def time_flash(cs, torch, out, flush):
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     for name, dtype_name, d, b, s, causal, check in K1_CASES:
         dtype, scale, tol = getattr(torch, dtype_name), d**-0.5, cs.FLASH_TOL[dtype_name]
@@ -150,6 +188,51 @@ def worker() -> dict:
         out[f"k2_k3_{name}_ms"] = out[f"k2_{name}_ms"] + out[f"k3_{name}_ms"]
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
+
+
+def time_k6(cs, torch, out, flush):
+    from accelerate_tpu_torch.kernels import reference as ref
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for name, b, d, n, dtype_name in K6_CASES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(d, n, generator=gen, device="cuda") / d**0.5).to(dtype)
+        got = ref.block_matmul_softmax(x, w)
+        again = ref.block_matmul_softmax(x, w)
+        want = ref.block_matmul_softmax_plain(x, w)
+        out[f"k6_{name}_max_abs_err"], out[f"k6_{name}_err_over_tol"] = cs.flash_err(torch, got, want, cs.SOFTMAX_TOL)
+        out[f"k6_{name}_bit_equal"] = float(torch.equal(got, again))
+        del got, again, want
+        out[f"k6_{name}_ms"] = cs.time_ms(torch, lambda: ref.block_matmul_softmax(x, w), flush=flush)
+        if dtype == torch.bfloat16 and name.startswith("logits"):
+            out[f"k6_{name}_matmul_ms"] = cs.time_ms(torch, lambda: x @ w, flush=flush)
+        del x, w
+        torch.cuda.empty_cache()
+
+
+def time_k7(cs, torch, out, flush):
+    from accelerate_tpu_torch.kernels import reference as ref
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for name, dtype_name in K7_CASES:
+        dtype = getattr(torch, dtype_name)
+        acc = torch.randn(4096, 4096, generator=gen, device="cuda").to(dtype)
+        delta = torch.randn(4096, 4096, generator=gen, device="cuda").to(dtype)
+        want = ref.block_accumulate_plain(acc.clone(), delta)
+        ref.block_accumulate(acc, delta)
+        torch.cuda.synchronize()
+        out[f"k7_{name}_max_abs_err"] = (acc.float() - want.float()).abs().max().item()
+        out[f"k7_{name}_ms"] = cs.time_ms(torch, lambda: ref.block_accumulate(acc, delta), flush=flush)
+        out[f"k7_{name}_add_ms"] = cs.time_ms(torch, lambda: acc.add_(delta), flush=flush)
+        del acc, delta, want
+
+
+def time_k8(cs, torch, out, flush):
+    from accelerate_tpu_torch.analysis.selfcheck import _kernel_fixtures
+    from accelerate_tpu_torch.kernels import fixtures
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
     fixture_set, _ = _kernel_fixtures()
     x, a, d_ = (torch.randn(16, 128, generator=gen, device="cuda") for _ in range(3))
 
@@ -160,16 +243,22 @@ def worker() -> dict:
     out["tile_copy_ms"] = cs.time_ms(torch, lambda: fixture_set["TPU1005"][0](x), flush=flush)
     out["tile_add_ms"] = cs.time_ms(torch, clean_add, flush=flush)
     out["tile_scale_ms"] = cs.time_ms(torch, lambda: fixture_set["TPU1006"][0](x), flush=flush)
-    return out
+
+
+TIMERS = {"k4": time_k4, "k5": time_k5, "flash": time_flash, "k6": time_k6, "k7": time_k7, "k8": time_k8}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", help="another checkout of the repository")
+    parser.add_argument("--only", default=",".join(GROUPS), help="groups to time, comma-separated: " + ", ".join(GROUPS))
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    only = set(args.only.split(","))
+    if only - set(GROUPS):
+        parser.error(f"unknown groups {sorted(only - set(GROUPS))}; choose from {', '.join(GROUPS)}")
     if args.worker:
-        print(json.dumps(worker()), flush=True)
+        print(json.dumps(worker(only)), flush=True)
         return 0
     if not args.other:
         parser.error("--other DIR is required")
@@ -180,7 +269,8 @@ def main() -> int:
     for which in ("other", "this", "this", "other"):
         tree = trees[which]
         env = {**os.environ, "PYTHONPATH": str(tree)}
-        proc = subprocess.run([sys.executable, str(HERE / "scripts" / "torch_kernel_ab.py"), "--worker"], cwd=tree,
+        proc = subprocess.run([sys.executable, str(HERE / "scripts" / "torch_kernel_ab.py"), "--worker", "--only",
+                               args.only], cwd=tree,
                               env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -16,7 +16,7 @@ import torch
 
 from accelerate_tpu_torch import Accelerator
 from accelerate_tpu_torch.analysis import kernel_check, run_kernel_selfcheck, scan_paths
-from accelerate_tpu_torch.analysis.kernelmodel import counted_cost, smem_occupancy_bytes
+from accelerate_tpu_torch.analysis.kernelmodel import counted_cost, smem_occupancy_bytes, tile_visits
 from accelerate_tpu_torch.analysis.perfmodel import count_flops
 from accelerate_tpu_torch.analysis.report import exit_code, render_sarif
 from accelerate_tpu_torch.analysis.selfcheck import _kernel_clean_fixtures, _kernel_fixtures, drift_contract
@@ -30,14 +30,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEEDS_CARD = "needs a CUDA card: the CUDA kernels have no CPU mode (chip_smoke.py runs them on the H100)"
 
 # K6 at the selfcheck's decode-logits shape, hand-computed (kernels/reference.py):
-# 2·B·D·N + 14·B·N FLOPs (the reference's); the logits pass's tiles (8×128 x, 128×128 w,
-# 8×128 out, f32) over its 2 blocks; its shared memory the staged f32 chunk of x (512 × 8)
-# plus 8 rows × 4 warps of partials; the contract's bytes w once per 8 rows, x once per
-# 128-column tile, the logits written, reread and rewritten, the tile maxima and sums.
+# 2·B·D·N + 14·B·N FLOPs (the reference's); the logits pass's grid (2 row blocks, 1 split,
+# 1 tile: D = 128 is four f32 stages of 32 rows, the least a split streams) and tiles (8×128 x,
+# 128×128 w, 8×128 out, f32); its dynamic shared memory four ring stages (32 w rows of
+# 128 × 4 bytes + 16 of padding, 8 x rows of 128 + 16 bytes), the logits tile 8 × 132 f32,
+# 8 rows × 4 warps of reductions and a 16-byte flag; the contract's bytes w once per 8 rows,
+# x once per 128-column tile, the logits written, reread and rewritten, the tile maxima and sums.
 B, D, N = 16, 128, 128
 REF_FLOPS = 2 * B * D * N + 14 * B * N  # 552_960
 REF_HBM = 2 * (8 * D + D * N + 8 * N) * 4  # 147_456
-REF_SMEM = 512 * 8 * 4 + 8 * 4 * 4  # 16_512
+REF_SMEM = 4 * (32 * 528 + 8 * 144) + 8 * 132 * 4 + 8 * 4 * 4 + 16  # 76_560
 DECLARED_HBM = (B // 8) * D * N * 4 + B * D * 4 + 3 * B * N * 4 + 2 * B * 4 * 2  # 164_096
 RULES = ("TPU1001", "TPU1002", "TPU1003", "TPU1004", "TPU1005", "TPU1006")
 
@@ -78,7 +80,7 @@ def test_extraction_and_counted_cost_exact():
     assert len(report.sites) == 1
     site = report.sites[0]
     assert site.kernel_name == "block_matmul_softmax" and site.spec is not None
-    assert site.grid == (1, 2) and site.threads == 128 and site.count == 1
+    assert site.grid == (2, 1, 1) and site.threads == 128 and site.count == 1
     assert [t.tile for t in site.in_tiles] == [(8, D), (D, 128)]
     assert [t.tile for t in site.out_tiles] == [(8, 128)]
     assert site.io_aliases == ()
@@ -109,12 +111,84 @@ def test_extraction_aliases_and_clean_alias_twin():
 
 
 def test_grid_stride_walk_covers_once_at_the_block_cap():
-    """K7 at [4096, 4096] f32: 16,384 chunks of 1,024 elements walked by
-    the 2,112 blocks of its grid-stride cap; every chunk once."""
+    """K7 at [4096, 4096] f32: 16,384 tiles of 1,024 elements (256 threads
+    x one 16-byte vector), one block a tile: the grid holds the whole call,
+    with no cap and no stride; every tile once. (16,384 blocks are past
+    MAX_ENUMERATED_GRID, so the analyzer's coverage rules skip the site and
+    the walk is checked here.)"""
     report = kernel_check(block_accumulate, _meta(4096, 4096), _meta(4096, 4096), probe=False)
     (site,) = report.sites
-    assert site.grid == (2112,) and report.findings == []
+    assert site.grid == (16384,) and report.findings == []
     assert counted_cost(site) == (4096 * 4096, 3 * 4096 * 4096 * 4)
+    visited = [t for _, ts in tile_visits(site.in_tiles[0], site) for t in ts]
+    assert sorted(visited) == [(t,) for t in range(16_384)]
+
+
+# K6's launch sites on meta, hand-computed (kernels/reference.py::_softmax_plan, 16-bit stages
+# of 64 contraction rows, splits only while each keeps >= 4 stages and the grid is under
+# 132 blocks): (B, D, N) -> grid (row blocks, splits, tiles), split rows, counted and declared
+# bytes. Counted: x (8, split rows) and w (split rows, 128) bf16 a block, out (8, 128) f32 a
+# tile, with splits a (1, 8, 128) f32 partial written a block and the other splits' read by
+# the last. Declared: w once per 8 rows, x once per tile, partials (2 splits - 1) B N 4,
+# logits 3 B N 4, tile maxima and sums 2 B tiles 4 (1 + ceil(N / 1024)).
+K6_SITES = [
+    ((16, 128, 128), (2, 1, 1), 128,
+     2 * (8 * 128 * 2 + 128 * 128 * 2 + 8 * 128 * 4),  # 77,824
+     2 * 128 * 128 * 2 + 16 * 128 * 2 + 3 * 16 * 128 * 4 + 2 * 16 * 1 * 4 * 2),  # 94,464
+    ((8, 2048, 32000), (1, 1, 250), 2048,  # 250 tiles: a block an SM already, no split
+     250 * (8 * 2048 * 2 + 2048 * 128 * 2 + 8 * 128 * 4),  # 140,288,000
+     2048 * 32000 * 2 + 250 * 8 * 2048 * 2 + 3 * 8 * 32000 * 4 + 2 * 8 * 250 * 4 * 33),  # 142,864,000
+    ((64, 512, 1000), (8, 2, 8), 256,
+     128 * (8 * 256 * 2 + 256 * 128 * 2 + 8 * 128 * 4) + 64 * 8 * 128 * 4 * 2,  # 9,961,472
+     8 * 512 * 1000 * 2 + 8 * 64 * 512 * 2 + 3 * 64 * 1000 * 4 * 2 + 2 * 64 * 8 * 4 * 2),  # 10,260,480
+    # N * 2 = 3,000 bytes, not a multiple of 16 (the ring's 8-byte copies); D = 300 is 5 stages, one split
+    ((16, 300, 1500), (2, 1, 12), 320,
+     24 * (8 * 320 * 2 + 320 * 128 * 2 + 8 * 128 * 4),  # 2,187,264
+     2 * 300 * 1500 * 2 + 12 * 16 * 300 * 2 + 3 * 16 * 1500 * 4 + 2 * 16 * 12 * 4 * 3),  # 2,207,808
+]
+
+
+@pytest.mark.parametrize("shape,grid,split_rows,counted_hbm,declared_hbm", K6_SITES)
+def test_k6_launch_site_hand_computed(shape, grid, split_rows, counted_hbm, declared_hbm):
+    b, d, n = shape
+    report = kernel_check(_softmax_step, _meta(b, d, dtype=torch.bfloat16), _meta(d, n, dtype=torch.bfloat16),
+                          probe=False)
+    (site,) = report.sites
+    assert report.findings == []
+    assert site.grid == grid and site.threads == 128
+    splits = grid[1]
+    assert [(t.name, t.tile) for t in site.in_tiles] == [("x", (8, split_rows)), ("w", (split_rows, 128))] + (
+        [("partials", (1, 8, 128))] if splits > 1 else [])
+    assert [(t.name, t.tile) for t in site.out_tiles] == [("out", (8, 128))] + (
+        [("partials", (1, 8, 128))] if splits > 1 else [])
+    # the ring (4 stages of 64 w rows of 256 + 16 bytes and 8 x rows of 128 + 16), tile, reductions, flag
+    smem = 4 * (64 * 272 + 8 * 144) + 8 * 132 * 4 + 8 * 4 * 4 + 16
+    assert smem_occupancy_bytes(site) == site.spec.smem_bytes(*site.operands) == smem == 78_608
+    assert counted_cost(site) == (2 * b * d * n + 14 * b * n, counted_hbm)
+    assert site.spec.hbm_bytes(*site.operands) == declared_hbm
+    # out is written once a tile (by the joining block, declared at the last split)
+    writers = {}
+    for block, visited in tile_visits(site.out_tiles[0], site):
+        for idx in visited:
+            writers[idx] = writers.get(idx, 0) + 1
+    assert len(writers) == grid[0] * grid[2] and set(writers.values()) == {1}
+
+
+@pytest.mark.parametrize("shape,dtype,grid", [
+    ((4096, 4096), torch.bfloat16, (8192,)),  # 2,048 bf16 a tile (256 threads x 8)
+    ((8, 1001), torch.bfloat16, (4,)),  # 8,008 elements: 3 whole tiles, a partial one with the scalar tail
+    ((64, 4096), torch.float32, (256,)),  # 1,024 f32 a tile
+])
+def test_k7_launch_site_hand_computed(shape, dtype, grid):
+    report = kernel_check(block_accumulate, _meta(*shape, dtype=dtype), _meta(*shape, dtype=dtype), probe=False)
+    (site,) = report.sites
+    assert report.findings == [] and site.grid == grid and site.threads == 256
+    item = 2 if dtype == torch.bfloat16 else 4
+    tile = 256 * 16 // item
+    assert [t.tile for t in site.in_tiles] == [(tile,), (tile,)] and site.io_aliases == ((0, 0),)
+    visited = [t for _, ts in tile_visits(site.in_tiles[0], site) for t in ts]
+    assert sorted(visited) == [(t,) for t in range(grid[0])]  # every tile once, a block each
+    assert counted_cost(site)[1] == 3 * grid[0] * tile * item and smem_occupancy_bytes(site) == 0
 
 
 def test_interpret_probe_runs_the_plain_versions():

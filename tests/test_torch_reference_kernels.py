@@ -85,7 +85,9 @@ def test_registered_flops_equal_the_reference_contracts(b, d, n):
     # w is read once for every 8 rows; everything else is small beside it
     w_bytes = (b // 8) * d * n * 2
     assert w_bytes < soft.hbm_bytes(x, w) < w_bytes + 4 * b * n * 4 + 2 * (n // 128 + 1) * b * d * 4
-    assert 0 < soft.smem_bytes(x, w) <= 48 * 1024
+    # dynamic shared memory, within a block's 232,448 bytes: four ring stages of 64 w rows (256 bytes + 16 of
+    # padding) and the 8 x 64 block of x (128 + 16), the logits tile 8 x 132 f32, reductions 8 x 4 f32, a flag
+    assert soft.smem_bytes(x, w) == 4 * (64 * 272 + 8 * 144) + 8 * 132 * 4 + 8 * 4 * 4 + 16 == 78_608 <= 232_448
     assert soft.interval([(-3, 3), (-1, 1)]) == (0.0, 1.0) and acc.interval([(-1, 2), (0, 5)]) == (-1, 7)
 
 
@@ -118,6 +120,72 @@ def test_registry_rules():
     assert [w.category for w in seen] == [contracts.UnknownOpWarning] * 2
     assert "custom_call" in str(seen[0].message) and "ZERO" in str(seen[0].message)
     contracts.reset_unknown_op_warnings()
+
+
+@pytest.mark.parametrize("shape,dtype,vec", [
+    ((2048, 32000), torch.bfloat16, 16),  # the decode-logits shape: 16-byte copies
+    ((300, 1500), torch.bfloat16, 8),  # rows of 600 and 3,000 bytes
+    ((300, 1500), torch.float32, 16),
+    ((64, 1001), torch.bfloat16, 2),  # odd rows: 2-byte copies
+    ((5, 7), torch.float32, 4),
+])
+def test_k6_copy_width_follows_the_rows(shape, dtype, vec):
+    """The width of the logits ring's copies: the largest of 16, 8, 4, 2
+    bytes that divides a row of x and of w (and their addresses)."""
+    d, n = shape
+    x, w = torch.zeros(8, d, dtype=dtype), torch.zeros(d, n, dtype=dtype)
+    assert reference._softmax_copy_bytes(x, w) == vec
+    assert reference._softmax_copy_bytes(x[:, 1:], w) == min(vec, 2 if dtype == torch.bfloat16 else 4)
+
+
+@pytest.mark.parametrize("b,d,n,dtype,plan", [
+    (8, 2048, 32000, torch.bfloat16, (1, 1, 250, 2048)),  # 250 tiles: a block an SM already, no split
+    (8, 2048, 32000, torch.float32, (1, 1, 250, 2048)),
+    (64, 2048, 32000, torch.bfloat16, (8, 1, 250, 2048)),
+    (8, 2048, 1000, torch.bfloat16, (1, 8, 8, 256)),  # 8 tiles: 8 splits of 4 stages, the least a split takes
+    (64, 512, 1000, torch.bfloat16, (8, 2, 8, 256)),  # 64 blocks: two splits of the 8 stages
+    (16, 300, 1500, torch.bfloat16, (2, 1, 12, 320)),  # 5 stages: one split
+])
+def test_k6_split_plan(b, d, n, dtype, plan):
+    x, w = torch.empty(b, d, dtype=dtype, device="meta"), torch.empty(d, n, dtype=dtype, device="meta")
+    assert reference._softmax_plan(x, w) == plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,n", [(16, 300, 1500), (8, 2048, 32000), (8, 64, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_block_matmul_softmax_bit_equal_once_a_call(b, d, n, dtype):
+    """Two calls on the same inputs are bit-equal (the splits are summed in
+    split order), ragged rows run in the kernel, one counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    x = torch.tensor(_inputs((b, d), 8)).cuda().to(dtype)
+    w = torch.tensor(_inputs((d, n), 9) * d**-0.5).cuda().to(dtype)
+    before = reference.launches_matmul_softmax
+    first, second = reference.block_matmul_softmax(x, w), reference.block_matmul_softmax(x, w)
+    torch.cuda.synchronize()
+    assert reference.launches_matmul_softmax == before + 2
+    assert torch.equal(first, second)
+    want = reference.block_matmul_softmax_plain(x, w)
+    limit = 1e-4 * (want.abs() + want.pow(2).mean().sqrt())
+    assert bool(((first - want).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 4096), (8, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_block_accumulate_bit_equal_once_a_call(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    acc = torch.tensor(_inputs(shape, 10)).cuda().to(dtype)
+    delta = torch.tensor(_inputs(shape, 11)).cuda().to(dtype)
+    first, second, want = acc.clone(), acc.clone(), acc.clone().add_(delta)
+    before = reference.launches_accumulate
+    reference.block_accumulate(first, delta)
+    reference.block_accumulate(second, delta)
+    torch.cuda.synchronize()
+    assert reference.launches_accumulate == before + 2
+    assert torch.equal(first, want) and torch.equal(second, want)
 
 
 @pytest.mark.cuda
