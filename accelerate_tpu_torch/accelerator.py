@@ -1,14 +1,19 @@
-"""``Accelerator``: prepare a model and optimizer, build the train step.
+"""``Accelerator``: prepare a model, optimizer and data, build the train
+and eval steps, gather metrics.
 
 Counterpart of :class:`accelerate_tpu.accelerator.Accelerator`, the
 one-device replicated path. A training script of the JAX package maps
 line for line::
 
     accelerator = Accelerator(mixed_precision="bf16")
-    model = accelerator.prepare_model(create_llama_model(cfg))
-    optimizer = accelerator.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), 3e-4))
-    step = accelerator.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
-    loss = step({"input_ids": ids})
+    model, optimizer, loader = accelerator.prepare(
+        create_bert_model(cfg), torch.optim.AdamW(params, 2e-5), dataset_or_loader
+    )
+    step = accelerator.build_train_step(lambda p, b: bert_classification_loss(p, b, model.apply_fn))
+    for batch in loader:
+        loss = step(batch)
+    eval_step = accelerator.build_eval_step(lambda p, ids, mask: model.apply_fn(p, ids, mask))
+    preds = accelerator.gather_for_metrics(eval_step(ids, mask).argmax(-1))
 
 The model's parameters are the f32 master copy. Each step casts them to
 the compute dtype (names matching ``AutocastKwargs.keep_fp32_patterns``
@@ -16,11 +21,17 @@ stay f32), runs ``loss_fn`` on that copy, and autograd carries f32
 gradients back to the masters: the JAX package's semantics. Gradients
 accumulate ``1/accum``-weighted in f32; on a sync boundary they are
 clipped to ``clip_grad_norm_``'s bound, the optimizer steps (under fp16
-only if the global norm is finite) and the buffer is dropped.
+only if the global norm is finite) and the buffer is dropped. The last
+batch of the loader being iterated forces a sync boundary.
+
+Data goes through :func:`~.data_loader.prepare_data_loader` (batches on
+``accelerator.device``); ``gather_for_metrics`` drops the rows a padded
+last batch repeated. With one process the collectives return their input.
 
 Not ported (each raises ``NotImplementedError``): mutable model state
-(``has_state``), multi-card layouts, ZeRO, gradient compression, optimizer
-offload, the program cache, data loaders and the imperative path
+(``has_state``), multi-card layouts and multi-process data, ZeRO,
+gradient compression, optimizer offload, the program cache, trackers
+(``log_with``), the shape bucketer and the imperative path
 (``accumulate``/``backward``); ROADMAP.md queues them.
 """
 
@@ -32,16 +43,28 @@ from typing import Callable, Optional
 
 import torch
 
+from .data_loader import BaseDataLoader, prepare_data_loader
+from .data_loader import skip_first_batches as _skip_first_batches
 from .modeling import Model
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     AutocastKwargs,
+    DataLoaderConfiguration,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     MixedPrecisionPolicy,
     ParallelismPlugin,
+)
+from .utils.operations import (
+    _leaves,
+    gather,
+    gather_object,
+    is_array_like,
+    pad_across_processes,
+    recursively_apply,
+    reduce,
 )
 from .utils.random import generator_for_step
 
@@ -56,11 +79,18 @@ class Accelerator:
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
+        log_with=None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         parallelism_plugin: Optional[ParallelismPlugin] = None,
         kwargs_handlers: Optional[list] = None,
         step_scheduler_with_optimizer: bool = True,
     ):
+        if log_with is not None:
+            raise NotImplementedError(
+                f"log_with={log_with!r}: trackers (tracking.py, init_trackers, log) are not ported to "
+                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
+            )
         self.autocast_handler = AutocastKwargs()
         self.scaler_handler = GradScalerKwargs()
         policy_override = None
@@ -95,12 +125,15 @@ class Accelerator:
             self.state.dtype_policy = policy_override
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.device_placement = device_placement
-        self.split_batches = split_batches
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(split_batches=split_batches)
+        if split_batches:
+            self.dataloader_config.split_batches = True
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
 
         self._models: list[Model] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[BaseDataLoader] = []
         self.step = 0
         self._clip_max_norm: Optional[float] = None
         self._last_grad_norm = None
@@ -122,6 +155,41 @@ class Accelerator:
         return self.state.mixed_precision
 
     @property
+    def split_batches(self) -> bool:
+        return self.dataloader_config.split_batches
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.partial_state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.partial_state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.partial_state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.partial_state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.partial_state.is_local_main_process
+
+    @property
+    def num_data_shards(self) -> int:
+        """Shards of the batch dimension: one card, one shard."""
+        return 1
+
+    def print(self, *args, **kwargs):
+        self.state.partial_state.print(*args, **kwargs)
+
+    def wait_for_everyone(self):
+        self.state.partial_state.wait_for_everyone()
+
+    @property
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
 
@@ -138,8 +206,9 @@ class Accelerator:
     # ------------------------------------------------------------------ #
 
     def prepare(self, *args):
-        """Prepare models, then optimizers, then schedulers, whatever the
-        argument order; returns them in the order given."""
+        """Prepare models, then optimizers and data (loaders, datasets,
+        iterables: :meth:`prepare_data_loader`), then schedulers, whatever
+        the argument order; returns them in the order given."""
         staged = {}
         for i, obj in enumerate(args):
             if getattr(obj, "_is_accelerate_prepared", False):
@@ -147,17 +216,15 @@ class Accelerator:
             elif isinstance(obj, Model):
                 staged[i] = self.prepare_model(obj)
         for i, obj in enumerate(args):
-            if i not in staged and isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
-                staged[i] = self.prepare_optimizer(obj)
-        for i, obj in enumerate(args):
             if i in staged:
                 continue
-            if hasattr(obj, "__iter__") or (hasattr(obj, "__getitem__") and hasattr(obj, "__len__")):
-                raise NotImplementedError(
-                    "data loaders are not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 B); "
-                    "pass batches of tensors on accelerator.device to the train step"
-                )
-            staged[i] = self.prepare_scheduler(obj)
+            if isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
+                staged[i] = self.prepare_optimizer(obj)
+            elif hasattr(obj, "__iter__") or (hasattr(obj, "__getitem__") and hasattr(obj, "__len__")):
+                staged[i] = self.prepare_data_loader(obj)
+        for i, obj in enumerate(args):
+            if i not in staged:
+                staged[i] = self.prepare_scheduler(obj)
         result = [staged[i] for i in range(len(args))]
         return result[0] if len(result) == 1 else tuple(result)
 
@@ -200,6 +267,30 @@ class Accelerator:
             opt.accelerator = self
             self._optimizers.append(opt)
         return opt
+
+    def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None, **kwargs):
+        """A loader whose batches land on this accelerator's device (unless
+        ``device_placement`` is off), configured by ``dataloader_config``.
+        Extra ``kwargs`` (``batch_size``, ``shuffle``, ``seed``,
+        ``collate_fn``, ``drop_last``) pass to
+        :func:`~.data_loader.prepare_data_loader` for a raw dataset."""
+        if isinstance(data_loader, BaseDataLoader):
+            if data_loader not in self._dataloaders:
+                self._dataloaders.append(data_loader)
+            return data_loader
+        prepared = prepare_data_loader(
+            data_loader,
+            device=self.device,
+            put_on_device=self.device_placement if device_placement is None else device_placement,
+            data_loader_config=self.dataloader_config,
+            **kwargs,
+        )
+        self._dataloaders.append(prepared)
+        return prepared
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        """Skip the first ``num_batches`` of the loader's next pass."""
+        return _skip_first_batches(dataloader, num_batches)
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
         if isinstance(scheduler, AcceleratedScheduler):
@@ -387,6 +478,31 @@ class Accelerator:
                 render_text(report.findings),
             )
         return report
+
+    # ------------------------------------------------------------------ #
+    # metrics and collectives
+    # ------------------------------------------------------------------ #
+
+    def gather(self, tensor):
+        return gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """Gather, then drop the rows that the padded last batch of the
+        loader being iterated repeated (its ``remainder``)."""
+        if use_gather_object or not any(is_array_like(x) for x in _leaves(input_data)):
+            data = gather_object(input_data if isinstance(input_data, list) else [input_data])
+        else:
+            data = gather(input_data)
+        if self.gradient_state.end_of_dataloader and self.gradient_state.remainder > 0:
+            rem = self.gradient_state.remainder
+            return recursively_apply(lambda x: x[:rem] if x.ndim >= 1 else x, data)
+        return data
+
+    def reduce(self, tensor, reduction: str = "mean", scale: float = 1.0):
+        return reduce(tensor, reduction, scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+        return pad_across_processes(tensor, dim, pad_index, pad_first)
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         """Models are never wrapped; returns ``model``."""

@@ -35,8 +35,9 @@ class Model:
 
     @property
     def dtype(self) -> torch.dtype:
-        """The stream dtype (the embedding table's)."""
-        return self.module.embed_tokens.weight.dtype
+        """The stream dtype: the first floating-point parameter's (the
+        embedding table, for the models of the zoo)."""
+        return next(p.dtype for p in self.module.parameters() if p.is_floating_point())
 
     def __call__(self, *args, **kwargs):
         return self.module(*args, **kwargs)

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package's llama.
+"""Carry weights across from the JAX package's llama and BERT.
 
 ``llama_params_from_jax`` takes the flax param tree of
 :func:`accelerate_tpu.models.llama.create_llama_model` as nested dicts of
@@ -11,6 +11,9 @@ out]``; ``nn.Linear`` weights are ``[out, in]``. A tree quantized by the
 JAX package's ``load_and_quantize_model`` carries ``qdata``/``qscale``
 leaves in place of each projection's ``kernel``: they cross unchanged
 (``QuantDense`` keeps the reference's layout), integer codes as integers.
+``bert_params_from_jax`` does the same for
+:func:`accelerate_tpu.models.bert.create_bert_model`'s tree (unrolled
+``layer_<i>``; ``Embed`` tables cross as they are).
 """
 
 from __future__ import annotations
@@ -78,4 +81,36 @@ def llama_params_from_jax(params: dict, config) -> dict:
                 sd[f"layers.{i}.{name}.qscale"] = _codes(layer_leaf(i, (*path, "qscale")))
     if not config.tie_word_embeddings:
         sd["lm_head.weight"] = _tensor(_get(params, ("lm_head", "kernel")), True)
+    return sd
+
+
+def bert_params_from_jax(params: dict, config) -> dict:
+    """The port's BERT state dict (f32 tensors) from a JAX BERT param tree
+    (nested dicts of numpy arrays): Dense ``kernel [in, out]`` becomes
+    ``weight [out, in]``, LayerNorm ``scale`` becomes ``weight``, ``Embed``
+    tables cross as they are."""
+    enc = params["encoder"]
+    sd = {}
+
+    def dense(port: str, tree: dict):
+        sd[f"{port}.weight"] = _tensor(_get(tree, ("kernel",)), True)
+        sd[f"{port}.bias"] = _tensor(_get(tree, ("bias",)), False)
+
+    def norm(port: str, tree: dict):
+        sd[f"{port}.weight"] = _tensor(_get(tree, ("scale",)), False)
+        sd[f"{port}.bias"] = _tensor(_get(tree, ("bias",)), False)
+
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"encoder.embeddings.{name}.weight"] = _tensor(_get(enc, (f"embeddings/{name}", "embedding")), False)
+    norm("encoder.embeddings.norm", enc["embeddings/norm"])
+    for i in range(config.num_hidden_layers):
+        layer, port = enc[f"layer_{i}"], f"encoder.layers.{i}"
+        for proj in ("query", "key", "value", "out"):
+            dense(f"{port}.attention.{proj}", layer["attention"][proj])
+        dense(f"{port}.ffn.intermediate", layer["ffn/intermediate"])
+        dense(f"{port}.ffn.output", layer["ffn/output"])
+        norm(f"{port}.attention_norm", layer["attention_norm"])
+        norm(f"{port}.ffn_norm", layer["ffn_norm"])
+    dense("pooler", params["pooler"])
+    dense("classifier", params["classifier"])
     return sd

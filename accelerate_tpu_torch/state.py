@@ -53,6 +53,22 @@ class PartialState:
     def initialized(self, value: bool):
         self._shared_state["_initialized"] = value
 
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    def wait_for_everyone(self) -> None:
+        """A barrier across processes: with one process, nothing to wait for."""
+
+    def print(self, *args, **kwargs) -> None:
+        """``print`` on the main process only."""
+        if self.is_main_process:
+            print(*args, **kwargs)
+
     @classmethod
     def _reset_state(cls):
         cls._shared_state.clear()
@@ -109,7 +125,10 @@ class AcceleratorState:
 
 class GradientState:
     """Gradient-accumulation bookkeeping: the ``sync_gradients`` flag and the
-    active dataloader whose last batch forces a sync."""
+    registry of loaders being iterated. The active (innermost) loader's
+    last batch forces a sync, and its ``remainder`` (the real rows of a
+    padded last batch, -1 when nothing was padded) drives
+    ``Accelerator.gather_for_metrics``'s truncation."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -147,6 +166,10 @@ class GradientState:
     @property
     def end_of_dataloader(self) -> bool:
         return self.in_dataloader and bool(self.active_dataloader.end_of_dataloader)
+
+    @property
+    def remainder(self) -> int:
+        return self.active_dataloader.remainder if self.in_dataloader else -1
 
     def _set_sync_gradients(self, sync_gradients: bool):
         self.sync_gradients = sync_gradients

@@ -1,8 +1,9 @@
 """Config dataclasses and kwargs handlers of the training path.
 
 A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy,
-the autocast and grad-scaler handlers, gradient accumulation, and a
-``ParallelismPlugin`` that takes the one-device layout only. The other
+the autocast and grad-scaler handlers, gradient accumulation, the data
+loader configuration, the RNG types, and a ``ParallelismPlugin`` that
+takes the one-device layout only. The other
 layouts (data, fsdp, tensor, seq, pipe, expert axes), ZeRO, gradient
 compression and optimizer offload raise ``NotImplementedError``: they are
 queued in ROADMAP.md.
@@ -76,8 +77,9 @@ class GradientAccumulationPlugin(KwargsHandler):
 class MixedPrecisionPolicy(KwargsHandler):
     """Params stay in ``param_dtype`` (the f32 master copy), the forward
     runs on a ``compute_dtype`` copy, the loss comes back in f32.
-    ``softmax_dtype`` is kept for the JAX package's call contract; the
-    flash path computes its softmax in f32 whatever it says."""
+    ``softmax_dtype`` is the einsum attention path's softmax dtype (None:
+    f32), as in the JAX package; the flash path computes its softmax in
+    f32 whatever it says."""
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -99,6 +101,45 @@ class MixedPrecisionPolicy(KwargsHandler):
     @staticmethod
     def torch_dtype(name: str) -> torch.dtype:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """How ``prepare`` wraps data: ``split_batches`` (the batch size is the
+    global one), ``dispatch_batches`` (one reader hands out every batch),
+    ``even_batches`` (the last batch wraps round to a full one),
+    ``use_seedable_sampler``, ``prefetch_size`` (batches copied to the card
+    ahead of the one yielded) and ``non_blocking`` (copies from pinned
+    memory without waiting). ``auto_bucketing`` raises: the shape bucketer
+    is ROADMAP.md Queue 1 item 9."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    prefetch_size: int = 2
+    non_blocking: bool = True
+    auto_bucketing: bool = False
+
+    def __post_init__(self):
+        if self.auto_bucketing:
+            raise NotImplementedError(
+                "DataLoaderConfiguration(auto_bucketing=True): aot/bucketing.py is not ported to "
+                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
+            )
+
+
+class RNGType(str, enum.Enum):
+    """The RNGs a loader synchronises at the start of each pass
+    (``generator``: the ``torch.Generator`` it was given)."""
+
+    TORCH = "torch"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    GENERATOR = "generator"
+
+    def __str__(self) -> str:
+        return self.value
 
 
 @dataclass

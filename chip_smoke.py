@@ -40,7 +40,16 @@ it, all three equal. Then the slices:
   kernels K8: the shared-memory hog refused, the rest launched), and over
   the TinyLlama decode and train steps traced on meta; every fixture's
   outcome on the card asserted, every declared shared-memory occupancy
-  held to what ``nvcc`` built, the three K8 bodies timed.
+  held to what ``nvcc`` built, the three K8 bodies timed;
+* fine-tuning BERT: examples/torch_nlp_example.py's loop at BERT-base's
+  full width and depth (seeded random weights, bf16 compute with the
+  softmax in bf16) for one epoch of 3,668 rows through the data loader,
+  every batch on the card, the end flag on the last batch only, and
+  ``gather_for_metrics`` giving back exactly 3,668 predictions;
+  ``bench.py::run_bench``'s configuration (batch 256 x 128) timed, with
+  its MFU, peak memory and the device's idle share; a 2-layer f32 run on
+  the card held to the same run on the CPU. No kernel runs there: BERT's
+  padded attention is the einsum path, as in the JAX package.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -831,6 +840,22 @@ def phase_train(torch):
     return row, acc, model, step, batches
 
 
+def device_time(events) -> tuple[float, dict]:
+    """Device busy ms (the union of the traced kernels' intervals) and
+    ``{kernel name: (ms, count)}``."""
+    by_name: dict = {}
+    spans = []
+    for ev in events:
+        ms, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+        spans.append((ev.time_range.start, ev.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3, by_name
+
+
 def phase_train_profile(torch, step, batches):
     """One more train step under torch.profiler (``traced``): device busy
     time (the union of the traced kernels' intervals; user annotations
@@ -843,17 +868,7 @@ def phase_train_profile(torch, step, batches):
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     events, wall_ms, attempts, lost = traced(torch, lambda: step({"input_ids": batches[1]}))
-    by_name: dict = {}
-    spans = []
-    for ev in events:
-        ms, n = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
-        spans.append((ev.time_range.start, ev.time_range.end))
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy /= 1e3
+    busy, by_name = device_time(events)
 
     def share(pred):
         return sum(ms for name, (ms, _) in by_name.items() if pred(name.lower()))
@@ -959,6 +974,227 @@ def phase_flash_crossover(torch):
 INT4_TOL = {"float32": 2e-5, "bfloat16": 8e-3, "float16": 2e-3}
 INT4_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))  # (in, out) of TinyLlama's projections
 INT4_MAIN_CASE = "2048x5632 M8"  # gate/up projection at the decode tick's batch: the kernels line's K5 row
+
+
+# google-research/bert's BERT-Base uncased (Devlin et al. 2018; Hugging Face bert-base-uncased config.json)
+BERT_BASE = dict(
+    vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+    max_position_embeddings=512, type_vocab_size=2,
+)
+
+
+def bert_example():
+    """examples/torch_nlp_example.py of this checkout, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_nlp_example.py"
+    spec = importlib.util.spec_from_file_location("torch_nlp_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bert_accelerator(torch, mixed_precision, cpu=False):
+    """A fresh Accelerator; bf16 takes bench.py's policy, the softmax in bf16."""
+    from accelerate_tpu_torch import Accelerator, MixedPrecisionPolicy
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    handlers = [MixedPrecisionPolicy(softmax_dtype="bfloat16")] if mixed_precision == "bf16" else None
+    return Accelerator(mixed_precision=mixed_precision, kwargs_handlers=handlers, cpu=cpu)
+
+
+def bert_step_flops(module, tokens: int) -> float:
+    """bench.py's _bert_step_flops: 6 x non-embedding params x tokens."""
+    return 6.0 * sum(p.numel() for name, p in module.named_parameters() if "embed" not in name) * tokens
+
+
+def phase_bert_finetune(torch):
+    """examples/torch_nlp_example.py's loop on the card: BERT-base at full
+    width and depth (seeded random weights), f32 masters and bf16 compute
+    with the softmax in bf16, AdamW(2e-5, weight decay 0.01) decaying
+    linearly, SyntheticMRPC(n=3668) at seq 128 through prepare_data_loader
+    (batch 32, shuffled, seed 42): one epoch of 115 steps, the last batch
+    20 real rows wrapped round to 32. Then the example's eval pass, whose
+    gather_for_metrics must give back exactly 3668 predictions. The host
+    time the loader takes to hand over each batch is read around each
+    ``next``; three more steps on the epoch's last batches run under
+    torch.profiler (``traced``) for the device's idle share."""
+    from accelerate_tpu_torch import BertConfig, bert_classification_loss, create_bert_model, prepare_data_loader
+
+    example = bert_example()
+    seq, batch_size, n = 128, 32, 3668
+    free_memory(torch)  # earlier phases' models sit in reference cycles: out of this phase's peak
+    acc = bert_accelerator(torch, "bf16")
+    cfg = BertConfig.base()
+    dataset = example.SyntheticMRPC(n=n, seq_len=seq, vocab_size=cfg.vocab_size)
+    model = create_bert_model(cfg, seq_len=seq)
+    optimizer = torch.optim.AdamW(model.module.parameters(), lr=2e-5, weight_decay=0.01)
+    total_steps = len(dataset) // batch_size
+    schedule = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda s: max(0.0, 1.0 - s / total_steps))
+    loader = prepare_data_loader(dataset, batch_size=batch_size, shuffle=True, seed=42)
+    model, optimizer, loader, schedule = acc.prepare(model, optimizer, loader, schedule)
+    step = acc.build_train_step(lambda p, b: bert_classification_loss(p, b, model.apply_fn))
+    eval_step = acc.build_eval_step(lambda p, ids, mask: model.apply_fn(p, ids, mask))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    losses, fetch_ms, on_card, ends, last_batches = [], [], True, [], []
+    t0 = time.perf_counter()
+    it = iter(loader)
+    while True:
+        f0 = time.perf_counter()
+        batch = next(it, None)
+        fetch_ms.append((time.perf_counter() - f0) * 1e3)
+        if batch is None:
+            break
+        on_card &= all(t.is_cuda for t in batch.values())
+        ends.append(acc.gradient_state.end_of_dataloader)
+        losses.append(step(batch))
+        last_batches = (last_batches + [batch])[-3:]
+    losses = [float(x) for x in losses]  # waits for the card
+    train_s = time.perf_counter() - t0
+    n_steps = len(losses)
+    t0 = time.perf_counter()
+    correct, total = example.evaluate(acc, eval_step, loader)
+    eval_s = time.perf_counter() - t0
+    events, wall_ms, attempts, lost = traced(torch, lambda: [step(batch) for batch in last_batches])
+    busy, _ = device_time(events)
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(all(np.isfinite(losses)), f"bert_finetune losses finite: {losses}")
+    check(last < first, f"bert_finetune: mean of the last ten losses {last} < the first ten's {first}")
+    check(n_steps == 115 and ends == [False] * 114 + [True],
+          f"end_of_dataloader on the last of {n_steps} batches only")
+    check(total == n, f"gather_for_metrics gave {total} predictions for {n} rows")
+    check(on_card, "every batch arrived as CUDA tensors")
+    row = {
+        "phase": "bert_finetune", "config": "bert-base-uncased shape, seeded random weights, f32 masters + bf16 "
+        "compute, bf16 softmax", "params": model.num_parameters(), "batch": batch_size, "seq": seq, "rows": n,
+        "steps": n_steps, "samples_per_s": n_steps * batch_size / train_s, "train_s": train_s, "eval_s": eval_s,
+        "accuracy": correct / total, "predictions": total, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # the first fetch fills the window (three batches); the last finds the loader done
+        "loader_host_ms_per_batch": statistics.mean(fetch_ms[1:-1]), "loader_host_ms_first": fetch_ms[0],
+        "loss_first10": first, "loss_last10": last, "losses": losses[:3] + losses[-3:],
+        "traced_steps": 3, "traced_wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms if busy else None, "trace_attempts": attempts, "trace_lead_lost": lost,
+    }
+    emit(row)
+    del acc, model, optimizer, loader, step, eval_step, last_batches
+    free_memory(torch)
+    return row
+
+
+def phase_bert_bench(torch):
+    """bench.py::run_bench's configuration on the port: BERT-base, batch 256
+    x seq 128, f32 masters and bf16 compute with the softmax in bf16,
+    AdamW(2e-5, weight decay 0.01), one fixed batch from
+    np.random.default_rng(0); 2 + 3 warm-up steps, then 20 steps, each
+    fenced by a synchronize (as bench.py's StepTelemetry fences each
+    call). Three more steps run under torch.profiler (``traced``) for the
+    device's busy time and idle share, and where the device time goes."""
+    from accelerate_tpu_torch import BertConfig, bert_classification_loss, create_bert_model, send_to_device
+
+    b, seq, warmup, timed = 256, 128, 5, 20
+    free_memory(torch)
+    acc = bert_accelerator(torch, "bf16")
+    model = acc.prepare_model(create_bert_model(BertConfig.base(), seq_len=seq))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=2e-5, weight_decay=0.01))
+    step = acc.build_train_step(lambda p, bt: bert_classification_loss(p, bt, model.apply_fn))
+    rng = np.random.default_rng(0)
+    batch = send_to_device({
+        "input_ids": rng.integers(5, 30000, size=(b, seq)).astype(np.int32),
+        "attention_mask": np.ones((b, seq), np.bool_),
+        "labels": rng.integers(0, 2, size=(b,)).astype(np.int32),
+    }, acc.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"bert_bench losses finite: {losses}")
+    step_ms = sorted(times[warmup:])
+    med = statistics.median(step_ms)
+    flops = bert_step_flops(model.module, b * seq)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events, wall_ms, attempts, lost = traced(torch, lambda: [step(batch) for _ in range(3)])
+    busy, by_name = device_time(events)
+
+    def share(pred):
+        return sum(ms for name, (ms, _) in by_name.items() if pred(name.lower()))
+
+    gemm = share(lambda nm: any(t in nm for t in ("gemm", "nvjet", "xmma", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    row = {
+        "phase": "bert_bench", "config": "bench.py run_bench on the port: bert-base-uncased shape, seeded random "
+        "weights, f32 masters + bf16 compute, bf16 softmax", "params": model.num_parameters(), "batch": b, "seq": seq,
+        "warmup_steps": warmup, "timed_steps": timed, "samples_per_s": b * timed / (sum(step_ms) / 1e3),
+        "step_ms_median": med, "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1],
+        "step_flops": flops, "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak_gb,
+        "traced_steps": 3, "traced_wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms if busy else None, "gemm_ms": gemm,
+        "gemm_share": gemm / busy if busy else None, "kernels_traced": sum(n for _, n in by_name.values()),
+        "trace_attempts": attempts, "trace_lead_lost": lost, "losses": losses,
+        "top": [[name[:200], ms, n] for name, (ms, n) in top],
+    }
+    emit(row)
+    del acc, model, step, batch
+    free_memory(torch)
+    return row
+
+
+def phase_bert_consistency(torch):
+    """Two layers at BERT-base width, f32, three steps through the loader on
+    the card and the same three on the CPU from the same weights: losses
+    within 1e-4 relative, every final parameter within 1e-4 of its CPU
+    value relative to the larger of the tensor's RMS and 1e-3 (the key
+    biases start at zero and stay near it: their gradient is zero in exact
+    arithmetic, a bias on every key adding the same logit across a row).
+    The padding mask has zero columns
+    (keys 100-127 of every row) and one fully masked row, so the masked
+    fill runs on the card. SGD, so a parameter moves with its gradient:
+    Adam's first steps move every element by about lr whatever its
+    gradient's size, so a gradient at rounding level could step either
+    way on either device."""
+    from accelerate_tpu_torch import BertConfig, bert_classification_loss, create_bert_model, prepare_data_loader
+
+    cfg = BertConfig(**{**BERT_BASE, "num_hidden_layers": 2})
+    rng = np.random.default_rng(7)
+    n, seq = 24, 128
+    ids = rng.integers(5, cfg.vocab_size, size=(n, seq)).astype(np.int32)
+    mask = np.ones((n, seq), np.bool_)
+    mask[:, 100:] = False
+    mask[5] = False
+    labels = rng.integers(0, 2, size=(n,)).astype(np.int32)
+    rows = [{"input_ids": ids[i], "attention_mask": mask[i], "labels": labels[i]} for i in range(n)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        acc = bert_accelerator(torch, "no", cpu=device == "cpu")
+        model = create_bert_model(cfg, seed=3, device="cpu")  # one generator, one set of weights; prepare moves them
+        opt = torch.optim.SGD(model.module.parameters(), lr=1e-2)
+        loader = prepare_data_loader(rows, batch_size=8, shuffle=True, seed=1)
+        model, opt, loader = acc.prepare(model, opt, loader)
+        step = acc.build_train_step(lambda p, b: bert_classification_loss(p, b, model.apply_fn))
+        losses = [float(step(b)) for b in loader]
+        runs[device] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+        del acc, model, opt, loader, step
+    (gpu_losses, gpu_params), (cpu_losses, cpu_params) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+    param_err = max(float((gpu_params[k] - v).abs().max() / v.pow(2).mean().sqrt().clamp_min(1e-3))
+                    for k, v in cpu_params.items())
+    check(len(gpu_losses) == 3 and all(np.isfinite(gpu_losses)), f"bert_consistency: three finite losses {gpu_losses}")
+    check(loss_err <= 1e-4, f"bert_consistency: card vs CPU loss rel err {loss_err} <= 1e-4")
+    check(param_err <= 1e-4, f"bert_consistency: card vs CPU final params err / RMS {param_err} <= 1e-4")
+    row = {"phase": "bert_consistency", "config": "bert-base widths, 2 layers, f32, batch 8 x 128, 3 SGD steps",
+           "losses_cuda": gpu_losses, "losses_cpu": cpu_losses, "loss_rel_err": loss_err,
+           "param_err_over_rms": param_err}
+    emit(row)
+    free_memory(torch)
+    return row
 
 
 def dtype_name(dtype) -> str:
@@ -1694,7 +1930,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train` runs some groups of phases
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert` runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
@@ -1741,6 +1977,10 @@ def main() -> int:
         phase_train_consistency(torch, "no")
         phase_train_consistency(torch, "bf16")
         phase_flash_crossover(torch)
+    if not only or "bert" in only:
+        phase_bert_finetune(torch)
+        phase_bert_bench(torch)
+        phase_bert_consistency(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0

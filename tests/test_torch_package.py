@@ -59,14 +59,15 @@ def test_importing_every_module_loads_no_jax():
                  "utils.quantization", "ops.qmatmul", "ops.qdense", "kernels.contracts", "kernels.reference",
                  "kernels.launch", "kernels.fixtures", "analysis", "analysis.rules", "analysis.report",
                  "analysis.costmodel", "analysis.perfmodel", "analysis.kernelmodel", "analysis.kernel_rules",
-                 "analysis.selfcheck", "analysis.changed", "commands.kernelcheck"):
+                 "analysis.selfcheck", "analysis.changed", "commands.kernelcheck", "data_loader",
+                 "utils.operations", "models.bert", "models.convert"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
 def test_no_source_imports_jax():
-    """Neither the package nor the script that drives it on the card
-    (chip_smoke.py) imports jax or the JAX package."""
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
+    """Neither the package, nor the script that drives it on the card
+    (chip_smoke.py), nor its example imports jax or the JAX package."""
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "examples" / "torch_nlp_example.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -91,6 +92,34 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         ServingEngine(qmodel, paged_block_size=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_llama_model(LlamaConfig.tiny(quant_method="int4", quant_group_size=32))
+
+
+def test_data_path_and_example_refuse_to_run_without_cuda(monkeypatch):
+    """Without a card, neither ``Accelerator().prepare(loader)``, nor a loader
+    made outside an Accelerator, nor the BERT example runs unless the CPU is
+    asked for; asked, they run there."""
+    import importlib.util
+
+    from accelerate_tpu_torch import prepare_data_loader
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    rows = [{"x": torch.full((2,), float(i))} for i in range(5)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Accelerator().prepare(rows)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_data_loader(rows, batch_size=2)
+    spec = importlib.util.spec_from_file_location("torch_nlp_example", REPO / "examples" / "torch_nlp_example.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--tiny"])
+    loader = Accelerator(cpu=True).prepare(rows)
+    assert [b["x"].device.type for b in loader] == ["cpu"] * 5
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
 
 
 def test_quantized_model_cannot_be_prepared_for_training():
