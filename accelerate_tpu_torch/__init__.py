@@ -26,14 +26,21 @@ package imports nothing of it (nor of jax). Its slices so far:
   on ``meta`` tensors and check every CUDA launch its kernel wrappers
   would make with the TPU1001-1006 rules, re-derived for Hopper
   (:mod:`.analysis`); its seeded-defect fixtures run as hand-written
-  kernels too (``csrc/kernel_fixtures.cu``).
+  kernels too (``csrc/kernel_fixtures.cu``);
+* checkpointing and fault tolerance: ``Accelerator.save_state`` /
+  ``load_state`` (:mod:`.checkpointing`) with an atomic commit, integrity
+  manifests, auto-resume past corrupt checkpoints, async saves and a
+  preemption handler (:mod:`.ft`, ``FaultToleranceKwargs``), resuming a
+  run bit for bit; ``save_model`` / ``load_model`` export safetensors.
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .checkpointing import load_model, save_model
 from .data_loader import prepare_data_loader, skip_first_batches
+from .ft import CheckpointManager
 from .generation import generate, per_token_latency
 from .models import (
     BertConfig,
@@ -49,7 +56,9 @@ from .ops.qdense import QuantDense
 from .serving import ServingEngine
 from .utils import (
     DataLoaderConfiguration,
+    FaultToleranceKwargs,
     MixedPrecisionPolicy,
+    ProjectConfiguration,
     broadcast,
     broadcast_object_list,
     concatenate,
@@ -69,9 +78,12 @@ from .utils.random import set_seed
 __all__ = [
     "Accelerator",
     "BertConfig",
+    "CheckpointManager",
     "DataLoaderConfiguration",
+    "FaultToleranceKwargs",
     "LlamaConfig",
     "MixedPrecisionPolicy",
+    "ProjectConfiguration",
     "QuantDense",
     "QuantizationConfig",
     "ServingEngine",
@@ -91,10 +103,12 @@ __all__ = [
     "generate",
     "llama_params_from_jax",
     "load_and_quantize_model",
+    "load_model",
     "pad_across_processes",
     "per_token_latency",
     "prepare_data_loader",
     "reduce",
+    "save_model",
     "send_to_device",
     "set_seed",
     "skip_first_batches",

@@ -14,6 +14,8 @@ line for line::
         loss = step(batch)
     eval_step = accelerator.build_eval_step(lambda p, ids, mask: model.apply_fn(p, ids, mask))
     preds = accelerator.gather_for_metrics(eval_step(ids, mask).argmax(-1))
+    accelerator.save_state()   # with ProjectConfiguration(automatic_checkpoint_naming=True)
+    accelerator.load_state()   # in a new process: the newest checkpoint that verifies
 
 The model's parameters are the f32 master copy. Each step casts them to
 the compute dtype (names matching ``AutocastKwargs.keep_fp32_patterns``
@@ -28,6 +30,12 @@ Data goes through :func:`~.data_loader.prepare_data_loader` (batches on
 ``accelerator.device``); ``gather_for_metrics`` drops the rows a padded
 last batch repeated. With one process the collectives return their input.
 
+``save_state`` / ``load_state`` (:mod:`.checkpointing`) save and restore
+the prepared models, optimizers, schedulers and loaders, the registered
+custom objects, the step, the fp16 loss scale and the RNGs through an
+atomic commit; ``FaultToleranceKwargs`` installs a SIGTERM/SIGINT handler
+read through ``should_checkpoint`` / ``should_stop``.
+
 Not ported (each raises ``NotImplementedError``): mutable model state
 (``has_state``), multi-card layouts and multi-process data, ZeRO,
 gradient compression, optimizer offload, the program cache, trackers
@@ -39,12 +47,14 @@ from __future__ import annotations
 
 import inspect
 import logging
+import os
 from typing import Callable, Optional
 
 import torch
 
 from .data_loader import BaseDataLoader, prepare_data_loader
 from .data_loader import skip_first_batches as _skip_first_batches
+from .ft.preemption import PreemptionHandler
 from .modeling import Model
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
@@ -52,10 +62,12 @@ from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
+    FaultToleranceKwargs,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     MixedPrecisionPolicy,
     ParallelismPlugin,
+    ProjectConfiguration,
 )
 from .utils.operations import (
     _leaves,
@@ -81,6 +93,8 @@ class Accelerator:
         cpu: bool = False,
         dataloader_config: Optional[DataLoaderConfiguration] = None,
         log_with=None,
+        project_dir: Optional[str] = None,
+        project_config: Optional[ProjectConfiguration] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         parallelism_plugin: Optional[ParallelismPlugin] = None,
         kwargs_handlers: Optional[list] = None,
@@ -93,12 +107,17 @@ class Accelerator:
             )
         self.autocast_handler = AutocastKwargs()
         self.scaler_handler = GradScalerKwargs()
+        self.ft_handler = FaultToleranceKwargs()
+        ft_explicit = False  # the preemption handler installs only when the handler was passed
         policy_override = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, AutocastKwargs):
                 self.autocast_handler = handler
             elif isinstance(handler, GradScalerKwargs):
                 self.scaler_handler = handler
+            elif isinstance(handler, FaultToleranceKwargs):
+                self.ft_handler = handler
+                ft_explicit = True
             elif isinstance(handler, MixedPrecisionPolicy):
                 policy_override = handler
             else:
@@ -109,6 +128,10 @@ class Accelerator:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
         elif gradient_accumulation_steps != 1:
             raise ValueError("Pass either gradient_accumulation_steps or a GradientAccumulationPlugin, not both")
+
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
 
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_plugin=parallelism_plugin, _from_accelerator=True
@@ -134,6 +157,9 @@ class Accelerator:
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list[BaseDataLoader] = []
+        self._custom_objects: list = []
+        self._save_model_hooks: list = []
+        self._load_model_hooks: list = []
         self.step = 0
         self._clip_max_norm: Optional[float] = None
         self._last_grad_norm = None
@@ -141,6 +167,15 @@ class Accelerator:
         # gradient's finiteness on every sync boundary anyway
         self._loss_scale = self.scaler_handler.init_scale if self.mixed_precision == "fp16" else 1.0
         self._scale_growth_tracker = 0
+
+        # fault tolerance: the checkpoint this run resumed from (protected
+        # from pruning), the one-final-checkpoint latch, the signal handler
+        self._resumed_from: Optional[str] = None
+        self._preempt_checkpointed = False
+        self._preemption: Optional[PreemptionHandler] = None
+        if ft_explicit and self.ft_handler.handle_preemption:
+            self._preemption = PreemptionHandler(signals=self.ft_handler.preemption_signals)
+            self._preemption.install()
 
     # ------------------------------------------------------------------ #
     # state passthroughs
@@ -179,6 +214,10 @@ class Accelerator:
         return self.state.partial_state.is_local_main_process
 
     @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    @property
     def num_data_shards(self) -> int:
         """Shards of the batch dimension: one card, one shard."""
         return 1
@@ -211,7 +250,9 @@ class Accelerator:
         the argument order; returns them in the order given."""
         staged = {}
         for i, obj in enumerate(args):
-            if getattr(obj, "_is_accelerate_prepared", False):
+            if isinstance(obj, BaseDataLoader):  # made by prepare_data_loader: register it for checkpointing
+                staged[i] = self.prepare_data_loader(obj)
+            elif getattr(obj, "_is_accelerate_prepared", False):
                 staged[i] = obj
             elif isinstance(obj, Model):
                 staged[i] = self.prepare_model(obj)
@@ -480,6 +521,112 @@ class Accelerator:
         return report
 
     # ------------------------------------------------------------------ #
+    # checkpointing and preemption
+    # ------------------------------------------------------------------ #
+
+    def register_for_checkpointing(self, *objects):
+        """Save and restore ``objects`` (each with ``state_dict`` and
+        ``load_state_dict``) with every checkpoint."""
+        invalid = [o for o in objects if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(f"Objects must expose state_dict/load_state_dict: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook):
+        """``hook(models, weights, output_dir)`` runs before each save writes."""
+        self._save_model_hooks.append(hook)
+        return _RemovableHandle(self._save_model_hooks, hook)
+
+    def register_load_state_pre_hook(self, hook):
+        """``hook(models, input_dir)`` runs before each load restores."""
+        self._load_model_hooks.append(hook)
+        return _RemovableHandle(self._load_model_hooks, hook)
+
+    def save_state(self, output_dir: Optional[str] = None, **save_model_func_kwargs):
+        """Atomic checkpoint save (tmp-dir write -> manifest -> rename; see
+        :mod:`.checkpointing`). ``async_save=True`` returns once the tensors
+        are copied to the host; the file writes continue in the background
+        and commit when drained (:meth:`wait_for_checkpoint`, the next save
+        or load). Under preemption the async request is demoted to a
+        synchronous save: the grace window is for committing, not for
+        queueing."""
+        from .checkpointing import save_accelerator_state
+
+        if self.preempted:
+            save_model_func_kwargs.pop("async_save", None)
+        out = save_accelerator_state(self, output_dir, **save_model_func_kwargs)
+        if self.preempted:
+            self._preempt_checkpointed = True
+        return out
+
+    def wait_for_checkpoint(self):
+        """Block until pending ``save_state(async_save=True)`` writes commit;
+        raises the first failure of one."""
+        from .checkpointing import wait_for_checkpoint
+
+        wait_for_checkpoint()
+
+    def load_state(self, input_dir: Optional[str] = None, **load_model_func_kwargs):
+        """Restore a checkpoint into the prepared objects, in place. With
+        ``input_dir=None``, **auto-resume**: the newest checkpoint under
+        ``{project_dir}/checkpoints`` whose integrity manifest verifies
+        (walking back past corrupt or uncommitted ones), and the
+        ``checkpoint_N`` numbering continues from there."""
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, **load_model_func_kwargs)
+
+    @property
+    def checkpoint_manager(self):
+        """A :class:`~.ft.CheckpointManager` over this project's
+        automatic-naming checkpoint directory (``None`` without a
+        ``project_dir``)."""
+        if self.project_dir is None:
+            return None
+        from .ft.manager import CheckpointManager
+
+        return CheckpointManager(os.path.join(self.project_dir, self.project_configuration.checkpoints_dir_name))
+
+    @property
+    def preemption_handler(self) -> Optional[PreemptionHandler]:
+        """The installed :class:`~.ft.PreemptionHandler`, or ``None`` (pass
+        ``FaultToleranceKwargs()`` to install one)."""
+        return self._preemption
+
+    @property
+    def preempted(self) -> bool:
+        """True once SIGTERM/SIGINT was received (always False without a
+        preemption handler)."""
+        return self._preemption is not None and self._preemption.preempted
+
+    @property
+    def should_checkpoint(self) -> bool:
+        """True when a preemption signal arrived and the final synchronous
+        checkpoint has not been taken yet; check after each step::
+
+            if accelerator.should_checkpoint:
+                accelerator.save_state()   # drains async saves, saves sync
+            if accelerator.should_stop:
+                break
+
+        One process: the local flag is the job's (the JAX package agrees
+        it across processes; multi-process training is ROADMAP.md Queue 1
+        item 8)."""
+        return self.preempted and not self._preempt_checkpointed
+
+    @property
+    def should_stop(self) -> bool:
+        """True once preemption was signalled: exit the training loop at the
+        next step boundary (after the :attr:`should_checkpoint` save)."""
+        return self.preempted
+
+    def save_model(self, model, save_directory: str, max_shard_size="10GB", safe_serialization: bool = True):
+        """Export ``model``'s weights as safetensors (:func:`.checkpointing.save_model`)."""
+        from .checkpointing import save_model as _save_model
+
+        return _save_model(model, save_directory, max_shard_size=max_shard_size, safe_serialization=safe_serialization)
+
+    # ------------------------------------------------------------------ #
     # metrics and collectives
     # ------------------------------------------------------------------ #
 
@@ -510,6 +657,18 @@ class Accelerator:
 
     def __repr__(self) -> str:
         return f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r})"
+
+
+class _RemovableHandle:
+    """What the register-hook methods return: ``remove()`` unregisters."""
+
+    def __init__(self, hooks_list: list, hook):
+        self.hooks_list = hooks_list
+        self.hook = hook
+
+    def remove(self):
+        if self.hook in self.hooks_list:
+            self.hooks_list.remove(self.hook)
 
 
 def _rng_mode(loss_fn: Callable) -> str:

@@ -2,7 +2,8 @@
 
 A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy,
 the autocast and grad-scaler handlers, gradient accumulation, the data
-loader configuration, the RNG types, and a ``ParallelismPlugin`` that
+loader configuration, the RNG types, the project (checkpoint directory)
+configuration, the fault-tolerance handler, and a ``ParallelismPlugin`` that
 takes the one-device layout only. The other
 layouts (data, fsdp, tensor, seq, pipe, expert axes), ZeRO, gradient
 compression and optimizer offload raise ``NotImplementedError``: they are
@@ -127,6 +128,69 @@ class DataLoaderConfiguration(KwargsHandler):
                 "DataLoaderConfiguration(auto_bucketing=True): aot/bucketing.py is not ported to "
                 "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
             )
+
+
+@dataclass
+class ProjectConfiguration(KwargsHandler):
+    """Checkpoint/log directory layout, as the JAX package's: with
+    ``automatic_checkpoint_naming`` saves go to
+    ``{project_dir}/{checkpoints_dir_name}/checkpoint_{iteration}`` and
+    ``total_limit`` keeps the newest ones. ``compile_cache_dir_name`` is
+    kept for the compile cache (ROADMAP.md Queue 1 item 9); nothing of the
+    port reads it yet."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+    checkpoints_dir_name: str = "checkpoints"
+    compile_cache_dir_name: str = "compile_cache"
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+
+@dataclass
+class FaultToleranceKwargs(KwargsHandler):
+    """Fault-tolerance knobs, as the JAX package's. Passing this handler to
+    ``Accelerator(kwargs_handlers=[...])`` installs the SIGTERM/SIGINT
+    preemption handler (``handle_preemption``). The atomic commit protocol
+    is always on; the other knobs tune its IO retries, its GC and its
+    resume check. ``agree_preemption`` and ``tracker_retries`` are kept
+    for multi-process training and trackers (ROADMAP.md Queue 1 items 8
+    and 9): one process has no other rank to agree with and the port has
+    no tracker yet."""
+
+    #: install a PreemptionHandler so SIGTERM/SIGINT surface as
+    #: ``Accelerator.should_checkpoint`` / ``should_stop``
+    handle_preemption: bool = True
+    preemption_signals: tuple = ("SIGTERM", "SIGINT")
+    agree_preemption: bool = True
+    #: jittered-exponential-backoff attempts for checkpoint filesystem IO
+    io_retries: int = 3
+    retry_base_delay: float = 0.1
+    retry_max_delay: float = 5.0
+    tracker_retries: int = 3
+    #: sweep stale ``checkpoint_*.tmp`` leftovers at the start of each
+    #: automatic-naming save (recovering any fully committed one)
+    gc_tmp_on_save: bool = True
+    #: deep-verify manifests (sizes + crc32) during auto-resume discovery;
+    #: False trusts manifest presence alone (faster on huge checkpoints)
+    verify_on_resume: bool = True
+
+    def __post_init__(self):
+        if self.io_retries < 1 or self.tracker_retries < 1:
+            raise ValueError("io_retries / tracker_retries must be >= 1")
+        if self.retry_base_delay < 0 or self.retry_max_delay < self.retry_base_delay:
+            raise ValueError("need 0 <= retry_base_delay <= retry_max_delay")
 
 
 class RNGType(str, enum.Enum):

@@ -37,6 +37,22 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
         torch.use_deterministic_algorithms(True)
 
 
+def get_seed() -> Optional[int]:
+    """The seed :func:`set_seed` recorded (``None`` before any)."""
+    return _GLOBAL_SEED
+
+
+def restore_seed_for_keys(seed: Optional[int]) -> None:
+    """Restore the recorded seed WITHOUT reseeding python, numpy or torch.
+    Checkpoint load uses this: their states come back bit-exactly from the
+    RNG file, so a ``set_seed`` here would clobber their positions back to
+    the start of the stream. :func:`generator_for_step` reads the seed, so
+    with ``step`` restored every per-step stream is restored too."""
+    global _GLOBAL_SEED
+    if seed is not None:
+        _GLOBAL_SEED = seed
+
+
 def generator_for_step(step: int, device=None) -> torch.Generator:
     """A generator on ``device`` seeded from the global seed (0 when none was
     set) and ``step``: the same seed and step give the same stream."""

@@ -49,7 +49,16 @@ it, all three equal. Then the slices:
   ``bench.py::run_bench``'s configuration (batch 256 x 128) timed, with
   its MFU, peak memory and the device's idle share; a 2-layer f32 run on
   the card held to the same run on the CPU. No kernel runs there: BERT's
-  padded attention is the einsum path, as in the JAX package.
+  padded attention is the einsum path, as in the JAX package;
+* checkpointing: the same BERT-base fine-tune and the Llama train step
+  (TinyLlama widths, 4 layers: K1-K3) saved mid-run with ``save_state``
+  (synchronous, and async while training goes on), resumed in a fresh
+  Accelerator with ``load_state()``: every restored tensor bit-equal to
+  the saved one and on the card, the resumed batches the unbroken run's,
+  the resumed steps launching K1-K3 as the unbroken ones do, and the
+  resumed run bit-equal to the unbroken one where a repeat from the same
+  checkpoint is (else within twice the repeat's spread); save, async and
+  load seconds and bytes.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -59,11 +68,15 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -757,13 +770,16 @@ def token_batches(torch, n, b, s, vocab, seed):
     return torch.as_tensor(ids, device="cuda")
 
 
-def build_trainer(torch, cfg, mixed_precision, seed=0, lr=3e-4):
-    from accelerate_tpu_torch import Accelerator, causal_lm_loss, create_llama_model
+def build_trainer(torch, cfg, mixed_precision, seed=0, lr=3e-4, project_dir=None):
+    """A fresh Accelerator (checkpointing into ``project_dir`` with automatic
+    naming, when given), a Llama from ``seed``, AdamW and the train step."""
+    from accelerate_tpu_torch import Accelerator, ProjectConfiguration, causal_lm_loss, create_llama_model
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
-    acc = Accelerator(mixed_precision=mixed_precision)
+    project = ProjectConfiguration(project_dir=project_dir, automatic_checkpoint_naming=True) if project_dir else None
+    acc = Accelerator(mixed_precision=mixed_precision, project_config=project)
     model = acc.prepare_model(create_llama_model(cfg, seed=seed, dtype=torch.float32))
     acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=lr, weight_decay=0.01))
     step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
@@ -994,15 +1010,17 @@ def bert_example():
     return module
 
 
-def bert_accelerator(torch, mixed_precision, cpu=False):
-    """A fresh Accelerator; bf16 takes bench.py's policy, the softmax in bf16."""
-    from accelerate_tpu_torch import Accelerator, MixedPrecisionPolicy
+def bert_accelerator(torch, mixed_precision, cpu=False, project_dir=None):
+    """A fresh Accelerator; bf16 takes bench.py's policy, the softmax in bf16;
+    with ``project_dir`` it checkpoints there with automatic naming."""
+    from accelerate_tpu_torch import Accelerator, MixedPrecisionPolicy, ProjectConfiguration
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
     handlers = [MixedPrecisionPolicy(softmax_dtype="bfloat16")] if mixed_precision == "bf16" else None
-    return Accelerator(mixed_precision=mixed_precision, kwargs_handlers=handlers, cpu=cpu)
+    project = ProjectConfiguration(project_dir=project_dir, automatic_checkpoint_naming=True) if project_dir else None
+    return Accelerator(mixed_precision=mixed_precision, kwargs_handlers=handlers, cpu=cpu, project_config=project)
 
 
 def bert_step_flops(module, tokens: int) -> float:
@@ -1194,6 +1212,286 @@ def phase_bert_consistency(torch):
            "param_err_over_rms": param_err}
     emit(row)
     free_memory(torch)
+    return row
+
+
+def ckpt_workdir() -> Path:
+    """A fresh directory for one phase's checkpoints, in the checkout's
+    git-ignored ``build/``; the phase removes it."""
+    base = Path(__file__).resolve().parent / "build"
+    base.mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=base))
+
+
+def host_state(torch, model, opt) -> dict:
+    """``{name: (CPU copy, device type)}`` of every parameter and every
+    optimizer state tensor (``opt/<param index>/<key>``)."""
+    tensors = {f"param/{k}": v for k, v in model.state_dict().items()}
+    for i, state in opt.optimizer.state_dict()["state"].items():
+        tensors.update({f"opt/{i}/{k}": v for k, v in state.items() if torch.is_tensor(v)})
+    return {k: (v.detach().to("cpu", copy=True), v.device.type) for k, v in tensors.items()}
+
+
+def check_restored(torch, saved: dict, model, opt, what: str) -> dict:
+    """Every restored tensor bit-equal to its copy taken at the save, on the
+    device it was on then, and on the card but for AdamW's ``step`` counts
+    (torch keeps those on the CPU unless the optimizer is capturable or
+    fused, in the unbroken run as after a load)."""
+    got = host_state(torch, model, opt)
+    check(got.keys() == saved.keys(), f"{what}: restored tensor names == saved ({len(got)} vs {len(saved)})")
+    unequal = [k for k in saved if not torch.equal(got[k][0], saved[k][0])]
+    moved = [k for k in saved if got[k][1] != saved[k][1]]
+    off_card = [k for k in saved if got[k][1] != "cuda" and not k.endswith("/step")]
+    check(not unequal, f"{what}: restored tensors bit-equal to the saved ones ({unequal[:3]} differ)")
+    check(not moved and not off_card, f"{what}: restored tensors on their devices, on cuda ({moved[:3]}, {off_card[:3]})")
+    return {"tensors": len(got), "on_cuda": sum(d == "cuda" for _, d in got.values()),
+            "adamw_step_counts_on": sorted({d for k, (_, d) in got.items() if k.endswith("/step")})}
+
+
+def params_cpu(model) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def run_continuation(torch, step, batches) -> tuple[list, list]:
+    """The losses of ``step`` over ``batches`` and a digest of each batch's
+    ``input_ids`` (what was trained on, in order)."""
+    losses, digests = [], []
+    for batch in batches:
+        digests.append(hashlib.sha256(batch["input_ids"].cpu().numpy().tobytes()).hexdigest()[:16])
+        losses.append(step(batch))
+    return [float(x) for x in losses], digests
+
+
+def continuation_verdict(a, b, b2, what: str) -> dict:
+    """Holds the resumed continuation ``b`` to the unbroken ``a`` (each
+    ``(losses, params)``) by the repeat ``b2``, a second load and run from the
+    same checkpoint: if ``b`` and ``b2`` are bit-equal, ``b`` must equal ``a``
+    bit for bit; otherwise ``a`` and ``b`` may differ by at most twice the
+    spread between ``b`` and ``b2``."""
+    def gap(x, y) -> float:
+        loss = max(abs(p - q) for p, q in zip(x[0], y[0], strict=True))
+        return max([loss] + [float((x[1][k] - y[1][k]).abs().max()) for k in x[1]])
+
+    def bit_equal(x, y) -> bool:
+        return x[0] == y[0] and x[1].keys() == y[1].keys() and all(x[1][k].equal(y[1][k]) for k in x[1])
+
+    repeat_equal, spread = bit_equal(b, b2), gap(b, b2)
+    resumed_equal, resumed_gap = bit_equal(a, b), gap(a, b)
+    if repeat_equal:
+        check(resumed_equal, f"{what}: the repeat is bit-equal, so the resumed run must be bit-equal to the "
+                             f"unbroken one (gap {resumed_gap})")
+    else:
+        check(resumed_gap <= 2 * spread, f"{what}: resumed vs unbroken {resumed_gap} <= 2 x repeat spread {spread}")
+    return {"repeat_bit_equal": repeat_equal, "repeat_spread": spread, "resumed_bit_equal": resumed_equal,
+            "resumed_gap": resumed_gap}
+
+
+def flagged_nondeterministic_ops(torch, run) -> list:
+    """What torch names as nondeterministic on the card while ``run`` (one
+    more step) runs under ``use_deterministic_algorithms(True, warn_only=True)``,
+    which warns for each such op instead of raising."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:200] for w in caught if "determinis" in str(w.message)})
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def resume_checks(torch, acc, model, opt, saved, want_dir, steps, what) -> tuple[dict, float]:
+    """Auto-resume in a fresh trainer: lands on ``want_dir``, every tensor
+    restored, the step restored, the manifest deep-verifies. Returns the
+    restore's checks and its seconds."""
+    from accelerate_tpu_torch.ft import verify_manifest
+
+    t0 = time.perf_counter()
+    src = acc.load_state()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(src == want_dir, f"{what}: auto-resume found {src}, the newest checkpoint is {want_dir}")
+    restored = check_restored(torch, saved, model, opt, what)
+    check(acc.step == steps, f"{what}: step {acc.step} restored == {steps}")
+    check(verify_manifest(src, deep=True) == [], f"{what}: the manifest deep-verifies")
+    return restored, load_s
+
+
+def phase_bert_resume(torch):
+    """bert_finetune's configuration (BERT-base at full width and depth,
+    bf16 compute with the softmax in bf16, batch 32 x 128,
+    SyntheticMRPC(n=3668), AdamW decaying linearly, checkpointing into a
+    temporary project directory with automatic naming): 40 steps into the
+    epoch, then a synchronous save (checkpoint_0) and an async one
+    (checkpoint_1) whose writes run while continuation A takes 20 more
+    steps, then its drain. A fresh Accelerator auto-resumes (checkpoint_1:
+    the async save, taken before A's steps updated the tensors in place)
+    and runs the same 20 steps (B), through the loader's restored
+    position; a second fresh load and run gives the repeat. Each restored
+    tensor must equal its copy from the save, bit for bit, and sit on the
+    card; B's batches must be A's; B is held to A by the repeat
+    (:func:`continuation_verdict`)."""
+    import itertools
+
+    from accelerate_tpu_torch import BertConfig, bert_classification_loss, create_bert_model, prepare_data_loader
+
+    example = bert_example()
+    seq, batch_size, n, before, after = 128, 32, 3668, 40, 20
+
+    def trainer(project_dir):
+        acc = bert_accelerator(torch, "bf16", project_dir=project_dir)
+        cfg = BertConfig.base()
+        dataset = example.SyntheticMRPC(n=n, seq_len=seq, vocab_size=cfg.vocab_size)
+        model = create_bert_model(cfg, seq_len=seq)
+        optimizer = torch.optim.AdamW(model.module.parameters(), lr=2e-5, weight_decay=0.01)
+        total_steps = len(dataset) // batch_size
+        schedule = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda s: max(0.0, 1.0 - s / total_steps))
+        loader = prepare_data_loader(dataset, batch_size=batch_size, shuffle=True, seed=42)
+        model, optimizer, loader, schedule = acc.prepare(model, optimizer, loader, schedule)
+        step = acc.build_train_step(lambda p, b: bert_classification_loss(p, b, model.apply_fn))
+        return acc, model, optimizer, loader, step
+
+    workdir = ckpt_workdir()
+    try:
+        free_memory(torch)
+        acc, model, opt, loader, step = trainer(str(workdir))
+        it = iter(loader)
+        for batch in itertools.islice(it, before):
+            step(batch)
+        torch.cuda.synchronize()
+        saved = host_state(torch, model, opt)
+        t0 = time.perf_counter()
+        sync_dir = acc.save_state()
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        async_dir = acc.save_state(async_save=True)
+        async_return_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a_losses, a_digests = run_continuation(torch, step, itertools.islice(it, after))
+        continuation_s = time.perf_counter() - t0
+        a = (a_losses, params_cpu(model))
+        t0 = time.perf_counter()
+        acc.wait_for_checkpoint()
+        async_drain_s = time.perf_counter() - t0
+        nbytes = dir_bytes(sync_dir)
+        check(dir_bytes(async_dir) == nbytes, f"bert_resume: the sync and async checkpoints hold {nbytes} bytes each")
+        del it, acc, model, opt, loader, step
+        free_memory(torch)
+
+        runs, loads, flagged = [], [], []
+        for repeat in range(2):
+            acc, model, opt, loader, step = trainer(str(workdir))
+            restored, load_s = resume_checks(torch, acc, model, opt, saved, async_dir, before, "bert_resume")
+            loads.append(load_s)
+            check(loader.state_dict()["batches_yielded"] == before, "bert_resume: the loader's position restored")
+            losses, digests = run_continuation(torch, step, itertools.islice(loader, after))
+            check(digests == a_digests, f"bert_resume: the resumed batches are the unbroken run's ({digests[:2]} "
+                                        f"vs {a_digests[:2]})")
+            runs.append((losses, params_cpu(model)))
+            if repeat:
+                flagged = flagged_nondeterministic_ops(torch, lambda: step(next(iter(loader))))
+            del acc, model, opt, loader, step
+            free_memory(torch)
+        verdict = continuation_verdict(a, runs[0], runs[1], "bert_resume")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    row = {
+        "phase": "bert_resume", "config": "bert-base-uncased shape, seeded random weights, f32 masters + bf16 compute, "
+        "bf16 softmax, batch 32 x 128, SyntheticMRPC(n=3668), AdamW", "steps_before_save": before,
+        "continuation_steps": after, "checkpoint_bytes": nbytes, "save_sync_s": sync_s,
+        "save_sync_gb_per_s": nbytes / sync_s / 1e9, "save_async_return_s": async_return_s,
+        "save_async_drain_s_after_continuation": async_drain_s, "continuation_a_s": continuation_s,
+        "load_s": loads, "load_gb_per_s": nbytes / min(loads) / 1e9, "restored": restored,
+        "batches_equal": True, "losses_a": a_losses, "losses_b": runs[0][0], "losses_repeat": runs[1][0],
+        **verdict, "flagged_nondeterministic_ops": flagged,
+    }
+    emit(row)
+    return row
+
+
+def phase_train_resume(torch):
+    """The Llama train step at TinyLlama's full width (hidden 2048,
+    intermediate 5632, 32/4 heads) cut to 4 layers (the f32 masters and
+    AdamW's two moments come to about 3.7 GB a checkpoint; 22 layers would
+    be about 13 GB), bf16 compute, remat, batch 8 x 2048: 3 steps, a
+    synchronous save and an async one, 2 more steps (A) while the async
+    writes run, the drain; then a fresh trainer auto-resumes and takes the
+    same 2 steps (B), and a second one the repeat. The resumed steps must
+    launch K1 2 x 4 x 2 times and K2 and K3 4 x 2 times each, as A does;
+    B is held to A by the repeat (:func:`continuation_verdict`)."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, before, after, layers = 8, 2048, 3, 2, 4
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": layers}, remat=True)
+    want_launches = {"fwd": 2 * layers * after, "dq": layers * after, "dkv": layers * after}
+
+    def continuation(step):
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        losses, _ = run_continuation(torch, step, ({"input_ids": batches[before + i]} for i in range(after)))
+        return losses, {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+
+    workdir = ckpt_workdir()
+    try:
+        free_memory(torch)
+        batches = token_batches(torch, before + after, b, s, cfg.vocab_size, seed=5)
+        acc, model, step = build_trainer(torch, cfg, "bf16", project_dir=str(workdir))
+        opt = acc._optimizers[-1]
+        pre_losses = [float(step({"input_ids": batches[i]})) for i in range(before)]
+        torch.cuda.synchronize()
+        saved = host_state(torch, model, opt)
+        t0 = time.perf_counter()
+        sync_dir = acc.save_state()
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        async_dir = acc.save_state(async_save=True)
+        async_return_s = time.perf_counter() - t0
+        a_losses, a_launches = continuation(step)
+        a = (a_losses, params_cpu(model))
+        t0 = time.perf_counter()
+        acc.wait_for_checkpoint()
+        async_drain_s = time.perf_counter() - t0
+        nbytes = dir_bytes(sync_dir)
+        check(dir_bytes(async_dir) == nbytes, f"train_resume: the sync and async checkpoints hold {nbytes} bytes each")
+        check(a_launches == want_launches, f"train_resume: unbroken flash launches {a_launches} == {want_launches}")
+        del acc, model, opt, step
+        free_memory(torch)
+
+        runs, loads, flagged = [], [], []
+        for repeat in range(2):
+            acc, model, step = build_trainer(torch, cfg, "bf16", project_dir=str(workdir))
+            opt = acc._optimizers[-1]
+            restored, load_s = resume_checks(torch, acc, model, opt, saved, async_dir, before, "train_resume")
+            loads.append(load_s)
+            losses, launches = continuation(step)
+            check(launches == want_launches, f"train_resume: resumed flash launches {launches} == K1 2 x {layers} x "
+                                             f"{after}, K2/K3 {layers} x {after}")
+            runs.append((losses, params_cpu(model)))
+            if repeat:
+                flagged = flagged_nondeterministic_ops(torch, lambda: step({"input_ids": batches[0]}))
+            del acc, model, opt, step
+            free_memory(torch)
+        verdict = continuation_verdict(a, runs[0], runs[1], "train_resume")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(all(np.isfinite(pre_losses + a_losses)), f"train_resume: finite losses {pre_losses + a_losses}")
+    row = {
+        "phase": "train_resume", "config": "TinyLlama-1.1B widths, f32 masters + bf16 compute, remat, batch 8 x 2048, "
+        "AdamW(3e-4, weight decay 0.01), seeded", "reduced": f"{layers} of 22 layers (checkpoint size)",
+        "params": sum(v.numel() for k, (v, _) in saved.items() if k.startswith("param/")),
+        "steps_before_save": before, "continuation_steps": after, "checkpoint_bytes": nbytes,
+        "save_sync_s": sync_s, "save_sync_gb_per_s": nbytes / sync_s / 1e9, "save_async_return_s": async_return_s,
+        "save_async_drain_s_after_continuation": async_drain_s, "load_s": loads,
+        "load_gb_per_s": nbytes / min(loads) / 1e9, "restored": restored, "launches_resumed": launches,
+        "losses_before_save": pre_losses, "losses_a": a_losses, "losses_b": runs[0][0], "losses_repeat": runs[1][0],
+        **verdict, "flagged_nondeterministic_ops": flagged,
+    }
+    emit(row)
     return row
 
 
@@ -1930,7 +2228,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert` runs some groups of phases
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt` runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
@@ -1981,6 +2279,9 @@ def main() -> int:
         phase_bert_finetune(torch)
         phase_bert_bench(torch)
         phase_bert_consistency(torch)
+    if not only or "ckpt" in only:
+        phase_bert_resume(torch)
+        phase_train_resume(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0

@@ -60,14 +60,17 @@ def test_importing_every_module_loads_no_jax():
                  "kernels.launch", "kernels.fixtures", "analysis", "analysis.rules", "analysis.report",
                  "analysis.costmodel", "analysis.perfmodel", "analysis.kernelmodel", "analysis.kernel_rules",
                  "analysis.selfcheck", "analysis.changed", "commands.kernelcheck", "data_loader",
-                 "utils.operations", "models.bert", "models.convert"):
+                 "utils.operations", "models.bert", "models.convert", "checkpointing", "ft", "ft.manifest",
+                 "ft.manager", "ft.topology", "ft.preemption", "ft.crashpoints", "utils.retry",
+                 "utils.safetensors_io", "test_utils.fault_injection"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
 def test_no_source_imports_jax():
     """Neither the package, nor the script that drives it on the card
     (chip_smoke.py), nor its example imports jax or the JAX package."""
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "examples" / "torch_nlp_example.py"]:
+    examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py")]
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -78,9 +81,17 @@ def test_no_source_imports_jax():
             assert not any(_forbidden(n) for n in names), f"{path}: imports {names}"
 
 
-def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
+def test_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
     model = create_llama_model(LlamaConfig.tiny(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Accelerator(project_dir=str(tmp_path))  # a checkpointing run is no exception
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_llama_model(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,11 +122,14 @@ def test_data_path_and_example_refuse_to_run_without_cuda(monkeypatch):
         Accelerator().prepare(rows)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_data_loader(rows, batch_size=2)
-    spec = importlib.util.spec_from_file_location("torch_nlp_example", REPO / "examples" / "torch_nlp_example.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        example.main(["--tiny"])
+    for name in ("torch_nlp_example", "torch_checkpointing"):
+        spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main(["--tiny"])
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
     loader = Accelerator(cpu=True).prepare(rows)
     assert [b["x"].device.type for b in loader] == ["cpu"] * 5
     for cls in (AcceleratorState, GradientState, PartialState):
