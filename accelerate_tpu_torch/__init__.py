@@ -31,7 +31,14 @@ package imports nothing of it (nor of jax). Its slices so far:
   ``load_state`` (:mod:`.checkpointing`) with an atomic commit, integrity
   manifests, auto-resume past corrupt checkpoints, async saves and a
   preemption handler (:mod:`.ft`, ``FaultToleranceKwargs``), resuming a
-  run bit for bit; ``save_model`` / ``load_model`` export safetensors.
+  run bit for bit; ``save_model`` / ``load_model`` export safetensors;
+* the imperative training loop (``with accelerator.accumulate(model):
+  accelerator.backward(loss_fn, batch); optimizer.step();
+  optimizer.zero_grad()``), bit-equal to ``build_train_step``, and mutable
+  model state (``build_train_step(has_state=True)``, ``Model.state``):
+  ResNet-50 v1.5 with BatchNorm running statistics, the CV example's
+  model, its convolutions cuDNN's (no kernel of the JAX package runs
+  there either).
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
@@ -45,19 +52,25 @@ from .generation import generate, per_token_latency
 from .models import (
     BertConfig,
     LlamaConfig,
+    ResNetConfig,
     bert_classification_loss,
     bert_params_from_jax,
     causal_lm_loss,
     create_bert_model,
     create_llama_model,
+    create_resnet_model,
     llama_params_from_jax,
+    resnet_classification_loss,
+    resnet_params_from_jax,
 )
 from .ops.qdense import QuantDense
 from .serving import ServingEngine
 from .utils import (
     DataLoaderConfiguration,
     FaultToleranceKwargs,
+    GradientAccumulationPlugin,
     MixedPrecisionPolicy,
+    ProfileKwargs,
     ProjectConfiguration,
     broadcast,
     broadcast_object_list,
@@ -81,11 +94,14 @@ __all__ = [
     "CheckpointManager",
     "DataLoaderConfiguration",
     "FaultToleranceKwargs",
+    "GradientAccumulationPlugin",
     "LlamaConfig",
     "MixedPrecisionPolicy",
+    "ProfileKwargs",
     "ProjectConfiguration",
     "QuantDense",
     "QuantizationConfig",
+    "ResNetConfig",
     "ServingEngine",
     "bert_classification_loss",
     "bert_params_from_jax",
@@ -97,6 +113,7 @@ __all__ = [
     "convert_to_fp32",
     "create_bert_model",
     "create_llama_model",
+    "create_resnet_model",
     "find_batch_size",
     "gather",
     "gather_object",
@@ -108,6 +125,8 @@ __all__ = [
     "per_token_latency",
     "prepare_data_loader",
     "reduce",
+    "resnet_classification_loss",
+    "resnet_params_from_jax",
     "save_model",
     "send_to_device",
     "set_seed",

@@ -17,34 +17,54 @@ line for line::
     accelerator.save_state()   # with ProjectConfiguration(automatic_checkpoint_naming=True)
     accelerator.load_state()   # in a new process: the newest checkpoint that verifies
 
-The model's parameters are the f32 master copy. Each step casts them to
-the compute dtype (names matching ``AutocastKwargs.keep_fp32_patterns``
-stay f32), runs ``loss_fn`` on that copy, and autograd carries f32
-gradients back to the masters: the JAX package's semantics. Gradients
-accumulate ``1/accum``-weighted in f32; on a sync boundary they are
-clipped to ``clip_grad_norm_``'s bound, the optimizer steps (under fp16
-only if the global norm is finite) and the buffer is dropped. The last
-batch of the loader being iterated forces a sync boundary.
+The imperative loop of Accelerate maps too, with the JAX signature of
+``backward`` (it takes the loss *function*)::
+
+    model, optimizer = accelerator.prepare(model, optimizer)
+    for batch in batches:
+        with accelerator.accumulate(model):
+            loss = accelerator.backward(loss_fn, batch)
+            accelerator.clip_grad_norm_(model, 1.0)
+            optimizer.step()
+            optimizer.zero_grad()
+
+The model's parameters are the f32 master copy. Each microbatch casts
+them to the compute dtype (names matching
+``AutocastKwargs.keep_fp32_patterns`` stay f32), runs ``loss_fn`` on that
+copy, and autograd carries f32 gradients back to the masters: the JAX
+package's semantics. Both paths add each microbatch's gradient,
+``1/(loss scale x accum)``-weighted, into an f32 buffer
+(:meth:`Accelerator._backward_into`) and apply it on a sync boundary
+through one applier (:meth:`Accelerator._apply_gradients`): clipped to
+``clip_grad_norm_``'s bound, the optimizer steps (under fp16 only if the
+global norm is finite) and the buffer is dropped. So the two paths give
+bit-equal parameters. The last batch of the loader being iterated forces
+a sync boundary. ``build_train_step(has_state=True)`` threads the model's
+mutable state (:attr:`~.modeling.Model.state`, ResNet's BatchNorm
+statistics) through ``loss_fn(params, state, batch)``, which returns
+``(loss, new_state)``; the state updates every microbatch, without
+gradients.
 
 Data goes through :func:`~.data_loader.prepare_data_loader` (batches on
 ``accelerator.device``); ``gather_for_metrics`` drops the rows a padded
 last batch repeated. With one process the collectives return their input.
 
 ``save_state`` / ``load_state`` (:mod:`.checkpointing`) save and restore
-the prepared models, optimizers, schedulers and loaders, the registered
-custom objects, the step, the fp16 loss scale and the RNGs through an
-atomic commit; ``FaultToleranceKwargs`` installs a SIGTERM/SIGINT handler
-read through ``should_checkpoint`` / ``should_stop``.
+the prepared models (their mutable state with them), optimizers,
+schedulers and loaders, the registered custom objects, the step, the fp16
+loss scale and the RNGs through an atomic commit; ``FaultToleranceKwargs``
+installs a SIGTERM/SIGINT handler read through ``should_checkpoint`` /
+``should_stop``.
 
-Not ported (each raises ``NotImplementedError``): mutable model state
-(``has_state``), multi-card layouts and multi-process data, ZeRO,
-gradient compression, optimizer offload, the program cache, trackers
-(``log_with``), the shape bucketer and the imperative path
-(``accumulate``/``backward``); ROADMAP.md queues them.
+Not ported (each raises ``NotImplementedError``): multi-card layouts and
+multi-process data, ZeRO, gradient compression, optimizer offload, the
+program cache, trackers (``log_with``) and the shape bucketer; ROADMAP.md
+queues them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import logging
 import os
@@ -67,6 +87,7 @@ from .utils.dataclasses import (
     GradScalerKwargs,
     MixedPrecisionPolicy,
     ParallelismPlugin,
+    ProfileKwargs,
     ProjectConfiguration,
 )
 from .utils.operations import (
@@ -108,6 +129,7 @@ class Accelerator:
         self.autocast_handler = AutocastKwargs()
         self.scaler_handler = GradScalerKwargs()
         self.ft_handler = FaultToleranceKwargs()
+        self.profile_handler = ProfileKwargs()
         ft_explicit = False  # the preemption handler installs only when the handler was passed
         policy_override = None
         for handler in kwargs_handlers or []:
@@ -118,6 +140,8 @@ class Accelerator:
             elif isinstance(handler, FaultToleranceKwargs):
                 self.ft_handler = handler
                 ft_explicit = True
+            elif isinstance(handler, ProfileKwargs):
+                self.profile_handler = handler
             elif isinstance(handler, MixedPrecisionPolicy):
                 policy_override = handler
             else:
@@ -163,6 +187,11 @@ class Accelerator:
         self.step = 0
         self._clip_max_norm: Optional[float] = None
         self._last_grad_norm = None
+        # the imperative path's f32 gradient buffers by id(model): a list of
+        # tensors, or None once applied or zeroed (a zero buffer plus a
+        # gradient is that gradient); a model that never ran backward has none
+        self._grad_buffers: dict = {}
+        self._trigger_flag = False
         # fp16 dynamic loss scale, kept on the host: the step reads the
         # gradient's finiteness on every sync boundary anyway
         self._loss_scale = self.scaler_handler.init_scale if self.mixed_precision == "fp16" else 1.0
@@ -214,8 +243,20 @@ class Accelerator:
         return self.state.partial_state.is_local_main_process
 
     @property
+    def is_last_process(self) -> bool:
+        return self.state.partial_state.is_last_process
+
+    @property
     def project_dir(self) -> Optional[str]:
         return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
+
+    @property
+    def save_iteration(self) -> int:
+        return self.project_configuration.iteration
 
     @property
     def num_data_shards(self) -> int:
@@ -227,6 +268,27 @@ class Accelerator:
 
     def wait_for_everyone(self):
         self.state.partial_state.wait_for_everyone()
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.partial_state.split_between_processes(inputs, apply_padding=apply_padding)
+
+    def on_main_process(self, function):
+        return self.state.partial_state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.partial_state.on_local_main_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.partial_state.on_process(function, process_index)
+
+    def on_last_process(self, function):
+        return self.state.partial_state.on_last_process(function)
+
+    def main_process_first(self):
+        return self.state.partial_state.main_process_first()
+
+    def local_main_process_first(self):
+        return self.state.partial_state.local_main_process_first()
 
     @property
     def sync_gradients(self) -> bool:
@@ -272,8 +334,8 @@ class Accelerator:
     def prepare_model(self, model: Model, device_placement: Optional[bool] = None, evaluation_mode: bool = False):
         """Cast the floating parameters in place to the f32 master dtype (the
         ``Parameter`` objects stay, so an optimizer already built over them
-        stays bound), move them to the device, and turn training on unless
-        ``evaluation_mode``."""
+        stays bound), move them and the buffers (mutable state) to the
+        device, and turn training on unless ``evaluation_mode``."""
         if not isinstance(model, Model):
             raise TypeError(f"prepare_model takes an accelerate_tpu_torch Model, got {type(model).__name__}")
         if getattr(model, "_is_accelerate_prepared", False):
@@ -290,6 +352,9 @@ class Accelerator:
             for p in model.module.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(device=self.device if placement else p.device, dtype=param_dtype)
+            if placement:
+                for b in model.module.buffers():
+                    b.data = b.data.to(self.device)
         model.module.requires_grad_(not evaluation_mode)
         model.module.train(not evaluation_mode)
         model._is_accelerate_prepared = True
@@ -306,6 +371,7 @@ class Accelerator:
         if not opt._is_accelerate_prepared:
             opt._is_accelerate_prepared = True
             opt.accelerator = self
+            opt._model = self._models[-1] if self._models else None  # the model prepared before it, as in JAX
             self._optimizers.append(opt)
         return opt
 
@@ -362,14 +428,55 @@ class Accelerator:
             for name, p in params.items()
         }
 
+    @contextlib.contextmanager
+    def _precision_ctx(self):
+        """``mixed_precision="no"`` means real f32: torch lets cuDNN
+        convolve f32 in TF32 by default (``torch.backends.cudnn.allow_tf32``,
+        about 1e-3 relative error), and a user may have allowed TF32
+        matmuls too. The steps run their forward and backward inside this
+        context, which turns TF32 off for both and restores the flags after
+        (the JAX package's ``_matmul_precision_ctx``); the 16-bit policies
+        keep the defaults."""
+        if self.mixed_precision != "no":
+            yield
+            return
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        old = cudnn.allow_tf32, matmul.allow_tf32
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = old
+
+    def cast_to_compute(self, params: dict) -> dict:
+        """``params`` in the compute dtype, as the steps see them."""
+        return self._compute_cast(params)
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastKwargs] = None):
+        """The compute-dtype cast lives in the steps (:meth:`cast_to_compute`);
+        this context swaps its ``AutocastKwargs`` for the body."""
+        old = self.autocast_handler
+        if autocast_handler is not None:
+            self.autocast_handler = autocast_handler
+        try:
+            yield
+        finally:
+            self.autocast_handler = old
+
     def build_eval_step(self, eval_fn: Callable, model: Optional[Model] = None) -> Callable:
-        """``eval_fn(params, *args)`` on the compute-dtype copy of the model's
-        current parameters, without autograd."""
+        """``eval_fn(params, *args)`` -- ``eval_fn(params, state, *args)`` for
+        a model with mutable state -- on the compute-dtype copy of the
+        model's current parameters (and its current state), without
+        autograd."""
         model = model or self._models[-1]
 
         def run(*args, **kwargs):
-            with torch.no_grad():
-                return eval_fn(self._compute_cast(model.params), *args, **kwargs)
+            with torch.no_grad(), self._precision_ctx():
+                params, state = self._compute_cast(model.params), model.state
+                if state is None:
+                    return eval_fn(params, *args, **kwargs)
+                return eval_fn(params, state, *args, **kwargs)
 
         return run
 
@@ -386,25 +493,23 @@ class Accelerator:
         """``step(batch)`` -> loss (``(loss, aux)`` with ``has_aux``):
         ``loss_fn(params, batch)``, or ``loss_fn(params, batch, rng)`` with a
         per-step ``torch.Generator`` when it takes a third positional
-        argument or one named ``rng``. Updates the prepared model and
-        optimizer in place. ``donate`` is accepted for the JAX signature
-        (eager PyTorch frees what it no longer needs)."""
-        if has_state:
-            raise NotImplementedError(
-                "has_state (mutable model state: BatchNorm, fp8 amax histories) is not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 B)"
-            )
+        argument or one named ``rng``. With ``has_state`` the model's mutable
+        state comes second, ``loss_fn(params, state, batch[, rng])``, and the
+        loss function returns ``(loss, new_state)`` (``(loss, (new_state,
+        aux))`` with ``has_aux``), which becomes ``model.state`` after the
+        microbatch's backward. Updates the prepared model and optimizer in
+        place. ``donate`` is accepted for the JAX signature (eager PyTorch
+        frees what it no longer needs)."""
         model = model or self._models[-1]
         optimizer = optimizer or (self._optimizers[-1] if self._optimizers else None)
         if optimizer is None:
             raise ValueError("prepare() an optimizer before building a train step")
+        if has_state and model.state is None:
+            raise ValueError(f"has_state=True, but {model.name} keeps no mutable state (Model.state is None)")
         scheduler = scheduler or (self._schedulers[-1] if self._schedulers else None)
         accum = self.gradient_accumulation_steps
-        use_fp16 = self.mixed_precision == "fp16"
-        rng_mode = _rng_mode(loss_fn)
-        named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
-        if not named:
-            raise ValueError("the model has no trainable parameters: prepare_model it first")
+        rng_mode = _rng_mode(loss_fn, lead=3 if has_state else 2)
+        named = self._trainable(model)
         masters = [p for _, p in named]
         box = {"bufs": None, "micro": 0}
 
@@ -414,53 +519,95 @@ class Accelerator:
             if gs.sync_with_dataloader and gs.in_dataloader and gs.end_of_dataloader:
                 do_sync = True
             gs._set_sync_gradients(do_sync)
+            state = model.state if has_state else None
 
-            for p in masters:
-                p.grad = None
-            compute = self._compute_cast(dict(named))
-            if rng_mode == "positional":
-                out = loss_fn(compute, batch, generator_for_step(self.step, self.device))
-            elif rng_mode == "keyword":
-                out = loss_fn(compute, batch, rng=generator_for_step(self.step, self.device))
-            else:
-                out = loss_fn(compute, batch)
-            loss, aux = out if has_aux else (out, None)
-            loss_scale = self._loss_scale
-            (loss.float() * loss_scale).backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in masters]
-            torch._foreach_div_(grads, max(loss_scale, 1.0) * accum)
-            if box["bufs"] is None:  # a zeroed buffer plus these grads is these grads
-                box["bufs"] = grads
-            else:
-                torch._foreach_add_(box["bufs"], grads)
-            for p in masters:
-                p.grad = None
+            def loss_of(params):
+                lead = (params, state, batch) if has_state else (params, batch)
+                if rng_mode == "positional":
+                    out = loss_fn(*lead, generator_for_step(self.step, self.device))
+                elif rng_mode == "keyword":
+                    out = loss_fn(*lead, rng=generator_for_step(self.step, self.device))
+                else:
+                    out = loss_fn(*lead)
+                if has_state:
+                    loss, rest = out
+                    return (loss, rest) if has_aux else (loss, (rest, None))
+                return out if has_aux else (out, None)
 
+            loss, aux, box["bufs"] = self._backward_into(named, box["bufs"], loss_of)
+            if has_state:
+                new_state, aux = aux
+                model.state = new_state
             if do_sync:
                 bufs, box["bufs"] = box["bufs"], None
-                gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(bufs)))
-                clip = self._clip_max_norm  # read at call time: clip_grad_norm_ in the loop applies next step
-                if clip is not None and clip >= 0:
-                    torch._foreach_mul_(bufs, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
-                finite = bool(torch.isfinite(gnorm)) if use_fp16 else True
-                if finite:
-                    for p, g in zip(masters, bufs):
-                        p.grad = g
-                    optimizer.optimizer.step()
-                if use_fp16:
-                    self._update_loss_scale(finite)
-                    optimizer._step_was_skipped = not finite
-                self._last_grad_norm = gnorm
+                self._apply_gradients(optimizer, masters, bufs)
                 if scheduler is not None:
                     scheduler.step()
             else:
                 self._last_grad_norm = torch.zeros((), device=self.device)
             box["micro"] = 0 if do_sync else box["micro"] + 1
             self.step += 1
-            loss = loss.detach()
             return (loss, aux) if has_aux else loss
 
         return step
+
+    # ------------------------------------------------------------------ #
+    # the two paths' shared arithmetic
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _trainable(model: Model) -> list:
+        named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+        if not named:
+            raise ValueError("the model has no trainable parameters: prepare_model it first")
+        return named
+
+    def _backward_into(self, named: list, bufs: Optional[list], loss_of: Callable):
+        """One microbatch, the same arithmetic on both paths: ``loss_of`` on
+        the compute-dtype copy of ``named``'s masters gives ``(loss,
+        extra)``; the backward of loss x the loss scale leaves f32 gradients
+        on the masters, each divided by (scale x accum) and added into
+        ``bufs`` (None: a zero buffer, which these gradients then are).
+        Returns ``(detached loss, extra, bufs)``."""
+        masters = [p for _, p in named]
+        for p in masters:
+            p.grad = None
+        loss_scale = self._loss_scale
+        with self._precision_ctx():
+            loss, extra = loss_of(self._compute_cast(dict(named)))
+            (loss.float() * loss_scale).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in masters]
+        torch._foreach_div_(grads, max(loss_scale, 1.0) * self.gradient_accumulation_steps)
+        if bufs is None:
+            bufs = grads
+        else:
+            torch._foreach_add_(bufs, grads)
+        for p in masters:
+            p.grad = None
+        return loss.detach(), extra, bufs
+
+    def _apply_gradients(self, optimizer: AcceleratedOptimizer, masters: list, bufs: list) -> bool:
+        """The sync boundary of both paths: the global norm of ``bufs``,
+        scaled by ``min(1, bound / (norm + 1e-6))`` when ``clip_grad_norm_``
+        set a bound (negative: off, 0 zeroes the gradient), then the masters'
+        ``.grad`` set to it and the optimizer stepped -- under fp16 only when
+        the norm is finite, and the loss scale updated. Returns whether the
+        update was applied."""
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(bufs)))
+        clip = self._clip_max_norm  # read at call time: clip_grad_norm_ in the loop applies next step
+        if clip is not None and clip >= 0:
+            torch._foreach_mul_(bufs, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
+        use_fp16 = self.mixed_precision == "fp16"
+        finite = bool(torch.isfinite(gnorm)) if use_fp16 else True
+        if finite:
+            for p, g in zip(masters, bufs):
+                p.grad = g
+            optimizer.optimizer.step()
+        if use_fp16:
+            self._update_loss_scale(finite)
+        optimizer._step_was_skipped = not finite
+        self._last_grad_norm = gnorm
+        return finite
 
     def _update_loss_scale(self, finite: bool) -> None:
         """torch GradScaler's transition on a sync boundary: back off (never
@@ -475,14 +622,182 @@ class Accelerator:
             self._loss_scale *= h.growth_factor
             self._scale_growth_tracker = 0
 
+    # ------------------------------------------------------------------ #
+    # the imperative path
+    # ------------------------------------------------------------------ #
+
+    def _do_sync(self) -> None:
+        """The end of the loader being iterated syncs and restarts the count;
+        otherwise every ``gradient_accumulation_steps``-th call does (every
+        call with ``sync_each_batch``)."""
+        gs = self.gradient_state
+        if gs.sync_with_dataloader and gs.end_of_dataloader:
+            self.step = 0
+            gs._set_sync_gradients(True)
+        else:
+            self.step += 1
+            sync = self.step % self.gradient_accumulation_steps == 0
+            gs._set_sync_gradients(sync or bool(gs.plugin_kwargs.get("sync_each_batch", False)))
+
+    @contextlib.contextmanager
+    def accumulate(self, *models):
+        """Gradient-accumulation bookkeeping for one microbatch: inside,
+        ``backward`` adds into the buffer and ``optimizer.step()`` applies it
+        on a sync boundary only."""
+        self._do_sync()
+        yield
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Accumulate only, for the body: ``optimizer.step()`` applies
+        nothing."""
+        old = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(old)
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        """Uneven batches never reach the step (the loader pads and masks
+        them); this context overrides the prepared loaders' ``even_batches``
+        for the body."""
+        loaders = [dl for dl in self._dataloaders if hasattr(dl, "even_batches")]
+        old = [dl.even_batches for dl in loaders]
+        if even_batches is not None:
+            for dl in loaders:
+                dl.even_batches = even_batches
+        try:
+            yield
+        finally:
+            for dl, val in zip(loaders, old):
+                dl.even_batches = val
+
+    def backward(self, loss_fn: Callable, batch=None, model: Optional[Model] = None, **kwargs):
+        """``loss_fn(params, batch)``'s gradient, scaled by
+        ``1/gradient_accumulation_steps``, added into the model's f32
+        buffer; returns the (unscaled) loss. The JAX signature: it takes the
+        loss *function*, run on the compute-dtype copy of the masters."""
+        model = model or self._models[-1]
+        named = self._trainable(model)
+        loss, _, self._grad_buffers[id(model)] = self._backward_into(
+            named, self._grad_buffers.get(id(model)), lambda params: (loss_fn(params, batch), None)
+        )
+        return loss
+
+    def _buffer_for(self, model: Optional[Model] = None):
+        """``(key, buffer)`` for ``model`` (default: the single buffer, or
+        the last prepared model's); the buffer is None once applied or
+        zeroed, and the key None where no backward ran."""
+        if model is not None:
+            key = id(model)
+        elif len(self._grad_buffers) == 1:
+            key = next(iter(self._grad_buffers))
+        elif self._models:
+            key = id(self._models[-1])
+        else:
+            return None, None
+        return (key, self._grad_buffers[key]) if key in self._grad_buffers else (None, None)
+
+    def _zero_grad_buffer(self, model: Optional[Model]) -> None:
+        model = model or (self._models[-1] if self._models else None)
+        if id(model) in self._grad_buffers:
+            self._grad_buffers[id(model)] = None
+
+    def _apply_accumulated_gradients(self, opt: AcceleratedOptimizer) -> bool:
+        """Apply the model's buffer through the shared applier and zero it.
+        Returns False when fp16 skipped the update."""
+        model = opt._model or self._models[-1]
+        if id(model) not in self._grad_buffers:
+            return True
+        named = self._trainable(model)
+        masters = [p for _, p in named]
+        bufs = self._grad_buffers[id(model)]
+        if bufs is None:  # applied or zeroed since its last backward: the update of a zero gradient
+            bufs = [torch.zeros_like(p) for p in masters]
+        self._grad_buffers[id(model)] = None
+        return self._apply_gradients(opt, masters, bufs)
+
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
-        """Set the global-norm bound the next sync boundary applies (a
-        negative bound turns clipping off, 0 zeroes the gradient); returns
-        the last boundary's pre-clip norm."""
+        """Set the global-norm bound every sync boundary applies from now on
+        (a negative bound turns clipping off, 0 zeroes the gradient). On the
+        imperative path the buffer is also clipped in place now, and its
+        pre-clip norm returned; otherwise the last boundary's pre-clip
+        norm."""
         if norm_type != 2.0:
             raise NotImplementedError("only the L2 global norm is supported")
         self._clip_max_norm = max_norm
-        return self._last_grad_norm
+        key, bufs = self._buffer_for(parameters if isinstance(parameters, Model) else None)
+        if key is None:
+            return self._last_grad_norm
+        if bufs is None:  # a zero buffer
+            self._last_grad_norm = torch.zeros((), device=self.device)
+            return self._last_grad_norm
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(bufs)))
+        if max_norm >= 0:
+            torch._foreach_mul_(bufs, torch.clamp(max_norm / (gnorm + 1e-6), max=1.0))
+        self._last_grad_norm = gnorm
+        return gnorm
+
+    def clip_grad_value_(self, parameters, clip_value: float) -> None:
+        """Clamp the imperative path's buffer to ``[-clip_value, clip_value]``."""
+        _, bufs = self._buffer_for(parameters if isinstance(parameters, Model) else None)
+        if bufs is not None:
+            for b in bufs:
+                b.clamp_(-clip_value, clip_value)
+
+    # ------------------------------------------------------------------ #
+    # triggers, memory, profiling
+    # ------------------------------------------------------------------ #
+
+    def set_trigger(self) -> None:
+        """Raise a flag that :meth:`check_trigger` reads (and clears) on every
+        process: one process's early stop stops all."""
+        self._trigger_flag = True
+
+    def check_trigger(self) -> bool:
+        fired = any(gather_object([self._trigger_flag]))
+        if fired:
+            self._trigger_flag = False
+        return fired
+
+    def free_memory(self, *objects):
+        """Forget the prepared objects, the imperative buffers and the step
+        count, then :func:`~.utils.memory.release_memory` ``objects``."""
+        from .utils.memory import release_memory
+
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self._grad_buffers.clear()
+        self.step = 0
+        return release_memory(*objects)
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def end_training(self) -> None:
+        """The end of the run: a barrier (trackers, which would finish here,
+        are ROADMAP.md Queue 1 item 9)."""
+        self.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def profile(self, profile_handler=None):
+        """Trace the body with ``torch.profiler`` (yielded) and write a Chrome
+        trace under ``output_trace_dir`` (a string is that directory), else
+        ``{logging_dir}/profile``; then ``on_trace_ready(trace_dir)``."""
+        if isinstance(profile_handler, str):
+            profile_handler = ProfileKwargs(output_trace_dir=profile_handler)
+        handler = profile_handler or self.profile_handler
+        trace_dir = handler.output_trace_dir or os.path.join(self.logging_dir or ".", "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        with torch.profiler.profile(**handler.profiler_kwargs(cuda=self.device.type == "cuda")) as prof:
+            yield prof
+        prof.export_chrome_trace(os.path.join(trace_dir, f"rank{self.process_index}.pt.trace.json"))
+        if handler.on_trace_ready is not None:
+            handler.on_trace_ready(trace_dir)
 
     def kernel_check(
         self,
@@ -671,10 +986,11 @@ class _RemovableHandle:
             self.hooks_list.remove(self.hook)
 
 
-def _rng_mode(loss_fn: Callable) -> str:
-    """``"positional"`` when ``loss_fn`` takes a required third positional
-    argument, ``"keyword"`` when it has a parameter named ``rng``, else
-    ``"none"`` (arguments bound by ``functools.partial`` do not count)."""
+def _rng_mode(loss_fn: Callable, lead: int = 2) -> str:
+    """``"positional"`` when ``loss_fn`` takes a required positional argument
+    after its ``lead`` ones (params and batch; params, state and batch),
+    ``"keyword"`` when it has a parameter named ``rng``, else ``"none"``
+    (arguments bound by ``functools.partial`` do not count)."""
     try:
         params = inspect.signature(loss_fn).parameters
     except (TypeError, ValueError):
@@ -685,6 +1001,6 @@ def _rng_mode(loss_fn: Callable) -> str:
         if p.default is inspect.Parameter.empty
         and p.kind in (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
     )
-    if required >= 3:
+    if required > lead:
         return "positional"
     return "keyword" if "rng" in params else "none"

@@ -6,7 +6,7 @@ directory layout, file names, commit protocol and crash points, so its
 checkpoints::
 
     checkpoint_dir/
-      model/model.safetensors     # the model's state_dict (model_{i}/ for the i-th model, i > 0)
+      model/model.safetensors     # the model's state_dict, its mutable state too (model_{i}/ for the i-th, i > 0)
       optimizer/optimizer.bin     # the optimizer's state_dict, torch.save (optimizer_{i}/)
       scheduler_0.json
       samplers.json               # every prepared loader's state_dict
@@ -18,7 +18,11 @@ checkpoints::
 The JAX package writes its arrays with orbax; here each model's tensors
 go through the port's own safetensors writer
 (:mod:`.utils.safetensors_io`) and each optimizer's ``state_dict`` through
-``torch.save``, read back with ``torch.load(weights_only=True)``.
+``torch.save``, read back with ``torch.load(weights_only=True)``. A
+model's mutable state (:attr:`~.modeling.Model.state`, ResNet's BatchNorm
+running statistics) is buffers of its module, so it rides in
+``model.safetensors`` with the parameters, where the JAX package writes
+it beside them (``model_state_<i>/``).
 
 **Atomic commit protocol**: every save writes into ``<dir>.tmp/``, the
 main process writes the ``commit_success.json`` manifest (per-file sizes

@@ -8,6 +8,13 @@ relies on: ``model(ids, positions=..., decode=True, cache=...) ->
 ``model.apply_fn(params, input_ids)`` runs the module on ``params``, a
 dict of tensors by parameter name (``torch.func.functional_call``), so a
 loss is written ``loss_fn(params, batch)`` as in the JAX package.
+
+A module with non-trainable mutable state (ResNet's BatchNorm running
+statistics) names its collection in ``state_collection``; its buffers
+are then :attr:`Model.state`, nested by name as the JAX package's flax
+collections are (``{"batch_stats": {"bn_init": {"mean": ..., "var":
+...}, ...}}``). They are ordinary buffers, so they ride in
+``state_dict()`` and in every checkpoint.
 """
 
 from __future__ import annotations
@@ -47,6 +54,30 @@ class Model:
         """The module's parameters by name (the tensors themselves)."""
         return dict(self.module.named_parameters())
 
+    @property
+    def state(self) -> Optional[dict]:
+        """``{collection: nested dict of the module's buffers}`` (the tensors
+        themselves), or None for a module without mutable state."""
+        collection = getattr(self.module, "state_collection", None)
+        if collection is None:
+            return None
+        return {collection: nest(dict(self.module.named_buffers()))}
+
+    @state.setter
+    def state(self, new_state: dict) -> None:
+        """Copy ``new_state`` (the shape :attr:`state` returns) into the
+        buffers, which keep their identity, device and dtype."""
+        collection = getattr(self.module, "state_collection", None)
+        if collection is None or set(new_state) != {collection}:
+            raise ValueError(f"{self.name} keeps mutable state {collection!r}; got collections {sorted(new_state)}")
+        buffers = dict(self.module.named_buffers())
+        flat = flatten(new_state[collection])
+        if flat.keys() != buffers.keys():
+            raise ValueError(f"state names differ from the model's: {sorted(flat.keys() ^ buffers.keys())[:4]}")
+        with torch.no_grad():
+            for name, value in flat.items():
+                buffers[name].copy_(value)
+
     def apply_fn(self, params: dict, input_ids: torch.Tensor, *args, **kwargs):
         """The module's forward on ``params`` (a dict of tensors by name)
         in place of its own parameters."""
@@ -65,3 +96,26 @@ class Model:
 
     def __repr__(self) -> str:
         return f"Model({self.name}, params={self.num_parameters():,}, device={self.device})"
+
+
+def nest(flat: dict) -> dict:
+    """``{"a.b": t}`` -> ``{"a": {"b": t}}``."""
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """The inverse of :func:`nest`."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(flatten(value, f"{prefix}{key}."))
+        else:
+            flat[f"{prefix}{key}"] = value
+    return flat

@@ -13,7 +13,11 @@ leaves in place of each projection's ``kernel``: they cross unchanged
 (``QuantDense`` keeps the reference's layout), integer codes as integers.
 ``bert_params_from_jax`` does the same for
 :func:`accelerate_tpu.models.bert.create_bert_model`'s tree (unrolled
-``layer_<i>``; ``Embed`` tables cross as they are).
+``layer_<i>``; ``Embed`` tables cross as they are), and
+``resnet_params_from_jax`` for
+:func:`accelerate_tpu.models.resnet.create_resnet_model`'s params and
+BatchNorm statistics (``Conv`` kernels ``[kh, kw, in, out]`` become
+``Conv2d`` weights ``[out, in, kh, kw]``).
 """
 
 from __future__ import annotations
@@ -113,4 +117,33 @@ def bert_params_from_jax(params: dict, config) -> dict:
         norm(f"{port}.ffn_norm", layer["ffn_norm"])
     dense("pooler", params["pooler"])
     dense("classifier", params["classifier"])
+    return sd
+
+
+def resnet_params_from_jax(params: dict, batch_stats: dict) -> dict:
+    """The port's ResNet state dict (f32 tensors), parameters and running
+    statistics, from a JAX ResNet's ``params`` and ``batch_stats`` (nested
+    dicts of numpy arrays; ``batch_stats`` may be ``model.state`` itself,
+    ``{"batch_stats": ...}``). The module paths are the same; a ``Conv``
+    kernel (HWIO) becomes a ``Conv2d`` weight (OIHW), the ``Dense`` kernel
+    ``[in, out]`` a ``Linear`` weight ``[out, in]``, a BatchNorm ``scale``
+    its ``weight``; ``mean`` and ``var`` become the buffers of those names."""
+    batch_stats = batch_stats.get("batch_stats", batch_stats)
+    sd = {}
+
+    def walk(tree: dict, prefix: str):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key}.")
+                continue
+            arr = np.asarray(value)
+            if key == "kernel" and arr.ndim == 4:
+                sd[f"{prefix}weight"] = torch.from_numpy(np.array(arr.transpose(3, 2, 0, 1), np.float32, order="C"))
+            elif key == "kernel":
+                sd[f"{prefix}weight"] = _tensor(arr, True)
+            else:
+                sd[f"{prefix}{'weight' if key == 'scale' else key}"] = _tensor(arr, False)
+
+    walk(params, "")
+    walk(batch_stats, "")
     return sd

@@ -3,12 +3,14 @@
 Counterpart of :mod:`accelerate_tpu.optimizer`. The wrapped optimizer holds
 the f32 master parameters of a prepared model (``prepare_model`` casts
 them in place, so an optimizer built over ``model.parameters()`` before
-``prepare`` stays bound to them). ``Accelerator.build_train_step`` sets
-their ``.grad`` to the accumulated, clipped gradient on a sync boundary and
-calls ``step`` of the wrapped optimizer; under fp16 a non-finite gradient
-skips it and :attr:`step_was_skipped` says so. The imperative path
-(``Accelerator.accumulate``/``backward`` with ``optimizer.step()``) is not
-ported yet (ROADMAP.md Queue 1 B).
+``prepare`` stays bound to them). On a sync boundary both training paths
+apply the accumulated f32 gradient through one applier
+(``Accelerator._apply_gradients``): clipped, their ``.grad`` set to it,
+``step`` of the wrapped optimizer called; under fp16 a non-finite gradient
+skips it and :attr:`step_was_skipped` says so. ``build_train_step`` calls
+it itself; on the imperative path (``Accelerator.accumulate`` /
+``backward``) :meth:`AcceleratedOptimizer.step` does, and is a no-op inside
+an accumulation window.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ class AcceleratedOptimizer:
         self.scaler = scaler
         self.accelerator = accelerator
         self._is_accelerate_prepared = False
+        self._model = None  # the model whose gradient buffer step() applies, set by prepare
         self._step_was_skipped = False
         self.gradient_state = GradientState()
 
@@ -42,16 +45,26 @@ class AcceleratedOptimizer:
         return bool(self._step_was_skipped)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
-        """Clear the master gradients; a no-op inside an accumulation window
-        (``sync_gradients`` false), as in the JAX package."""
-        if self.gradient_state.sync_gradients:
-            self.optimizer.zero_grad(set_to_none=set_to_none)
+        """Clear the imperative path's gradient buffer and the master
+        gradients; a no-op inside an accumulation window (``sync_gradients``
+        false), so the loop ``backward; step; zero_grad`` keeps what it
+        buffered, as in the JAX package."""
+        if not self.gradient_state.sync_gradients:
+            return
+        if self.accelerator is not None:
+            self.accelerator._zero_grad_buffer(self._model)
+        self.optimizer.zero_grad(set_to_none=set_to_none)
 
     def step(self, closure=None):
-        raise NotImplementedError(
-            "the imperative path (Accelerator.accumulate/backward + optimizer.step) is not ported yet "
-            "(ROADMAP.md Queue 1 B); train through Accelerator.build_train_step"
-        )
+        """Apply the gradient ``Accelerator.backward`` accumulated, on a sync
+        boundary; inside an accumulation window nothing happens and
+        :attr:`step_was_skipped` is False."""
+        if self.accelerator is None:
+            raise RuntimeError("This optimizer was not prepared by an Accelerator.")
+        if not self.gradient_state.sync_gradients:
+            self._step_was_skipped = False
+            return
+        self._step_was_skipped = not self.accelerator._apply_accumulated_gradients(self)
 
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()

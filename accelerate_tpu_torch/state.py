@@ -3,7 +3,7 @@ and ``GradientState``.
 
 Counterpart of :mod:`accelerate_tpu.state`, single process only: a
 ``WORLD_SIZE`` above 1 raises (multi-process training is ROADMAP.md Queue
-1 E). The borg pattern is kept: every instance constructed in the process
+1 item 8). The borg pattern is kept: every instance constructed in the process
 shares one state, and ``_reset_state`` clears it. The device is ``cuda``,
 or ``cpu`` when ``cpu=True`` is passed; with no card and no ``cpu=True``
 construction raises.
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Optional
+from contextlib import contextmanager
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -36,7 +37,7 @@ class PartialState:
         if world > 1:
             raise NotImplementedError(
                 f"WORLD_SIZE={world}: accelerate_tpu_torch runs one process on one card; "
-                "multi-process training is queued in ROADMAP.md Queue 1 E"
+                "multi-process training is queued in ROADMAP.md Queue 1 item 8"
             )
         self._cpu = cpu
         self.device = resolve_device("cpu" if cpu else None)
@@ -61,8 +62,67 @@ class PartialState:
     def is_local_main_process(self) -> bool:
         return self.local_process_index == 0
 
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
+
     def wait_for_everyone(self) -> None:
         """A barrier across processes: with one process, nothing to wait for."""
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the body first, the others wait for it
+        (dataset download and caching)."""
+        if not self.is_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_main_process:
+            self.wait_for_everyone()
+
+    @contextmanager
+    def local_main_process_first(self):
+        if not self.is_local_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_local_main_process:
+            self.wait_for_everyone()
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This process's share of a list, tuple, dict or tensor split
+        evenly across processes; ``apply_padding`` repeats the last element
+        so every share has one length. One process: all of ``inputs``."""
+        yield inputs
+
+    def on_main_process(self, function: Callable) -> Callable:
+        """Decorator: run ``function`` on the main process only."""
+
+        def wrapper(*args, **kwargs):
+            if self.is_main_process:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        def wrapper(*args, **kwargs):
+            if self.is_local_main_process:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_process(self, function: Optional[Callable] = None, process_index: Optional[int] = None) -> Callable:
+        def wrapper(*args, **kwargs):
+            if self.process_index == process_index:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_last_process(self, function: Callable) -> Callable:
+        def wrapper(*args, **kwargs):
+            if self.is_last_process:
+                return function(*args, **kwargs)
+
+        return wrapper
 
     def print(self, *args, **kwargs) -> None:
         """``print`` on the main process only."""

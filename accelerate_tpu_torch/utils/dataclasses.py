@@ -15,8 +15,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import enum
+import logging
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -46,6 +47,59 @@ class AutocastKwargs(KwargsHandler):
 
     enabled: bool = True
     keep_fp32_patterns: tuple = ("layernorm", "layer_norm", "ln_", "norm", "embedding_norm")
+
+
+@dataclass
+class ProfileKwargs(KwargsHandler):
+    """``Accelerator.profile`` options, the JAX package's fields mapped onto
+    ``torch.profiler``. The trace is a Chrome trace
+    (``{output_trace_dir}/rank<i>.pt.trace.json``), which Perfetto and
+    TensorBoard open, so ``create_perfetto_trace`` is always honoured.
+    ``host_tracer_level`` 0 leaves out the host (CPU) activity, 1-2 trace
+    it and 3 also records operator input shapes; ``python_tracer_level`` 1
+    records Python stacks; ``device_tracer_level`` 1 traces the card (on a
+    CUDA device). ``create_perfetto_link`` has no torch counterpart: it is
+    dropped with one warning a process. ``on_trace_ready(trace_dir)`` runs
+    once the trace is written."""
+
+    output_trace_dir: Optional[str] = None
+    create_perfetto_link: bool = False
+    create_perfetto_trace: bool = True
+    host_tracer_level: int = 2
+    python_tracer_level: int = 0
+    device_tracer_level: int = 1
+    on_trace_ready: Optional[Callable] = None
+
+    def profiler_kwargs(self, cuda: bool) -> dict:
+        """Keyword arguments of ``torch.profiler.profile`` for these fields."""
+        from torch.profiler import ProfilerActivity
+
+        if self.create_perfetto_link:
+            _warn_dropped_profile_options(["create_perfetto_link"])
+        activities = []
+        if self.host_tracer_level > 0:
+            activities.append(ProfilerActivity.CPU)
+        if self.device_tracer_level > 0 and cuda:
+            activities.append(ProfilerActivity.CUDA)
+        return {
+            "activities": activities or [ProfilerActivity.CPU],
+            "record_shapes": self.host_tracer_level >= 3,
+            "with_stack": self.python_tracer_level > 0,
+        }
+
+
+_dropped_profile_options_warned = False
+
+
+def _warn_dropped_profile_options(fields) -> None:
+    """One warning a process for ProfileKwargs fields torch cannot honour."""
+    global _dropped_profile_options_warned
+    if _dropped_profile_options_warned:
+        return
+    _dropped_profile_options_warned = True
+    logging.getLogger(__name__).warning(
+        "ProfileKwargs: torch.profiler has no counterpart of %s; ignored", ", ".join(fields)
+    )
 
 
 @dataclass
@@ -224,7 +278,7 @@ class MeshConfig:
 class ParallelismPlugin(KwargsHandler):
     """The one-device layout. Any mesh axis above 1, ZeRO, optimizer-state
     sharding, offload and gradient compression raise: multi-card training
-    is ROADMAP.md Queue 1 E."""
+    is ROADMAP.md Queue 1 item 8."""
 
     mesh_config: MeshConfig = field(default_factory=MeshConfig)
     sharding_rules: Optional[object] = None
@@ -244,12 +298,12 @@ class ParallelismPlugin(KwargsHandler):
         if wide or (self.mesh_config.num_devices or 1) != 1:
             raise NotImplementedError(
                 f"accelerate_tpu_torch trains on one card only (mesh {wide or self.mesh_config}); "
-                "multi-card layouts are queued in ROADMAP.md Queue 1 E"
+                "multi-card layouts are queued in ROADMAP.md Queue 1 item 8"
             )
         for knob in ("sharding_rules", "remat_policy", "grad_compression"):
             if getattr(self, knob) is not None:
-                raise NotImplementedError(f"ParallelismPlugin.{knob} is not ported yet (ROADMAP.md Queue 1 E)")
+                raise NotImplementedError(f"ParallelismPlugin.{knob} is not ported yet (ROADMAP.md Queue 1 item 8)")
         if self.zero_stage or self.shard_optimizer_state or self.offload_optimizer:
             raise NotImplementedError(
-                "ZeRO, optimizer-state sharding and optimizer offload are not ported yet (ROADMAP.md Queue 1 E)"
+                "ZeRO, optimizer-state sharding and optimizer offload are not ported yet (ROADMAP.md Queue 1 item 8)"
             )

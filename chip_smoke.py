@@ -58,7 +58,19 @@ it, all three equal. Then the slices:
   the resumed steps launching K1-K3 as the unbroken ones do, and the
   resumed run bit-equal to the unbroken one where a repeat from the same
   checkpoint is (else within twice the repeat's spread); save, async and
-  load seconds and bytes.
+  load seconds and bytes;
+* the imperative loop and mutable state: the train phase's TinyLlama
+  shape trained through ``accumulate`` / ``backward`` / ``optimizer.step``
+  (accumulation 4 over 8 microbatches of 2 x 2048) and through
+  ``build_train_step`` from the same weights on the same batches, the two
+  bit-equal in every loss, parameter and AdamW tensor and each launching
+  K1-K3 as the train step does, and a run clipping in the loop;
+  examples/torch_cv_example.py's loop at its full configuration
+  (ResNet-50 v1.5, 37 classes, 224 px, batch 64, bf16 compute, the
+  BatchNorm statistics through ``build_train_step(has_state=True)``) for
+  one epoch with its eval pass, its step traced (convolutions are cuDNN's:
+  no kernel of the JAX package runs there); small ResNets held card
+  against CPU; the statistics saved, zeroed and restored bit for bit.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -1495,6 +1507,376 @@ def phase_train_resume(torch):
     return row
 
 
+def imperative_trainer(torch, cfg, accum, seed=0, lr=3e-4):
+    """A fresh Accelerator (bf16 compute, ``accum`` microbatches a step), a
+    Llama from ``seed`` and AdamW, prepared together: no step built."""
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum)
+    model = create_llama_model(cfg, seed=seed, dtype=torch.float32)
+    opt = torch.optim.AdamW(model.module.parameters(), lr=lr, weight_decay=0.01)
+    model, opt = acc.prepare(model, opt)
+    return acc, model, opt
+
+
+def phase_imperative(torch):
+    """The imperative loop at the train phase's shape (TinyLlama-1.1B, 22
+    layers, f32 masters, bf16 compute, remat, AdamW(3e-4, weight decay
+    0.01)): gradient accumulation 4 over 8 microbatches of 2 x 2048, so two
+    optimizer steps, each microbatch ``with accumulate(model): backward(loss_fn,
+    batch); optimizer.step(); optimizer.zero_grad()``; then
+    ``build_train_step`` from the same weights on the same batches. The
+    per-microbatch losses, every parameter and every AdamW tensor must be
+    bit-equal between the two, and each path must launch K1 2 x 22 x 8
+    times and K2 and K3 22 x 8 times. A third run calls
+    ``clip_grad_norm_(model, 1.0)`` in the loop: finite losses, parameters
+    that differ from the unclipped run's. Each path's optimizer-step
+    windows (4 microbatches, fenced once, as a training loop runs) are
+    timed beside the other's, and one more window of each runs under
+    torch.profiler (``traced``): its device busy ms say whether a gap
+    between the wall times is the host's or the card's."""
+    from accelerate_tpu_torch import LlamaConfig, causal_lm_loss
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, accum, micro = 2, 2048, 4, 8
+    cfg = LlamaConfig(**TINYLLAMA, remat=True)
+    layers = cfg.num_hidden_layers
+    want = {"fwd": 2 * layers * micro, "dq": layers * micro, "dkv": layers * micro}
+    free_memory(torch)
+    batches = token_batches(torch, micro, b, s, cfg.vocab_size, seed=11)
+
+    def drive(run):
+        """``run(i)`` -> loss for each microbatch: (losses, wall ms a window, launches)."""
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        losses, windows = [], []
+        for w in range(0, micro, accum):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [run(i) for i in range(w, w + accum)]
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) * 1e3)
+        launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+        return [float(x) for x in losses], windows, launches
+
+    def traced_window(run):
+        """One more window under torch.profiler (which may run it again)."""
+        events, wall_ms, attempts, lost = traced(torch, lambda: [run(i) for i in range(accum)])
+        busy, _ = device_time(events)
+        return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                "trace_attempts": attempts, "trace_lead_lost": lost}
+
+    def imperative(clip=None):
+        acc, model, opt = imperative_trainer(torch, cfg, accum)
+        loss_fn = lambda p, batch: causal_lm_loss(p, batch, model.apply_fn)  # noqa: E731
+        norms = []
+
+        def run(i):
+            with acc.accumulate(model):
+                loss = acc.backward(loss_fn, {"input_ids": batches[i]})
+                if clip is not None:
+                    norms.append(float(acc.clip_grad_norm_(model, clip)))
+                opt.step()
+                opt.zero_grad()
+            return loss
+
+        return run, norms, model, opt
+
+    def state_of(model, opt):
+        tensors = {f"param/{k}": v for k, v in model.state_dict().items()}
+        for i, st in opt.optimizer.state_dict()["state"].items():
+            tensors.update({f"opt/{i}/{k}": v for k, v in st.items() if torch.is_tensor(v)})
+        return tensors
+
+    run, _, model, opt = imperative()
+    i_losses, i_ms, i_launches = drive(run)
+    kept = {k: v.clone() for k, v in state_of(model, opt).items()}  # the traced window trains on
+    i_traced = traced_window(run)
+    del run, model, opt
+    free_memory(torch)
+    acc, model2, opt2 = imperative_trainer(torch, cfg, accum)
+    step = acc.build_train_step(lambda p, batch: causal_lm_loss(p, batch, model2.apply_fn))
+    f_losses, f_ms, f_launches = drive(lambda i: step({"input_ids": batches[i]}))
+    fused = state_of(model2, opt2)
+    check(i_launches == want and f_launches == want,
+          f"imperative: flash launches {i_launches} (imperative), {f_launches} (fused) == K1 2 x {layers} x {micro}, "
+          f"K2/K3 {layers} x {micro}")
+    check(all(np.isfinite(i_losses)), f"imperative: finite losses {i_losses}")
+    check(i_losses == f_losses, f"imperative: per-microbatch losses bit-equal ({i_losses} vs {f_losses})")
+    check(kept.keys() == fused.keys(), f"imperative: the same tensors ({len(kept)} vs {len(fused)})")
+    unequal = [k for k in kept if not torch.equal(kept[k], fused[k])]
+    check(not unequal, f"imperative: parameters and AdamW tensors bit-equal ({len(unequal)} differ: {unequal[:3]})")
+    n_tensors = len(kept)
+    del fused
+    f_traced = traced_window(lambda i: step({"input_ids": batches[i]}))
+    del acc, model2, opt2, step
+    free_memory(torch)
+    run, c_norms, model3, opt3 = imperative(clip=1.0)
+    c_losses, _, c_launches = drive(run)
+    clipped = state_of(model3, opt3)
+    moved = sum(not torch.equal(kept[k], clipped[k]) for k in kept if k.startswith("param/"))
+    check(all(np.isfinite(c_losses)), f"imperative: clipped run's losses finite {c_losses}")
+    check(moved > 0, f"imperative: clip_grad_norm_(1.0) in the loop changed the parameters (pre-clip norms {c_norms})")
+    del run, model3, opt3, clipped, kept
+    free_memory(torch)
+    row = {
+        "phase": "imperative", "config": "TinyLlama-1.1B shape, 22 layers, f32 masters + bf16 compute, remat, "
+        "AdamW(3e-4, weight decay 0.01), seeded", "batch": b, "seq": s, "accum": accum, "microbatches": micro,
+        "optimizer_steps": micro // accum, "losses": i_losses,
+        "bit_equal": {"losses": micro, "params_and_adamw_tensors": n_tensors},
+        "launches": {"imperative": i_launches, "fused": f_launches},
+        # the first window holds the kernels' first calls and the allocator's growth
+        "window_ms": {"imperative": i_ms, "fused": f_ms},
+        "traced_window": {"imperative": i_traced, "fused": f_traced},
+        "clip": {"max_norm": 1.0, "losses": c_losses, "pre_clip_norms": c_norms, "params_changed": moved,
+                 "launches": c_launches},
+    }
+    emit(row)
+    return row
+
+
+def cv_example():
+    """examples/torch_cv_example.py of this checkout, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_cv_example.py"
+    spec = importlib.util.spec_from_file_location("torch_cv_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def resnet_trainer(torch, example, config, dataset, batch_size, lr, total_steps, mixed_precision="bf16", cpu=False,
+                   seed=0, model_device=None, project_dir=None):
+    """examples/torch_cv_example.py's set-up: a fresh Accelerator, a ResNet
+    from ``seed`` made on ``model_device`` (the card by default; the CPU
+    for a card-vs-CPU pair, one generator and one set of weights, which
+    ``prepare`` moves), SGD(momentum 0.9) under the one-cycle schedule, a
+    shuffled loader (seed 42, last partial batch dropped), the has_state
+    train step and the eval step on the running statistics."""
+    from accelerate_tpu_torch import Accelerator, ProjectConfiguration, create_resnet_model, prepare_data_loader
+    from accelerate_tpu_torch import resnet_classification_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    project = ProjectConfiguration(project_dir=project_dir) if project_dir else None
+    acc = Accelerator(mixed_precision=mixed_precision, cpu=cpu, project_config=project)
+    model = create_resnet_model(config, seed=seed, device=model_device)
+    optimizer = torch.optim.SGD(model.module.parameters(), lr=lr, momentum=0.9)
+    schedule = example.onecycle_schedule(total_steps, lr, pct_start=0.25)
+    loader = prepare_data_loader(dataset, batch_size=batch_size, shuffle=True, seed=42, drop_last=True)
+    model, optimizer, loader, schedule = acc.prepare(model, optimizer, loader, schedule)
+    step = acc.build_train_step(lambda p, st, b: resnet_classification_loss(p, st, b, model.apply_fn), has_state=True)
+    eval_step = acc.build_eval_step(lambda p, st, x: model.apply_fn(p, x, st, train=False))
+    return acc, model, optimizer, loader, step, eval_step
+
+
+def running_stats(model) -> dict:
+    """``{name: copy}`` of every BatchNorm running statistic."""
+    from accelerate_tpu_torch.modeling import flatten
+
+    return {k: v.detach().clone() for k, v in flatten(model.state["batch_stats"]).items()}
+
+
+def resnet_step_split(by_name: dict) -> dict:
+    """Device ms of a traced ResNet step by kind of kernel: torch's fused
+    batch norm (statistics, normalise, their backward), cuDNN's
+    convolutions (forward, data and weight gradients), matmuls, reductions
+    (the pool, the loss), and elementwise work."""
+    kinds = {
+        "batch_norm": ("batch_norm",),
+        "convolution": ("conv", "xmma", "cudnn", "implicit_gemm", "fprop", "dgrad", "wgrad", "nhwc", "sm90_"),
+        "matmul": ("gemm", "nvjet", "cutlass"),
+        "reduction": ("reduce", "max_pool", "maxpool", "norm"),
+        "elementwise": ("elementwise", "vectorized", "unrolled", "copy", "fill", "cat"),
+    }
+    split = dict.fromkeys([*kinds, "other"], 0.0)
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds.items() if any(t in low for t in keys)), "other")
+        split[kind] += ms
+    return split
+
+
+def phase_resnet_train(torch):
+    """examples/torch_cv_example.py's loop on the card at its full
+    configuration: ResNet-50 v1.5, 37 classes, 224 x 224 NHWC images, batch
+    64, f32 masters and bf16 compute, SGD(momentum 0.9) under a one-cycle
+    schedule peaking at 3e-2, has_state train step: one epoch of
+    SyntheticPets(n=1024), 16 steps. The loss must be finite and fall
+    (mean of the last four below that of the first four); every running
+    mean and variance must have moved from its initial value; the eval pass
+    on the running statistics must leave them unchanged and
+    gather_for_metrics give back 1024 predictions. Three more steps on the
+    epoch's last batches run under torch.profiler (``traced``): the idle
+    share, and the device time of convolutions against the rest; one more
+    step under ``FlopCounterMode`` counts the step's convolution and
+    matmul operations (forward and backward) for its MFU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from accelerate_tpu_torch import ResNetConfig
+
+    example = cv_example()
+    batch_size, n, size, lr = 64, 1024, 224, 3e-2
+    free_memory(torch)
+    dataset = example.SyntheticPets(n=n, image_size=size, num_classes=37)
+    config = ResNetConfig.resnet50(num_classes=37)
+    acc, model, _, loader, step, eval_step = resnet_trainer(torch, example, config, dataset, batch_size, lr,
+                                                            total_steps=n // batch_size)
+    initial = running_stats(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, last_batches = [], [], []
+    t0 = time.perf_counter()
+    for batch in loader:
+        s0 = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - s0) * 1e3)
+        last_batches = (last_batches + [batch])[-3:]
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    trained = running_stats(model)
+    t0 = time.perf_counter()
+    correct, total = example.evaluate(acc, eval_step, loader)
+    eval_s = time.perf_counter() - t0
+    after_eval = running_stats(model)
+    events, wall_ms, attempts, lost = traced(torch, lambda: [step(batch) for batch in last_batches])
+    busy, by_name = device_time(events)
+    split = resnet_step_split(by_name)
+    with FlopCounterMode(display=False) as counter:  # one more step: its convolution and matmul operations
+        step(last_batches[-1])
+    step_flops = counter.get_total_flops()
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    unmoved = [k for k in initial if torch.equal(initial[k], trained[k])]
+    check(len(losses) == 16 and all(np.isfinite(losses)), f"resnet_train: 16 finite losses {losses}")
+    check(last < first, f"resnet_train: mean of the last four losses {last} < the first four's {first}")
+    check(not unmoved, f"resnet_train: every running statistic moved ({len(unmoved)} did not: {unmoved[:3]})")
+    check(all(torch.equal(trained[k], after_eval[k]) for k in trained), "resnet_train: eval left the statistics")
+    check(all(v.is_cuda for v in trained.values()), "resnet_train: the running statistics live on the card")
+    check(total == n, f"resnet_train: gather_for_metrics gave {total} predictions for {n} rows")
+    step_ms = sorted(times[2:])  # the first two hold cuDNN's algorithm search and the allocator's growth
+    row = {
+        "phase": "resnet_train", "config": "ResNet-50 v1.5, 37 classes, 224 x 224 NHWC, seeded random weights, "
+        "f32 masters + bf16 compute, SGD(momentum 0.9), one-cycle peak 3e-2", "params": model.num_parameters(),
+        "running_statistics": len(trained), "batch": batch_size, "rows": n, "steps": len(losses),
+        "samples_per_s": len(losses) * batch_size / train_s, "train_s": train_s, "eval_s": eval_s,
+        "step_ms_median": statistics.median(step_ms), "step_ms_first": times[:2],
+        "samples_per_s_steady": batch_size / (statistics.median(step_ms) / 1e3), "step_flops": step_flops,
+        "mfu": step_flops / (statistics.median(step_ms) / 1e3) / PEAK_FLOPS["bfloat16"],
+        # the traced steps' convolution and matmul device time against their operations
+        "conv_matmul_tflops": (step_flops * 3 / ((split["convolution"] + split["matmul"]) / 1e3) / 1e12
+                               if split["convolution"] + split["matmul"] else None),
+        "peak_memory_gb": peak_gb, "accuracy": correct / total, "predictions": total,
+        "loss_first4": first, "loss_last4": last, "losses": losses,
+        "traced_steps": 3, "traced_wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms if busy else None, "device_ms_by_kind": split,
+        "trace_attempts": attempts, "trace_lead_lost": lost,
+        "top": [[name[:90], ms, k] for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]],
+    }
+    emit(row)
+    del acc, model, loader, step, eval_step, last_batches, dataset
+    free_memory(torch)
+    return row
+
+
+def phase_resnet_consistency(torch):
+    """ResNetConfig.tiny() at 32 px and ResNet-50's widths cut to two stages
+    of two blocks at 64 px, both f32, 37 and 10 classes: three has_state
+    steps (SGD, momentum 0.9) on the card and the same three on the CPU from
+    the same weights (built on the CPU; ``prepare`` moves them), then the
+    eval logits on one batch. Logits, every parameter and every running
+    statistic within 1e-4 of the CPU's, relative to the larger of the
+    tensor's RMS and 1e-3."""
+    from accelerate_tpu_torch import ResNetConfig
+
+    example = cv_example()
+    rows = []
+    for name, config, size in (("tiny", ResNetConfig.tiny(), 32),
+                               ("resnet50_widths_2_stages", ResNetConfig(stage_sizes=(2, 2), num_classes=37), 64)):
+        dataset = example.SyntheticPets(n=48, image_size=size, num_classes=config.num_classes, seed=3)
+        probe = {"images": torch.as_tensor(dataset.images[:8])}
+        runs = {}
+        for device in ("cuda", "cpu"):
+            acc, model, _, loader, step, eval_step = resnet_trainer(
+                torch, example, config, dataset, 16, 1e-2, total_steps=3, mixed_precision="no",
+                cpu=device == "cpu", seed=5, model_device="cpu")
+            losses = [float(step(b)) for b in loader]
+            logits = eval_step(probe["images"].to(acc.device)).cpu()
+            runs[device] = (losses, logits, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+            del acc, model, loader, step, eval_step
+        (g_losses, g_logits, g_state), (c_losses, c_logits, c_state) = runs["cuda"], runs["cpu"]
+
+        def err(a, b):
+            return float((a - b).abs().max() / b.pow(2).mean().sqrt().clamp_min(1e-3))
+
+        logit_err = err(g_logits, c_logits)
+        param_err = max(err(g_state[k], v) for k, v in c_state.items() if not k.endswith((".mean", ".var")))
+        stat_err = max(err(g_state[k], v) for k, v in c_state.items() if k.endswith((".mean", ".var")))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(g_losses, c_losses))
+        check(len(g_losses) == 3 and all(np.isfinite(g_losses)), f"resnet_consistency {name}: 3 finite losses")
+        for what, e in (("loss", loss_err), ("logits", logit_err), ("params", param_err), ("statistics", stat_err)):
+            check(e <= 1e-4, f"resnet_consistency {name}: card vs CPU {what} err {e} <= 1e-4")
+        rows.append({"model": name, "image_size": size, "losses_cuda": g_losses, "losses_cpu": c_losses,
+                     "loss_rel_err": loss_err, "logits_err_over_rms": logit_err, "param_err_over_rms": param_err,
+                     "statistics_err_over_rms": stat_err})
+    # torch's flags as a user has them (cuDNN's TF32 on): mixed_precision="no" turns it off inside the steps
+    row = {"phase": "resnet_consistency", "config": "f32, batch 16, 3 has_state SGD steps, card vs CPU",
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "runs": rows}
+    emit(row)
+    free_memory(torch)
+    return row
+
+
+def phase_resnet_resume(torch):
+    """resnet_train's configuration (ResNet-50, 37 classes, 224 px, batch
+    64, bf16 compute): three has_state steps, save_state into a temporary
+    directory, every running statistic zeroed, load_state: each restored
+    tensor (parameters, running statistics, SGD momenta) bit-equal to its
+    copy from the save and on the card."""
+    from accelerate_tpu_torch import ResNetConfig
+    from accelerate_tpu_torch.modeling import nest
+
+    example = cv_example()
+    workdir = ckpt_workdir()
+    try:
+        free_memory(torch)
+        dataset = example.SyntheticPets(n=192, image_size=224, num_classes=37, seed=4)
+        acc, model, opt, loader, step, _ = resnet_trainer(torch, example, ResNetConfig.resnet50(num_classes=37),
+                                                          dataset, 64, 3e-2, total_steps=16, project_dir=str(workdir))
+        losses = [float(step(b)) for b in loader]
+        torch.cuda.synchronize()
+        saved = host_state(torch, model, opt)
+        stats = running_stats(model)
+        t0 = time.perf_counter()
+        out = acc.save_state(str(workdir / "checkpoint"))
+        save_s = time.perf_counter() - t0
+        model.state = {"batch_stats": nest({k: torch.zeros_like(v) for k, v in stats.items()})}
+        check(all(not v.any() for v in running_stats(model).values()), "resnet_resume: the statistics zeroed")
+        t0 = time.perf_counter()
+        acc.load_state(str(out))
+        load_s = time.perf_counter() - t0
+        restored = check_restored(torch, saved, model, opt, "resnet_resume")
+        back = running_stats(model)
+        check(all(torch.equal(back[k], v) for k, v in stats.items()) and all(v.is_cuda for v in back.values()),
+              "resnet_resume: every running statistic bit-equal to the save's, on the card")
+        nbytes = dir_bytes(out)
+        del acc, model, opt, loader, step
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(len(losses) == 3 and all(np.isfinite(losses)), f"resnet_resume: 3 finite losses {losses}")
+    row = {"phase": "resnet_resume", "config": "ResNet-50 v1.5, 37 classes, 224 px, batch 64, bf16 compute, SGD",
+           "steps_before_save": 3, "running_statistics": len(stats), "checkpoint_bytes": nbytes, "save_s": save_s,
+           "load_s": load_s, "restored": restored, "losses": losses}
+    emit(row)
+    free_memory(torch)
+    return row
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -2221,14 +2603,13 @@ def main() -> int:
     if Path(accelerate_tpu_torch.__file__).resolve().parent.parent != here:
         print(f"chip_smoke: accelerate_tpu_torch must come from this checkout ({here})", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt` runs some groups of phases
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet` runs some
+    # groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
@@ -2282,6 +2663,12 @@ def main() -> int:
     if not only or "ckpt" in only:
         phase_bert_resume(torch)
         phase_train_resume(torch)
+    if not only or "imperative" in only:
+        phase_imperative(torch)
+    if not only or "resnet" in only:
+        phase_resnet_train(torch)
+        phase_resnet_consistency(torch)
+        phase_resnet_resume(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0

@@ -62,14 +62,16 @@ def test_importing_every_module_loads_no_jax():
                  "analysis.selfcheck", "analysis.changed", "commands.kernelcheck", "data_loader",
                  "utils.operations", "models.bert", "models.convert", "checkpointing", "ft", "ft.manifest",
                  "ft.manager", "ft.topology", "ft.preemption", "ft.crashpoints", "utils.retry",
-                 "utils.safetensors_io", "test_utils.fault_injection"):
+                 "utils.safetensors_io", "test_utils.fault_injection", "models.resnet", "utils.memory",
+                 "test_utils.training", "test_utils.testing"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
 def test_no_source_imports_jax():
     """Neither the package, nor the script that drives it on the card
     (chip_smoke.py), nor its example imports jax or the JAX package."""
-    examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py")]
+    examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
+                                                      "torch_cv_example.py", "torch_gradient_accumulation.py")]
     for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -122,12 +124,13 @@ def test_data_path_and_example_refuse_to_run_without_cuda(monkeypatch):
         Accelerator().prepare(rows)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_data_loader(rows, batch_size=2)
-    for name in ("torch_nlp_example", "torch_checkpointing"):
+    for name, argv in (("torch_nlp_example", ["--tiny"]), ("torch_checkpointing", ["--tiny"]),
+                       ("torch_cv_example", ["--tiny"]), ("torch_gradient_accumulation", [])):
         spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
         example = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(example)
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            example.main(["--tiny"])
+            example.main(argv)
         for cls in (AcceleratorState, GradientState, PartialState):
             cls._reset_state()
     loader = Accelerator(cpu=True).prepare(rows)
@@ -234,3 +237,67 @@ def test_chip_smoke_refuses_without_the_card_or_the_package(tmp_path):
                               timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_imperative_loop_equals_build_train_step():
+    """On the card, examples/torch_gradient_accumulation.py's two paths end
+    on the same parameters bit for bit (at TinyLlama's shape with the flash
+    kernels: chip_smoke.py's imperative phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the imperative and fused paths run on the GPU (chip_smoke.py's imperative)")
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    imperative, fused = _example("torch_gradient_accumulation").main(["--epochs", "4"])
+    assert imperative == fused
+
+
+@pytest.mark.cuda
+def test_cuda_f32_convolutions_are_full_precision():
+    """mixed_precision="no" on the card convolves in real f32 under torch's
+    default flags (cuDNN's TF32 on): a ResNet at ResNet-50's first widths,
+    built on the CPU and moved by prepare, gives logits within 1e-4 of the
+    same model in f64 on the CPU, relative to their RMS (chip_smoke.py's
+    resnet_consistency bound; TF32 is about 1e-3 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: cuDNN's TF32 convolutions exist only on the GPU")
+    import copy
+
+    from accelerate_tpu_torch import Accelerator, ResNetConfig, create_resnet_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    assert torch.backends.cudnn.allow_tf32  # torch's default: what a user gets
+    model = create_resnet_model(ResNetConfig(stage_sizes=(2, 2), num_classes=37), seed=5, device="cpu")
+    reference = copy.deepcopy(model.module).double()
+    images = torch.randn(8, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    acc = Accelerator(mixed_precision="no")
+    model = acc.prepare(model)
+    got = acc.build_eval_step(lambda p, st, x: model.apply_fn(p, x, st, train=False))(images.cuda()).cpu().double()
+    with torch.no_grad():
+        want = reference(images.double())
+    assert float((got - want).abs().max() / want.pow(2).mean().sqrt()) <= 1e-4
+    assert torch.backends.cudnn.allow_tf32  # restored after the step
+
+
+@pytest.mark.cuda
+def test_cuda_cv_example_trains_with_batchnorm_state():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ResNet and its batches live on the GPU (chip_smoke.py's resnet_train)")
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    assert 0.0 <= _example("torch_cv_example").main(["--tiny"]) <= 1.0

@@ -251,7 +251,7 @@ def test_what_is_not_ported_raises(monkeypatch):
     acc = Accelerator(cpu=True)
     model = acc.prepare_model(model)
     acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=LR))
-    with pytest.raises(NotImplementedError, match="has_state"):
+    with pytest.raises(ValueError, match="has_state"):  # ported; a model without mutable state is refused
         acc.build_train_step(lambda p, s, b: 0.0, has_state=True)
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
