@@ -24,6 +24,14 @@
 // 64, causal) about 137 GFLOP for K1, 206 for K2 and 275 for K3, so the
 // FMA units bound all three.
 //
+// Head dims. The kernels are built at the widths D 64, 128 and 256; a head
+// dim d (a multiple of 4; the wrappers pass multiples of 16) runs at the
+// least of them that holds it, its columns past d loaded as zeros and never
+// stored. At D 256 a block owns 32 rows with 2 warps (four tiles of 64 rows
+// would not fit in shared memory), and K3 runs two blocks a key tile, each
+// accumulating half of dK's and dV's columns (all of them would be 256 f32
+// a thread) and each computing S^T and dP^T whole.
+//
 // What the design here does about it. One block of 4 warps owns 64 rows
 // (query rows in K1 and K2, key rows in K3), 16 a warp, and walks the live
 // tiles of the other side in a loop inside the block: the TPU grid's
@@ -45,13 +53,25 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // rows a block owns, and rows of each tile it walks
-constexpr int kPad = 8;    // shared row padding, in elements
-constexpr int kLdP = kTile + kPad;
+constexpr int kPad = 8;  // shared row padding, in elements
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// A block at built width D: kTile rows it owns (and rows of each tile it
+// walks), 16 a warp; kHalves blocks share a K3 key tile, each on kCols of
+// dK's and dV's columns.
+template <int D>
+struct Tile {
+  static constexpr int kTile = D > 128 ? 32 : 64;
+  static constexpr int kThreads = 2 * kTile;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kLd = D + kPad;      // pitch of a q, k, v or dO tile
+  static constexpr int kLdP = kTile + kPad;  // pitch of a warp's P or dS buffer
+  static constexpr int kHalves = D > 128 ? 2 : 1;
+  static constexpr int kCols = D / kHalves;
+  static constexpr size_t kTileBytes = (size_t)kTile * kLd * sizeof(float);
+  static constexpr size_t kWarpBufBytes = (size_t)kWarps * 16 * kLdP * sizeof(float);  // P or dS, 16 rows a warp
+};
 
 struct Params {
   const float* q;
@@ -65,7 +85,7 @@ struct Params {
   float* dq;  // [B, Sq, H, D]
   float* dk;  // [B, Sk, Hkv, D]
   float* dv;
-  int b, h, hkv, sq, sk;
+  int b, h, hkv, sq, sk, d;  // d: the head dim, at most the built width
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
   int causal, window;  // window 0: no band
@@ -125,25 +145,29 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a, i
 }
 
 // kTile rows of D floats from src (row stride in elements) into dst (pitch
-// D + kPad); rows >= valid are zero-filled.
+// D + kPad); rows >= valid and columns >= d are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride, int valid, int tid) {
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride, int valid, int d, int tid) {
+  using W = Tile<D>;
   constexpr int kChunks = D / 4;
-  for (int i = tid; i < kTile * kChunks; i += kThreads) {
+  for (int i = tid; i < W::kTile * kChunks; i += W::kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (D + kPad) + c, src + (ok ? r : 0) * stride + c, ok);
+    const bool ok = r < valid && c < d;
+    cp_async16(dst + r * W::kLd + c, src + (ok ? r * stride + c : 0), ok);
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_row_stats(float* dst, const float* src, int valid, int tid) {
-  if (tid < kTile) cp_async4(dst + tid, src + (tid < valid ? tid : 0), tid < valid);
+  if (tid < Tile<D>::kTile) cp_async4(dst + tid, src + (tid < valid ? tid : 0), tid < valid);
 }
 
-// The warp's 16 x kTile tile (accumulator layout) into its shared buffer.
-__device__ __forceinline__ void store_tile(float* w, const float (&x)[kTile / 8][4], int g, int t) {
+// The warp's 16 x TILE tile (accumulator layout) into its shared buffer.
+template <int TILE>
+__device__ __forceinline__ void store_tile(float* w, const float (&x)[TILE / 8][4], int g, int t) {
+  constexpr int kLdP = TILE + kPad;
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
+  for (int j = 0; j < TILE / 8; ++j) {
     store2(w + g * kLdP + j * 8 + 2 * t, x[j][0], x[j][1]);
     store2(w + (g + 8) * kLdP + j * 8 + 2 * t, x[j][2], x[j][3]);
   }
@@ -160,6 +184,7 @@ __device__ __forceinline__ bool is_valid(int row, int col, const Params& p) {
 }
 
 // _block_live of the Pallas kernel for a kTile x kTile tile
+template <int kTile>
 __device__ __forceinline__ bool tile_live(int q_start, int k_start, const Params& p) {
   const int off = p.sk - p.sq;
   bool live = p.causal ? (q_start + kTile - 1 + off >= k_start) : true;
@@ -168,6 +193,7 @@ __device__ __forceinline__ bool tile_live(int q_start, int k_start, const Params
 }
 
 // every element of the tile unmasked (no per-element test needed)
+template <int kTile>
 __device__ __forceinline__ bool tile_full(int q_start, int k_start, const Params& p) {
   const int off = p.sk - p.sq;
   bool full = q_start + kTile <= p.sq && k_start + kTile <= p.sk;
@@ -177,11 +203,12 @@ __device__ __forceinline__ bool tile_full(int q_start, int k_start, const Params
 }
 
 // Live key tiles [*lo, *hi] of the query tile at q_start (empty if lo > hi).
+template <int kTile>
 __device__ __forceinline__ void live_key_tiles(int q_start, const Params& p, int* lo, int* hi) {
   int h_ = (p.sk + kTile - 1) / kTile - 1;
   if (p.causal) h_ = min(h_, floor_div(q_start + kTile - 1 + p.sk - p.sq, kTile));
   int l_ = 0;
-  while (l_ <= h_ && !tile_live(q_start, l_ * kTile, p)) ++l_;
+  while (l_ <= h_ && !tile_live<kTile>(q_start, l_ * kTile, p)) ++l_;
   *lo = l_;
   *hi = h_;
 }
@@ -204,8 +231,6 @@ __device__ __forceinline__ void quad_sum(float (&x)[N]) {
   }
 }
 
-constexpr size_t kWarpBufBytes = (size_t)kWarps * 16 * kLdP * sizeof(float);  // P or dS, 16 rows a warp
-
 // ---------------------------------------------------------------------------
 // K1: forward
 // ---------------------------------------------------------------------------
@@ -213,12 +238,13 @@ constexpr size_t kWarpBufBytes = (size_t)kWarps * 16 * kLdP * sizeof(float);  //
 // q, k, v tiles, then the warps' P buffers.
 template <int D>
 constexpr size_t fwd_smem() {
-  return (size_t)3 * kTile * (D + kPad) * sizeof(float) + kWarpBufBytes;
+  return 3 * Tile<D>::kTileBytes + Tile<D>::kWarpBufBytes;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
-  constexpr int LD = D + kPad;
+__global__ void __launch_bounds__(Tile<D>::kThreads) flash_fwd_f32(const Params p) {
+  using W = Tile<D>;
+  constexpr int LD = W::kLd, kTile = W::kTile, kLdP = W::kLdP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = qs + kTile * LD;
@@ -233,11 +259,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
 
   int lo, hi;
-  live_key_tiles(q0, p, &lo, &hi);
-  load_tile<D>(qs, qg, p.q_ss, p.sq - q0, tid);
+  live_key_tiles<kTile>(q0, p, &lo, &hi);
+  load_tile<D>(qs, qg, p.q_ss, p.sq - q0, p.d, tid);
   if (lo <= hi) {
-    load_tile<D>(ks, kg + (long long)lo * kTile * p.k_ss, p.k_ss, p.sk - lo * kTile, tid);
-    load_tile<D>(vs, vg + (long long)lo * kTile * p.v_ss, p.v_ss, p.sk - lo * kTile, tid);
+    load_tile<D>(ks, kg + (long long)lo * kTile * p.k_ss, p.k_ss, p.sk - lo * kTile, p.d, tid);
+    load_tile<D>(vs, vg + (long long)lo * kTile * p.v_ss, p.v_ss, p.sk - lo * kTile, p.d, tid);
   }
   cp_async_commit();
 
@@ -253,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
     warp_gemm<kTile / 8, D / 16, false>(s, qs + warp * 16 * LD, LD, ks, LD, lane);
 
     const int k0 = kt * kTile;
-    const bool full = tile_full(q0, k0, p);
+    const bool full = tile_full<kTile>(q0, k0, p);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
@@ -292,14 +318,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
     }
-    store_tile(pw, s, g, t);
+    store_tile<kTile>(pw, s, g, t);
     __syncwarp();
     warp_gemm<D / 8, kTile / 16, true>(o, pw, kLdP, vs, LD, lane);
     __syncthreads();
     if (kt < hi) {  // one stage: the next tile loads once this one is done
       const int nx = (kt + 1) * kTile;
-      load_tile<D>(ks, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, tid);
-      load_tile<D>(vs, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, tid);
+      load_tile<D>(ks, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, p.d, tid);
+      load_tile<D>(vs, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, p.d, tid);
       cp_async_commit();
     }
   }
@@ -310,9 +336,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= p.sq) continue;
     const float lv = fmaxf(l[r], 1e-37f);
-    float* orow = p.out + (((long long)b * p.sq + row) * p.h + h) * D;
+    float* orow = p.out + (((long long)b * p.sq + row) * p.h + h) * p.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) store2(orow + j * 8 + 2 * t, o[j][2 * r] / lv, o[j][2 * r + 1] / lv);
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 < p.d) store2(orow + j * 8 + 2 * t, o[j][2 * r] / lv, o[j][2 * r + 1] / lv);
+    }
     if (t == 0) {
       p.lse_out[((long long)b * p.h + h) * p.sq + row] = m[r] == -INFINITY ? -INFINITY : m[r] * kLn2 + logf(lv);
     }
@@ -326,12 +354,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 // q, dO, k, v tiles, then the warps' dS buffers.
 template <int D>
 constexpr size_t dq_smem() {
-  return (size_t)4 * kTile * (D + kPad) * sizeof(float) + kWarpBufBytes;
+  return 4 * Tile<D>::kTileBytes + Tile<D>::kWarpBufBytes;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
-  constexpr int LD = D + kPad;
+__global__ void __launch_bounds__(Tile<D>::kThreads) flash_dq_f32(const Params p) {
+  using W = Tile<D>;
+  constexpr int LD = W::kLd, kTile = W::kTile, kLdP = W::kLdP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* dos = qs + kTile * LD;
@@ -342,19 +371,19 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / p.h, h = blockIdx.x % p.h, hk = h / (p.h / p.hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const long long o_ss = (long long)p.h * D;
+  const long long o_ss = (long long)p.h * p.d;
   const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const float* dog = p.dout + ((long long)b * p.sq + q0) * o_ss + (long long)h * D;
+  const float* dog = p.dout + ((long long)b * p.sq + q0) * o_ss + (long long)h * p.d;
   const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
   const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
 
   int lo, hi;
-  live_key_tiles(q0, p, &lo, &hi);
-  load_tile<D>(qs, qg, p.q_ss, p.sq - q0, tid);
-  load_tile<D>(dos, dog, o_ss, p.sq - q0, tid);
+  live_key_tiles<kTile>(q0, p, &lo, &hi);
+  load_tile<D>(qs, qg, p.q_ss, p.sq - q0, p.d, tid);
+  load_tile<D>(dos, dog, o_ss, p.sq - q0, p.d, tid);
   if (lo <= hi) {
-    load_tile<D>(ks, kg + (long long)lo * kTile * p.k_ss, p.k_ss, p.sk - lo * kTile, tid);
-    load_tile<D>(vs, vg + (long long)lo * kTile * p.v_ss, p.v_ss, p.sk - lo * kTile, tid);
+    load_tile<D>(ks, kg + (long long)lo * kTile * p.k_ss, p.k_ss, p.sk - lo * kTile, p.d, tid);
+    load_tile<D>(vs, vg + (long long)lo * kTile * p.v_ss, p.v_ss, p.sk - lo * kTile, p.d, tid);
   }
   cp_async_commit();
 
@@ -379,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
     warp_gemm<kTile / 8, D / 16, false>(dp, dos + warp * 16 * LD, LD, vs, LD, lane);
 
     const int k0 = kt * kTile;
-    const bool full = tile_full(q0, k0, p);
+    const bool full = tile_full<kTile>(q0, k0, p);
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
@@ -391,14 +420,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
         dp[j][e] = pv * (dp[j][e] - dlt[r]) * p.scale;  // dS
       }
     }
-    store_tile(dsw, dp, g, t);
+    store_tile<kTile>(dsw, dp, g, t);
     __syncwarp();
     warp_gemm<D / 8, kTile / 16, true>(dq, dsw, kLdP, ks, LD, lane);
     __syncthreads();
     if (kt < hi) {
       const int nx = (kt + 1) * kTile;
-      load_tile<D>(ks, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, tid);
-      load_tile<D>(vs, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, tid);
+      load_tile<D>(ks, kg + (long long)nx * p.k_ss, p.k_ss, p.sk - nx, p.d, tid);
+      load_tile<D>(vs, vg + (long long)nx * p.v_ss, p.v_ss, p.sk - nx, p.d, tid);
       cp_async_commit();
     }
   }
@@ -408,9 +437,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= p.sq) continue;
-    float* drow = p.dq + (((long long)b * p.sq + row) * p.h + h) * D;
+    float* drow = p.dq + (((long long)b * p.sq + row) * p.h + h) * p.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) store2(drow + j * 8 + 2 * t, dq[j][2 * r], dq[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 < p.d) store2(drow + j * 8 + 2 * t, dq[j][2 * r], dq[j][2 * r + 1]);
+    }
   }
 }
 
@@ -421,12 +452,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32(const Params p) {
 // k, v, q, dO tiles, the lse and delta rows, then the warps' P / dS buffers.
 template <int D>
 constexpr size_t dkv_smem() {
-  return (size_t)4 * kTile * (D + kPad) * sizeof(float) + (size_t)2 * kTile * sizeof(float) + kWarpBufBytes;
+  return 4 * Tile<D>::kTileBytes + (size_t)2 * Tile<D>::kTile * sizeof(float) + Tile<D>::kWarpBufBytes;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
-  constexpr int LD = D + kPad;
+__global__ void __launch_bounds__(Tile<D>::kThreads) flash_dkv_f32(const Params p) {
+  using W = Tile<D>;
+  constexpr int LD = W::kLd, kTile = W::kTile, kLdP = W::kLdP, DC = W::kCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + kTile * LD;
@@ -437,34 +469,35 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
   float* pw = dels + kTile + (threadIdx.x >> 5) * 16 * kLdP;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv, groups = p.h / p.hkv;
+  const int bh = blockIdx.x / W::kHalves, c0 = (blockIdx.x % W::kHalves) * DC;  // c0: its first dK, dV column
+  const int b = bh / p.hkv, hk = bh % p.hkv, groups = p.h / p.hkv;
   const int k0 = blockIdx.y * kTile;  // low key tiles see the most queries under causal: first
-  const long long o_ss = (long long)p.h * D;
+  const long long o_ss = (long long)p.h * p.d;
 
-  load_tile<D>(ks, p.k + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss, p.k_ss, p.sk - k0, tid);
-  load_tile<D>(vs, p.v + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss, p.v_ss, p.sk - k0, tid);
+  load_tile<D>(ks, p.k + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss, p.k_ss, p.sk - k0, p.d, tid);
+  load_tile<D>(vs, p.v + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss, p.v_ss, p.sk - k0, p.d, tid);
   cp_async_commit();
 
   const int nq = (p.sq + kTile - 1) / kTile;
   int lo = 0, hi = nq - 1;
-  while (lo <= hi && !tile_live(lo * kTile, k0, p)) ++lo;
-  while (hi >= lo && !tile_live(hi * kTile, k0, p)) --hi;
+  while (lo <= hi && !tile_live<kTile>(lo * kTile, k0, p)) ++lo;
+  while (hi >= lo && !tile_live<kTile>(hi * kTile, k0, p)) --hi;
   const int n_q = hi - lo + 1;
   const int n_iter = n_q > 0 ? groups * n_q : 0;
 
   // the query tile of iteration `it`: q, dO, lse, delta of head hk * groups + it / n_q
   auto issue = [&](int it) {
     const int hh = hk * groups + it / n_q, q0 = (lo + it % n_q) * kTile;
-    load_tile<D>(qs, p.q + b * p.q_sb + hh * p.q_sh + q0 * p.q_ss, p.q_ss, p.sq - q0, tid);
-    load_tile<D>(dos, p.dout + ((long long)b * p.sq + q0) * o_ss + (long long)hh * D, o_ss, p.sq - q0, tid);
+    load_tile<D>(qs, p.q + b * p.q_sb + hh * p.q_sh + q0 * p.q_ss, p.q_ss, p.sq - q0, p.d, tid);
+    load_tile<D>(dos, p.dout + ((long long)b * p.sq + q0) * o_ss + (long long)hh * p.d, o_ss, p.sq - q0, p.d, tid);
     const long long ri = ((long long)b * p.h + hh) * p.sq + q0;
-    load_row_stats(lses, p.lse + ri, p.sq - q0, tid);
-    load_row_stats(dels, p.delta + ri, p.sq - q0, tid);
+    load_row_stats<D>(lses, p.lse + ri, p.sq - q0, tid);
+    load_row_stats<D>(dels, p.delta + ri, p.sq - q0, tid);
     cp_async_commit();
   };
 
-  float dk[D / 8][4] = {};
-  float dv[D / 8][4] = {};
+  float dk[DC / 8][4] = {};
+  float dv[DC / 8][4] = {};
   const float sl2 = p.scale * kLog2e;
   if (n_iter > 0) issue(0);
 
@@ -476,7 +509,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
     // s^T = k q^T: rows are this warp's 16 keys, columns the tile's 64 queries
     float s[kTile / 8][4] = {};
     warp_gemm<kTile / 8, D / 16, false>(s, ks + warp * 16 * LD, LD, qs, LD, lane);
-    const bool full = tile_full(q0, k0, p);
+    const bool full = tile_full<kTile>(q0, k0, p);
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
@@ -488,9 +521,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
       }
     }
     float dp[kTile / 8][4] = {};
-    store_tile(pw, s, g, t);
+    store_tile<kTile>(pw, s, g, t);
     __syncwarp();
-    warp_gemm<D / 8, kTile / 16, true>(dv, pw, kLdP, dos, LD, lane);                    // dv += P^T dO
+    warp_gemm<DC / 8, kTile / 16, true>(dv, pw, kLdP, dos + c0, LD, lane);              // dv += P^T dO
     warp_gemm<kTile / 8, D / 16, false>(dp, vs + warp * 16 * LD, LD, dos, LD, lane);  // dP^T = v dO^T
     __syncwarp();  // every lane has read P^T before dS^T replaces it
 #pragma unroll
@@ -498,9 +531,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dels[j * 8 + 2 * t + (e & 1)]) * p.scale;
     }
-    store_tile(pw, dp, g, t);
+    store_tile<kTile>(pw, dp, g, t);
     __syncwarp();
-    warp_gemm<D / 8, kTile / 16, true>(dk, pw, kLdP, qs, LD, lane);  // dk += dS^T q
+    warp_gemm<DC / 8, kTile / 16, true>(dk, pw, kLdP, qs + c0, LD, lane);  // dk += dS^T q
     __syncthreads();
     if (it + 1 < n_iter) issue(it + 1);
   }
@@ -510,9 +543,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + warp * 16 + g + 8 * r;
     if (key >= p.sk) continue;
-    const long long base = (((long long)b * p.sk + key) * p.hkv + hk) * D;
+    const long long base = (((long long)b * p.sk + key) * p.hkv + hk) * p.d + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
+      if (c0 + j * 8 >= p.d) continue;
       store2(p.dk + base + j * 8 + 2 * t, dk[j][2 * r], dk[j][2 * r + 1]);
       store2(p.dv + base + j * 8 + 2 * t, dv[j][2 * r], dv[j][2 * r + 1]);
     }
@@ -526,16 +560,20 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Params p) {
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // What a launch of `kind` takes: grid (x, y), dynamic shared memory bytes.
+// The built width a head dim runs at.
+int width_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
 template <int D>
 void shape_of(Kind kind, int b, int h, int hkv, int sq, int sk, dim3* grid, size_t* smem) {
+  constexpr int kTile = Tile<D>::kTile;
   const int nq = (sq + kTile - 1) / kTile, nk = (sk + kTile - 1) / kTile;
-  *grid = kind == kDkv ? dim3(b * hkv, nk) : dim3(b * h, nq);
+  *grid = kind == kDkv ? dim3(b * hkv * Tile<D>::kHalves, nk) : dim3(b * h, nq);
   *smem = kind == kFwd ? fwd_smem<D>() : kind == kDq ? dq_smem<D>() : dkv_smem<D>();
 }
 
 bool bad_config(int dtype, int b, int h, int hkv, int sq, int sk, int d) {
-  return dtype != 0 || (d != 64 && d != 128) || b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 || sk <= 0 ||
-         (sq + kTile - 1) / kTile > 65535 || (sk + kTile - 1) / kTile > 65535;
+  return dtype != 0 || d < 4 || d > 256 || d % 4 != 0 || b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
+         sk <= 0 || (sq + 31) / 32 > 65535 || (sk + 31) / 32 > 65535;
 }
 
 template <int D>
@@ -546,33 +584,42 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t s) {
   auto kernel = kind == kFwd ? flash_fwd_f32<D> : kind == kDq ? flash_dq_f32<D> : flash_dkv_f32<D>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, s>>>(p);
+  kernel<<<grid, Tile<D>::kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-int run(Kind kind, int dtype, int d, const Params& p, void* stream) {
-  if (bad_config(dtype, p.b, p.h, p.hkv, p.sq, p.sk, d) || p.window < 0) return (int)cudaErrorInvalidValue;
+int run(Kind kind, int dtype, const Params& p, void* stream) {
+  if (bad_config(dtype, p.b, p.h, p.hkv, p.sq, p.sk, p.d) || p.window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(d == 64 ? launch<64>(kind, p, s) : launch<128>(kind, p, s));
+  const int w = width_of(p.d);
+  return (int)(w == 64 ? launch<64>(kind, p, s) : w == 128 ? launch<128>(kind, p, s) : launch<256>(kind, p, s));
+}
+
+template <int D>
+void config_of(Kind kind, int b, int h, int hkv, int sq, int sk, int* out) {
+  dim3 grid;
+  size_t smem;
+  shape_of<D>(kind, b, h, hkv, sq, sk, &grid, &smem);
+  out[0] = (int)grid.x;
+  out[1] = (int)grid.y;
+  out[2] = Tile<D>::kThreads;
+  out[3] = (int)smem;
 }
 
 int config(Kind kind, int dtype, int b, int h, int hkv, int sq, int sk, int d, int* out) {
   if (bad_config(dtype, b, h, hkv, sq, sk, d)) return (int)cudaErrorInvalidValue;
-  dim3 grid;
-  size_t smem;
-  if (d == 64) {
-    shape_of<64>(kind, b, h, hkv, sq, sk, &grid, &smem);
+  const int w = width_of(d);
+  if (w == 64) {
+    config_of<64>(kind, b, h, hkv, sq, sk, out);
+  } else if (w == 128) {
+    config_of<128>(kind, b, h, hkv, sq, sk, out);
   } else {
-    shape_of<128>(kind, b, h, hkv, sq, sk, &grid, &smem);
+    config_of<256>(kind, b, h, hkv, sq, sk, out);
   }
-  out[0] = (int)grid.x;
-  out[1] = (int)grid.y;
-  out[2] = kThreads;
-  out[3] = (int)smem;
   return 0;
 }
 
-Params make_params(const void* q, const void* k, const void* v, int b, int h, int hkv, int sq, int sk,
+Params make_params(const void* q, const void* k, const void* v, int b, int h, int hkv, int sq, int sk, int d,
                    const long long* strides, float scale, int causal, int window) {
   Params p = {};
   p.q = static_cast<const float*>(q);
@@ -583,6 +630,7 @@ Params make_params(const void* q, const void* k, const void* v, int b, int h, in
   p.hkv = hkv;
   p.sq = sq;
   p.sk = sk;
+  p.d = d;
   p.q_sb = strides[0], p.q_ss = strides[1], p.q_sh = strides[2];
   p.k_sb = strides[3], p.k_ss = strides[4], p.k_sh = strides[5];
   p.v_sb = strides[6], p.v_ss = strides[7], p.v_sh = strides[8];
@@ -601,35 +649,35 @@ Params make_params(const void* q, const void* k, const void* v, int b, int h, in
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
                                    int b, int h, int hkv, int sq, int sk, int d, const long long* strides,
                                    float scale, int causal, int window, void* stream) {
-  Params p = make_params(q, k, v, b, h, hkv, sq, sk, strides, scale, causal, window);
+  Params p = make_params(q, k, v, b, h, hkv, sq, sk, d, strides, scale, causal, window);
   p.out = static_cast<float*>(out);
   p.lse_out = lse;
-  return run(kFwd, dtype, d, p, stream);
+  return run(kFwd, dtype, p, stream);
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                                   const float* delta, float* dq, int dtype, int b, int h, int hkv, int sq, int sk,
                                   int d, const long long* strides, float scale, int causal, int window,
                                   void* stream) {
-  Params p = make_params(q, k, v, b, h, hkv, sq, sk, strides, scale, causal, window);
+  Params p = make_params(q, k, v, b, h, hkv, sq, sk, d, strides, scale, causal, window);
   p.dout = static_cast<const float*>(dout);
   p.lse = lse;
   p.delta = delta;
   p.dq = dq;
-  return run(kDq, dtype, d, p, stream);
+  return run(kDq, dtype, p, stream);
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                                    const float* delta, float* dk, float* dv, int dtype, int b, int h, int hkv,
                                    int sq, int sk, int d, const long long* strides, float scale, int causal,
                                    int window, void* stream) {
-  Params p = make_params(q, k, v, b, h, hkv, sq, sk, strides, scale, causal, window);
+  Params p = make_params(q, k, v, b, h, hkv, sq, sk, d, strides, scale, causal, window);
   p.dout = static_cast<const float*>(dout);
   p.lse = lse;
   p.delta = delta;
   p.dk = dk;
   p.dv = dv;
-  return run(kDkv, dtype, d, p, stream);
+  return run(kDkv, dtype, p, stream);
 }
 
 // What each entry launches for these shapes (dtype 0): out[0..1] grid x, y,

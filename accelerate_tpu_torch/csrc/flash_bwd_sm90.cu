@@ -13,8 +13,9 @@
 // contiguous), lse/delta [B, H, Sq] f32, dq [B, Sq, H, D] f32, dk/dv [B, Sk,
 // Hkv, D] f32; causal aligned bottom-right, the band keeps keys > i + Sk - Sq
 // - window, a dead row (lse -inf) gives P = 0; P is rounded to dO's type
-// before P^T dO, dS to k's type before dS k and to q's type before dS^T q,
-// and every product accumulates in f32.
+// before P^T dO, dS to k's type before dS k, and dS goes into dS^T q as two
+// parts of q's type, dS rounded and the residual rounded (the Pallas kernel
+// rounds it once; see K3 below); every product accumulates in f32.
 //
 // What bounds it. At the training shape (B 8, H 32, Hkv 4, S 2048, D 64,
 // causal) K2's three products are about 206 GFLOP and K3's four 275, against
@@ -22,25 +23,40 @@
 // and 0.28 ms at 989 TFLOP/s). Each computes one exp2 a live (query, key)
 // pair against 6 D (K2) or 8 D (K3) tensor-core FLOPs.
 //
+// Head dims as in K1: built at D 64, 128 and 256, a head dim d (a multiple
+// of 16) run at the least that holds it, its tensor maps d columns wide (TMA
+// reads the columns past d as zeros) and its stores stopping at d.
+//
 // What the design does about it: K1's (flash_fwd_sm90.cu), whose primitives
 // sm90_common.cuh shares. A block is a producer warpgroup and consumer
 // warpgroups of 64 rows each; the producer gives up registers (setmaxnreg)
 // and loads every tile by TMA (128-byte swizzle, rows past S read as zeros)
 // into rings of two stages with a full and an empty mbarrier a stage; every
 // product is a wgmma chain with no operand copied by hand.
-//  K2, consumers own query rows (three at D 64, two at D 128): one producer
+//  K2, consumers own query rows (three at D 64, two at D 128, one at D 256,
+//   where dQ alone is 128 f32 a thread and Q and dO of two consumers with
+//   the K and V rings would be 256 KB): one producer
 //   thread loads the block's Q and dO once and then the K tiles of 64 keys,
 //   another the V tiles. S = Q K^T and dP = dO V^T read both operands K-major
 //   from shared memory; P and dS are computed in registers from each row's
 //   lse and delta (read once), and dS, rounded to k's type, is the A operand
 //   of dQ += dS K, K read MN-major through the descriptor's transpose bit.
-//  K3, consumers own key rows (two: 128 f32 of dK and dV a thread at D 128):
+//  K3, consumers own key rows (two: 128 f32 of dK and dV a thread at D 128;
+//   at D 256 both consumers take the same 64 key rows, each accumulating
+//   half of dK's and dV's columns, and each computes S^T and dP^T whole,
+//   since dK and dV of 64 rows would be 256 f32 a thread):
 //   the block's K and V are loaded once; one producer thread streams the Q
 //   and dO tiles of 64 queries over groups x live query tiles, and one
 //   producer warp writes each tile's lse (in the log2 domain) and delta beside
 //   them. In the transposed orientation S^T = K Q^T and dP^T = V dO^T read
 //   both operands K-major; P^T and dS^T, rounded in registers, are the A
-//   operands of dV += P^T dO and dK += dS^T Q, dO and Q read MN-major: one
+//   operands of dV += P^T dO and dK += dS^T Q (dS^T as its rounded part and
+//   then its rounded residual, two chains into one accumulator: rounded once,
+//   as the Pallas kernel does, dS's rounding fell the other way in the kernel
+//   and its plain version on rare large entries, each of those one 16-bit ulp
+//   of dS times a row of Q: 1.58 x FLASH_TOL on one dk element of Phi-3's B 8
+//   x 2048 MHA backward in chip_smoke.py; PERF.md), dO and Q read
+//   MN-major: one
 //   TMA-loaded tile serves both ways, as K1's K and V do. The G query heads
 //   of a kv group are summed in registers: no [B, H, Sk, D] intermediate and
 //   no atomics, so results repeat bit for bit from run to run.
@@ -68,10 +84,10 @@ constexpr int kStages = 2;  // tiles in flight
 struct Args {
   const float* lse;    // [B, H, Sq]
   const float* delta;  // [B, H, Sq]
-  float* dq;           // [B, Sq, H, D]
-  float* dk;           // [B, Sk, Hkv, D]
-  float* dv;           // [B, Sk, Hkv, D]
-  int h, hkv, sq, sk;
+  float* dq;           // [B, Sq, H, d]
+  float* dk;           // [B, Sk, Hkv, d]
+  float* dv;           // [B, Sk, Hkv, d]
+  int h, hkv, sq, sk, d;  // d: the head dim, at most the built width
   float scale;
   int causal, window;  // window 0: no band
 };
@@ -82,13 +98,17 @@ struct Args {
 // tiles (two consumers) 25% slower than 64 (PERF.md). Shared memory: Q and dO [D / 64][kRows][64] each, then K and V
 // [kStages][D / 64][kTile][64], each 64-column box 128-byte swizzled and
 // 1024-byte aligned; then the mbarriers. 1024 bytes of slack align the base.
+//
+// At D 256 one consumer: the block's 256 threads start with what ptxas
+// gives them (up to 255 registers a thread), so no setmaxnreg trade.
 template <int D>
 struct DqSmem {
-  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kConsumers = D == 64 ? 3 : D == 128 ? 2 : 1;
+  static constexpr bool kTrade = kConsumers > 1;  // setmaxnreg between the warpgroups
   static constexpr int kRows = 64 * kConsumers;  // query rows a block owns
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kProducerRegs = kConsumers == 2 ? 24 : 32;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kProducerRegs = kConsumers == 3 ? 32 : 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
   static constexpr int kQ = kRows * D * 2;   // Q (or dO) of the block
   static constexpr int kKV = kTile * D * 2;  // one stage of K (or V)
   static constexpr int kBars = 2 * kQ + 2 * kStages * kKV;
@@ -96,13 +116,18 @@ struct DqSmem {
 };
 
 // K3's block: two consumers, 64 key rows each (128 f32 of dK and dV a thread
-// at D 128 beside S^T and dP^T: 240 registers). Shared memory: K and V
-// [D / 64][kRows][64] each, then Q and dO [kStages][D / 64][kTile][64], then
-// lse and delta [kStages][2][kTile] f32, then the mbarriers.
+// at D 128 beside S^T and dP^T: 240 registers); at D 256 the same 64 key
+// rows for both, each on 128 of dK's and dV's columns (kSplit). Shared
+// memory: K and V [D / 64][kRows][64] each, then Q and dO [kStages][D /
+// 64][kTile][64], then lse and delta [kStages][2][kTile] f32, then the
+// mbarriers.
 template <int D>
 struct DkvSmem {
   static constexpr int kConsumers = 2;
-  static constexpr int kRows = 64 * kConsumers;  // key rows a block owns
+  static constexpr bool kTrade = true;
+  static constexpr bool kSplit = D > 128;                  // the consumers split the columns
+  static constexpr int kCols = kSplit ? D / 2 : D;         // dK and dV columns a consumer holds
+  static constexpr int kRows = kSplit ? 64 : 64 * kConsumers;  // key rows a block owns
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = 240;
@@ -114,9 +139,16 @@ struct DkvSmem {
   static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
 };
 
-int dq_rows(int d) { return d == 64 ? DqSmem<64>::kRows : DqSmem<128>::kRows; }
+// The built width a head dim runs at.
+int width_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+int dq_rows(int d) {
+  const int w = width_of(d);
+  return w == 64 ? DqSmem<64>::kRows : w == 128 ? DqSmem<128>::kRows : DqSmem<256>::kRows;
+}
+int dkv_rows(int d) { return width_of(d) == 256 ? DkvSmem<256>::kRows : DkvSmem<128>::kRows; }
 dim3 dq_grid(int b, int h, int sq, int d) { return dim3(b * h, (sq + dq_rows(d) - 1) / dq_rows(d)); }
-dim3 dkv_grid(int b, int hkv, int sk) { return dim3(b * hkv, (sk + DkvSmem<64>::kRows - 1) / DkvSmem<64>::kRows); }
+dim3 dkv_grid(int b, int hkv, int sk, int d) { return dim3(b * hkv, (sk + dkv_rows(d) - 1) / dkv_rows(d)); }
 
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N][4]) {
@@ -235,9 +267,11 @@ __device__ __forceinline__ void dq_consume(const DqRing<D>& ring, const Args& p,
   for (int r = 0; r < 2; ++r) {
     const int rr = row + 8 * r;
     if (rr >= p.sq) continue;
-    float* drow = p.dq + (((long long)b * p.sq + rr) * p.h + h) * D;
+    float* drow = p.dq + (((long long)b * p.sq + rr) * p.h + h) * p.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) store2(drow + j * 8 + 2 * t, dq[j][2 * r], dq[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 < p.d) store2(drow + j * 8 + 2 * t, dq[j][2 * r], dq[j][2 * r + 1]);
+    }
   }
 }
 
@@ -270,10 +304,10 @@ __global__ void __launch_bounds__(DqSmem<D>::kThreads, 1)
   __syncthreads();
 
   if (wg == 0) {  // producer: two threads issue every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
+    if constexpr (S::kTrade) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
     dq_produce<D>(ring, &tq, &tdo, &tk, &tv, q0, h, hk, b, lo, n);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
+    if constexpr (S::kTrade) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
     dq_consume<T, D>(ring, p, wg - 1, q0, b, h, lo, n);
   }
 }
@@ -350,18 +384,22 @@ template <typename T, int D>
 __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring, const Args& p, int cw, int k0, int b, int hk,
                                             int lo, int n_q) {
   using S = DkvSmem<D>;
+  constexpr int DC = S::kCols;
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
   const bool leader = (tid & 127) == 0;
-  const int kc = k0 + cw * 64, key = kc + warp * 16 + g, n_iter = (p.h / p.hkv) * n_q;
-  const uint32_t k_tile = ring.k + cw * 64 * kRowBytes, v_tile = ring.v + cw * 64 * kRowBytes;
+  const int rw = S::kSplit ? 0 : cw;  // its 64 key rows of the block
+  const int c0 = S::kSplit ? cw * DC : 0;  // its first column of dK and dV
+  const uint32_t c_off = (c0 / kBoxCols) * kTile * kRowBytes;  // that column's box in a Q or dO tile
+  const int kc = k0 + rw * 64, key = kc + warp * 16 + g, n_iter = (p.h / p.hkv) * n_q;
+  const uint32_t k_tile = ring.k + rw * 64 * kRowBytes, v_tile = ring.v + rw * 64 * kRowBytes;
   int clo = lo, chi = lo + n_q - 1;  // its live query tiles
   if (kc >= p.sk) chi = clo - 1;     // keys past Sk: nothing to compute, nothing stored
   const int kn = min(64, p.sk - kc);
   while (clo <= chi && !tile_live(clo * kTile, kTile, kc, kn, p)) ++clo;
   while (chi >= clo && !tile_live(chi * kTile, kTile, kc, kn, p)) --chi;
 
-  float dk[D / 8][4], dv[D / 8][4], s[kTile / 8][4], dp[kTile / 8][4];
-  unsigned pf[kTile / 16][4] = {}, dsf[kTile / 16][4] = {};
+  float dk[DC / 8][4], dv[DC / 8][4], s[kTile / 8][4], dp[kTile / 8][4];
+  unsigned pf[kTile / 16][4] = {}, dsf[kTile / 16][4] = {}, dsl[kTile / 16][4] = {};
   zero(dk);
   zero(dv);
   const float sl2 = p.scale * kLog2e;
@@ -392,7 +430,7 @@ __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring, const Args& 
       }
     }
     acc_to_afrags<T, kTile / 16>(pf, s);                          // rounded to dO's type
-    issue_rs<T, D, kTile / 16>(dv, pf, ring.do_tile(st), kTile);  // dV += P^T dO
+    issue_rs<T, DC, kTile / 16>(dv, pf, ring.do_tile(st) + c_off, kTile);  // dV += P^T dO
     wgmma_wait<1>();                                              // dP^T done, dV in flight
     pin(dp);
 #pragma unroll
@@ -400,13 +438,15 @@ __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring, const Args& 
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dl[j * 8 + 2 * t + (e & 1)]) * p.scale;  // dS^T
     }
-    acc_to_afrags<T, kTile / 16>(dsf, dp);                        // rounded to q's type
-    issue_rs<T, D, kTile / 16>(dk, dsf, ring.q_tile(st), kTile);  // dK += dS^T Q
+    acc_to_afrags_split<T, kTile / 16>(dsf, dsl, dp);  // rounded to q's type, and the residual
+    issue_rs<T, DC, kTile / 16>(dk, dsf, ring.q_tile(st) + c_off, kTile);  // dK += dS^T Q
+    issue_rs<T, DC, kTile / 16>(dk, dsl, ring.q_tile(st) + c_off, kTile);
     wgmma_wait<0>();
     pin(dk);
     pin(dv);
     pin(pf);
     pin(dsf);
+    pin(dsl);
     mbar_arrive_if(ring.empty(st), leader);
   }
 
@@ -414,9 +454,10 @@ __device__ __forceinline__ void dkv_consume(const DkvRing<D>& ring, const Args& 
   for (int r = 0; r < 2; ++r) {
     const int kr = key + 8 * r;
     if (kr >= p.sk) continue;
-    const long long at = (((long long)b * p.sk + kr) * p.hkv + hk) * D;
+    const long long at = (((long long)b * p.sk + kr) * p.hkv + hk) * p.d + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
+      if (c0 + j * 8 >= p.d) continue;
       store2(p.dk + at + j * 8 + 2 * t, dk[j][2 * r], dk[j][2 * r + 1]);
       store2(p.dv + at + j * 8 + 2 * t, dv[j][2 * r], dv[j][2 * r + 1]);
     }
@@ -475,11 +516,11 @@ template <typename T, int D>
 CUresult encode_all(CUtensorMap* tq, CUtensorMap* tdo, CUtensorMap* tk, CUtensorMap* tv, const void* q,
                     const void* k, const void* v, const void* dout, const Args& a, int b, const long long* strides,
                     int q_rows, int k_rows) {
-  const long long do_strides[3] = {(long long)a.sq * a.h * D, (long long)a.h * D, D};
-  CUresult r = encode(tq, map_type<T>(), q, b, a.sq, a.h, D, strides, q_rows);
-  if (r == CUDA_SUCCESS) r = encode(tdo, map_type<T>(), dout, b, a.sq, a.h, D, do_strides, q_rows);
-  if (r == CUDA_SUCCESS) r = encode(tk, map_type<T>(), k, b, a.sk, a.hkv, D, strides + 3, k_rows);
-  if (r == CUDA_SUCCESS) r = encode(tv, map_type<T>(), v, b, a.sk, a.hkv, D, strides + 6, k_rows);
+  const long long do_strides[3] = {(long long)a.sq * a.h * a.d, (long long)a.h * a.d, a.d};
+  CUresult r = encode(tq, map_type<T>(), q, b, a.sq, a.h, a.d, strides, q_rows);
+  if (r == CUDA_SUCCESS) r = encode(tdo, map_type<T>(), dout, b, a.sq, a.h, a.d, do_strides, q_rows);
+  if (r == CUDA_SUCCESS) r = encode(tk, map_type<T>(), k, b, a.sk, a.hkv, a.d, strides + 3, k_rows);
+  if (r == CUDA_SUCCESS) r = encode(tv, map_type<T>(), v, b, a.sk, a.hkv, a.d, strides + 6, k_rows);
   return r;
 }
 
@@ -491,8 +532,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   CUtensorMap tq, tdo, tk, tv;
   const CUresult r = encode_all<T, D>(&tq, &tdo, &tk, &tv, q, k, v, dout, a, b, strides, S::kRows, kTile);
   if (r != CUDA_SUCCESS) return -(int)r;  // a CUresult of cuTensorMapEncodeTiled, negated
-  static const cudaError_t regs = registers_suffice(reinterpret_cast<const void*>(flash_dq_wgmma<T, D>), S::kThreads,
-                                                    S::kProducerRegs, S::kConsumers, S::kConsumerRegs);
+  static const cudaError_t regs =
+      S::kTrade ? registers_suffice(reinterpret_cast<const void*>(flash_dq_wgmma<T, D>), S::kThreads,
+                                    S::kProducerRegs, S::kConsumers, S::kConsumerRegs)
+                : cudaSuccess;
   cudaError_t err = regs;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_dq_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
@@ -515,13 +558,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_dkv_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_wgmma<T, D><<<dkv_grid(b, a.hkv, a.sk), S::kThreads, S::kBytes, stream>>>(tk, tv, tq, tdo, a);
+  flash_dkv_wgmma<T, D><<<dkv_grid(b, a.hkv, a.sk, D), S::kThreads, S::kBytes, stream>>>(tk, tv, tq, tdo, a);
   return (int)cudaGetLastError();
 }
 
 bool bad_config(int dtype, int b, int h, int hkv, int sq, int sk, int d) {
-  return (dtype != 1 && dtype != 2) || (d != 64 && d != 128) || b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 ||
-         sq <= 0 || sk <= 0 || dq_grid(b, h, sq, d).y > 65535 || dkv_grid(b, hkv, sk).y > 65535;
+  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 16 != 0 || b <= 0 || h <= 0 || hkv <= 0 ||
+         h % hkv != 0 || sq <= 0 || sk <= 0 || dq_grid(b, h, sq, d).y > 65535 || dkv_grid(b, hkv, sk, d).y > 65535;
 }
 
 enum Kind { kDq = 0, kDkv = 1 };
@@ -530,16 +573,25 @@ int run(Kind kind, const void* q, const void* k, const void* v, const void* dout
         int d, const long long* strides, void* stream) {
   if (bad_config(dtype, b, a.h, a.hkv, a.sq, a.sk, d) || a.window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = width_of(d);
   if (kind == kDq) {
-    if (dtype == 1) return d == 64 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, a, b, strides, s)
-                                   : launch_dq<__nv_bfloat16, 128>(q, k, v, dout, a, b, strides, s);
-    return d == 64 ? launch_dq<__half, 64>(q, k, v, dout, a, b, strides, s)
-                   : launch_dq<__half, 128>(q, k, v, dout, a, b, strides, s);
+    if (dtype == 1) {
+      if (w == 64) return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, a, b, strides, s);
+      if (w == 128) return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, a, b, strides, s);
+      return launch_dq<__nv_bfloat16, 256>(q, k, v, dout, a, b, strides, s);
+    }
+    if (w == 64) return launch_dq<__half, 64>(q, k, v, dout, a, b, strides, s);
+    if (w == 128) return launch_dq<__half, 128>(q, k, v, dout, a, b, strides, s);
+    return launch_dq<__half, 256>(q, k, v, dout, a, b, strides, s);
   }
-  if (dtype == 1) return d == 64 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, a, b, strides, s)
-                                 : launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, a, b, strides, s);
-  return d == 64 ? launch_dkv<__half, 64>(q, k, v, dout, a, b, strides, s)
-                 : launch_dkv<__half, 128>(q, k, v, dout, a, b, strides, s);
+  if (dtype == 1) {
+    if (w == 64) return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, a, b, strides, s);
+    if (w == 128) return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, a, b, strides, s);
+    return launch_dkv<__nv_bfloat16, 256>(q, k, v, dout, a, b, strides, s);
+  }
+  if (w == 64) return launch_dkv<__half, 64>(q, k, v, dout, a, b, strides, s);
+  if (w == 128) return launch_dkv<__half, 128>(q, k, v, dout, a, b, strides, s);
+  return launch_dkv<__half, 256>(q, k, v, dout, a, b, strides, s);
 }
 
 }  // namespace
@@ -552,7 +604,7 @@ int run(Kind kind, const void* q, const void* k, const void* v, const void* dout
 extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                              const float* delta, float* dq, int dtype, int b, int h, int hkv, int sq, int sk, int d,
                              const long long* strides, float scale, int causal, int window, void* stream) {
-  const Args a = {lse, delta, dq, nullptr, nullptr, h, hkv, sq, sk, scale, causal, window};
+  const Args a = {lse, delta, dq, nullptr, nullptr, h, hkv, sq, sk, d, scale, causal, window};
   return run(kDq, q, k, v, dout, a, dtype, b, d, strides, stream);
 }
 
@@ -560,7 +612,7 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v, const
                               const float* delta, float* dk, float* dv, int dtype, int b, int h, int hkv, int sq,
                               int sk, int d, const long long* strides, float scale, int causal, int window,
                               void* stream) {
-  const Args a = {lse, delta, nullptr, dk, dv, h, hkv, sq, sk, scale, causal, window};
+  const Args a = {lse, delta, nullptr, dk, dv, h, hkv, sq, sk, d, scale, causal, window};
   return run(kDkv, q, k, v, dout, a, dtype, b, d, strides, stream);
 }
 
@@ -571,17 +623,19 @@ extern "C" int flash_dq_sm90_config(int dtype, int b, int h, int hkv, int sq, in
   const dim3 g = dq_grid(b, h, sq, d);
   out[0] = (int)g.x;
   out[1] = (int)g.y;
-  out[2] = d == 64 ? DqSmem<64>::kThreads : DqSmem<128>::kThreads;
-  out[3] = d == 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
+  const int w = width_of(d);
+  out[2] = w == 64 ? DqSmem<64>::kThreads : w == 128 ? DqSmem<128>::kThreads : DqSmem<256>::kThreads;
+  out[3] = w == 64 ? DqSmem<64>::kBytes : w == 128 ? DqSmem<128>::kBytes : DqSmem<256>::kBytes;
   return 0;
 }
 
 extern "C" int flash_dkv_sm90_config(int dtype, int b, int h, int hkv, int sq, int sk, int d, int* out) {
   if (bad_config(dtype, b, h, hkv, sq, sk, d)) return (int)cudaErrorInvalidValue;
-  const dim3 g = dkv_grid(b, hkv, sk);
+  const dim3 g = dkv_grid(b, hkv, sk, d);
+  const int w = width_of(d);
   out[0] = (int)g.x;
   out[1] = (int)g.y;
-  out[2] = d == 64 ? DkvSmem<64>::kThreads : DkvSmem<128>::kThreads;
-  out[3] = d == 64 ? DkvSmem<64>::kBytes : DkvSmem<128>::kBytes;
+  out[2] = w == 64 ? DkvSmem<64>::kThreads : w == 128 ? DkvSmem<128>::kThreads : DkvSmem<256>::kThreads;
+  out[3] = w == 64 ? DkvSmem<64>::kBytes : w == 128 ? DkvSmem<128>::kBytes : DkvSmem<256>::kBytes;
   return 0;
 }

@@ -20,18 +20,27 @@
 // softmax's exp2 costs the special-function units about as long again: one
 // exp2 a (query, key) pair against 4 D tensor-core FLOPs.
 //
+// Head dims. The kernel is built at the widths D 64, 128 and 256; a head dim
+// d (a multiple of 16) runs at the least of them that holds it. Its tensor
+// maps are d columns wide, so TMA reads the columns past d as zeros (Q K^T
+// stays exact, and the columns of O past d stay 0) and the stores stop at d.
+//
 // What the design does about it. A block is a producer warpgroup and one
-// consumer warpgroup for each 64 query rows (three at D 64, two at D 128;
-// see Smem). The producer gives up registers (setmaxnreg); one of its threads
-// loads Q once and then the K tiles of 128 keys, another the V tiles, each
+// consumer warpgroup for each 64 query rows (three at D 64, two at D 128 and
+// 256; see Smem). The producer gives up registers (setmaxnreg); one of its threads
+// loads Q once and then the K tiles of 128 keys (64 at D 256), another the
+// V tiles, each
 // through its own ring of two stages with a full and an empty mbarrier a
 // stage, all as TMA loads. TMA swizzles each 64-column box 128 bytes wide (D
-// 128: two boxes a row) and zero-fills rows past S, so no thread computes an
+// 128: two boxes a row, D 256 four) and zero-fills rows past S and columns
+// past d, so no thread computes an
 // address or masks a load. The consumers take the producer's registers: S =
-// Q K^T is one wgmma.mma_async m64n128k16 chain with both operands read from
+// Q K^T is one wgmma.mma_async m64n128k16 (m64n64k16 at D 256) chain with
+// both operands read from
 // shared memory through descriptors (Q and K are K-major as stored); P,
 // rounded to v's type, stays in registers as the A operand of O += P V (the
-// m64 accumulator and the A fragment line up), and V is read MN-major
+// m64 accumulator and the A fragment line up; at D 256 O is two halves of
+// 128 columns, each its own m64n128k16 chain), and V is read MN-major
 // through the descriptor's transpose bit. Each consumer issues tile i's S
 // product before tile i - 1's P V, so its softmax runs while P V is on the
 // tensor cores, and the consumers run out of step, so one's softmax overlaps
@@ -43,7 +52,7 @@
 // (__grid_constant__), encoded on the host through the driver entry point,
 // so the library needs no -lcuda. Tried and measured on the card, and left
 // out (PERF.md): a ping-pong order between the consumers, three stages,
-// 64-key tiles, and persistent blocks.
+// 64-key tiles at D 64, and persistent blocks.
 
 #include "sm90_common.cuh"
 
@@ -51,21 +60,23 @@
 
 namespace {
 
-constexpr int kKeys = 128;  // keys of a K or V tile
 constexpr int kStages = 2;  // K and V tiles in flight
 
 // A block: warpgroup 0 produces, the others consume, 64 query rows each.
 // D 64: three consumers (192 rows), so each K and V tile serves more rows and
 // each scheduler has three warps whose softmax hides the others' latency;
-// D 128: two, which the registers allow. Warpgroups trade registers with
+// D 128: two, which the registers allow; D 256 two as well, on K and V tiles
+// of 64 keys, since O alone is 128 f32 a thread and Q with four stages of
+// 128-key tiles would be 320 KB. Warpgroups trade registers with
 // setmaxnreg: producer x 128 + consumer x 128 x consumers = 65,536, so the
 // kernel must start with at least 65,536 / threads registers a thread.
 //
-// Shared memory: Q [D / 64][kRows][64], then K and V [kStages][D / 64][kKeys]
-// [64], each 64-column box 128-byte swizzled and 1024-byte aligned; then the
-// mbarriers. 1024 bytes of slack align the base.
+// Shared memory (D 256: 193 KB): Q [D / 64][kRows][64], then K and V
+// [kStages][D / 64][kKeys][64], each 64-column box 128-byte swizzled and
+// 1024-byte aligned; then the mbarriers. 1024 bytes of slack align the base.
 template <int D>
 struct Smem {
+  static constexpr int kKeys = D > 128 ? 64 : 128;  // keys of a K or V tile
   static constexpr int kConsumers = D == 64 ? 3 : 2;
   static constexpr int kRows = 64 * kConsumers;  // query rows a block owns
   static constexpr int kThreads = 128 * (kConsumers + 1);
@@ -78,14 +89,17 @@ struct Smem {
 };
 
 struct Args {
-  void* out;   // [B, Sq, H, D] contiguous, q's type
+  void* out;   // [B, Sq, H, d] contiguous, q's type
   float* lse;  // [B, H, Sq]
-  int h, hkv, sq, sk;
+  int h, hkv, sq, sk, d;  // d: the head dim, at most the built width
   float scale;
   int causal, window;  // window 0: no band
 };
 
-int rows_of(int d) { return d == 64 ? Smem<64>::kRows : Smem<128>::kRows; }
+// The built width a head dim runs at.
+int width_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+int rows_of(int d) { return width_of(d) == 64 ? Smem<64>::kRows : Smem<128>::kRows; }
 
 dim3 grid_of(int b, int h, int sq, int d) { return dim3(b * h, (sq + rows_of(d) - 1) / rows_of(d)); }
 
@@ -97,6 +111,7 @@ dim3 grid_of(int b, int h, int sq, int d) { return dim3(b * h, (sq + rows_of(d) 
 // the row max m and row sum l move on, corr is what O must be scaled by.
 // `row` is the thread's first row (its second is row + 8), `col` its first
 // column of the tile (then + 1, and each 8-column tile on).
+template <int kKeys>
 __device__ __forceinline__ void softmax_step(float (&s)[kKeys / 8][4], float (&m)[2], float (&l)[2], float (&corr)[2],
                                              int row, int col, bool full, float sl2, const Args& p) {
   float mx[2] = {-INFINITY, -INFINITY};
@@ -173,7 +188,7 @@ __device__ __forceinline__ void produce(const Ring<D>& ring, const CUtensorMap* 
     for (int c = 0; c < D / kBoxCols; ++c)
       tma_load(ring.q + c * Smem<D>::kRows * kRowBytes, tq, ring.q_full(), c * kBoxCols, q0, h, b);
   }
-  stream_kv<kStages, D>(ring, tk, tv, hk, b, lo, n, kKeys, Smem<D>::kKV);
+  stream_kv<kStages, D>(ring, tk, tv, hk, b, lo, n, Smem<D>::kKeys, Smem<D>::kKV);
 }
 
 // A consumer warpgroup (cw 0, 1 or 2): query rows r0 = q0 + 64 cw .. + 63.
@@ -187,6 +202,7 @@ __device__ __forceinline__ void produce(const Ring<D>& ring, const CUtensorMap* 
 template <typename T, int D>
 __device__ __forceinline__ void consume(const Ring<D>& ring, const Args& p, int cw, int q0, int b, int h, int lo,
                                         int n) {
+  constexpr int kKeys = Smem<D>::kKeys;
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
   const bool leader = (tid & 127) == 0;
   const int r0 = q0 + cw * 64, row = r0 + warp * 16 + g;
@@ -213,7 +229,7 @@ __device__ __forceinline__ void consume(const Ring<D>& ring, const Args& p, int 
     wgmma_wait_all();
     pin(s);
     mbar_arrive_if(ring.k_empty(st0), leader);
-    softmax_step(s, m, l, corr, row, k00 + 2 * t, tile_full(r0, 64, k00, kKeys, p), sl2, p);
+    softmax_step<kKeys>(s, m, l, corr, row, k00 + 2 * t, tile_full(r0, 64, k00, kKeys, p), sl2, p);
     acc_to_afrags<T, kKeys / 16>(pf, s);  // P, rounded to v's type
     for (int i = i0 + 1; i < i1; ++i) {  // tile i's S, then tile i - 1's P V behind it
       const int st = i % kStages, pst = (i - 1) % kStages, k0 = (lo + i) * kKeys;
@@ -224,7 +240,7 @@ __device__ __forceinline__ void consume(const Ring<D>& ring, const Args& p, int 
       wgmma_wait<1>();  // S done, P V in flight
       pin(s);
       mbar_arrive_if(ring.k_empty(st), leader);
-      softmax_step(s, m, l, corr, row, k0 + 2 * t, tile_full(r0, 64, k0, kKeys, p), sl2, p);
+      softmax_step<kKeys>(s, m, l, corr, row, k0 + 2 * t, tile_full(r0, 64, k0, kKeys, p), sl2, p);
       wgmma_wait_all();
       pin(o);
       pin(pf);
@@ -247,9 +263,11 @@ __device__ __forceinline__ void consume(const Ring<D>& ring, const Args& p, int 
     const int rr = row + 8 * r;
     if (rr >= p.sq) continue;
     const float lv = fmaxf(l[r], 1e-37f);
-    T* orow = static_cast<T*>(p.out) + (((long long)b * p.sq + rr) * p.h + h) * D;
+    T* orow = static_cast<T*>(p.out) + (((long long)b * p.sq + rr) * p.h + h) * p.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) store2(orow + j * 8 + 2 * t, o[j][2 * r] / lv, o[j][2 * r + 1] / lv);
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 < p.d) store2(orow + j * 8 + 2 * t, o[j][2 * r] / lv, o[j][2 * r + 1] / lv);
+    }
     if (t == 0) p.lse[((long long)b * p.h + h) * p.sq + rr] = m[r] == -INFINITY ? -INFINITY : m[r] * kLn2 + logf(lv);
   }
 }
@@ -266,7 +284,7 @@ __global__ void __launch_bounds__(Smem<D>::kThreads, 1)
   const int b = blockIdx.x / p.h, h = blockIdx.x % p.h, hk = h / (p.h / p.hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * Smem<D>::kRows;  // heaviest causal tiles first
   int lo, hi;
-  live_key_tiles(q0, Smem<D>::kRows, kKeys, p, &lo, &hi);
+  live_key_tiles(q0, Smem<D>::kRows, Smem<D>::kKeys, p, &lo, &hi);
   const int n = max(hi - lo + 1, 0);  // 0: no live key for any row of the block
 
   if (threadIdx.x == 0) {
@@ -311,9 +329,9 @@ int launch(const void* q, const void* k, const void* v, const Args& a, int b, in
       std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   if (encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  CUresult r = encode(&tq, type, q, b, sq, a.h, D, strides, Smem<D>::kRows);
-  if (r == CUDA_SUCCESS) r = encode(&tk, type, k, b, sk, a.hkv, D, strides + 3, kKeys);
-  if (r == CUDA_SUCCESS) r = encode(&tv, type, v, b, sk, a.hkv, D, strides + 6, kKeys);
+  CUresult r = encode(&tq, type, q, b, sq, a.h, a.d, strides, Smem<D>::kRows);
+  if (r == CUDA_SUCCESS) r = encode(&tk, type, k, b, sk, a.hkv, a.d, strides + 3, Smem<D>::kKeys);
+  if (r == CUDA_SUCCESS) r = encode(&tv, type, v, b, sk, a.hkv, a.d, strides + 6, Smem<D>::kKeys);
   if (r != CUDA_SUCCESS) return -(int)r;  // a CUresult of cuTensorMapEncodeTiled, negated
   cudaError_t err = regs_ok<T, D>();
   if (err == cudaSuccess)
@@ -324,7 +342,7 @@ int launch(const void* q, const void* k, const void* v, const Args& a, int b, in
 }
 
 bool bad_config(int dtype, int b, int h, int sq, int d) {
-  return (dtype != 1 && dtype != 2) || (d != 64 && d != 128) || b <= 0 || h <= 0 || sq <= 0 ||
+  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 16 != 0 || b <= 0 || h <= 0 || sq <= 0 ||
          (sq + rows_of(d) - 1) / rows_of(d) > 65535;
 }
 
@@ -338,12 +356,17 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void*
                               int causal, int window, void* stream) {
   if (bad_config(dtype, b, h, sq, d) || hkv <= 0 || h % hkv != 0 || sk <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  const Args a = {out, lse, h, hkv, sq, sk, scale, causal, window};
+  const Args a = {out, lse, h, hkv, sq, sk, d, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return d == 64 ? launch<__nv_bfloat16, 64>(q, k, v, a, b, sq, sk, strides, s)
-                                 : launch<__nv_bfloat16, 128>(q, k, v, a, b, sq, sk, strides, s);
-  return d == 64 ? launch<__half, 64>(q, k, v, a, b, sq, sk, strides, s)
-                 : launch<__half, 128>(q, k, v, a, b, sq, sk, strides, s);
+  const int w = width_of(d);
+  if (dtype == 1) {
+    if (w == 64) return launch<__nv_bfloat16, 64>(q, k, v, a, b, sq, sk, strides, s);
+    if (w == 128) return launch<__nv_bfloat16, 128>(q, k, v, a, b, sq, sk, strides, s);
+    return launch<__nv_bfloat16, 256>(q, k, v, a, b, sq, sk, strides, s);
+  }
+  if (w == 64) return launch<__half, 64>(q, k, v, a, b, sq, sk, strides, s);
+  if (w == 128) return launch<__half, 128>(q, k, v, a, b, sq, sk, strides, s);
+  return launch<__half, 256>(q, k, v, a, b, sq, sk, strides, s);
 }
 
 // What flash_fwd_sm90 launches for these shapes: out[0..1] grid x, y,
@@ -353,7 +376,8 @@ extern "C" int flash_fwd_sm90_config(int dtype, int b, int h, int sq, int d, int
   const dim3 g = grid_of(b, h, sq, d);
   out[0] = (int)g.x;
   out[1] = (int)g.y;
-  out[2] = d == 64 ? Smem<64>::kThreads : Smem<128>::kThreads;
-  out[3] = d == 64 ? Smem<64>::kBytes : Smem<128>::kBytes;
+  const int w = width_of(d);
+  out[2] = w == 64 ? Smem<64>::kThreads : w == 128 ? Smem<128>::kThreads : Smem<256>::kThreads;
+  out[3] = w == 64 ? Smem<64>::kBytes : w == 128 ? Smem<128>::kBytes : Smem<256>::kBytes;
   return 0;
 }

@@ -3,7 +3,7 @@
 //
 // mbarriers, TMA loads through 4-D tensor maps with 128-byte swizzle,
 // wgmma shared-memory descriptors and products (bf16 and fp16, f32
-// accumulate, N 64 or 128), the accumulator -> A-fragment rounding, quad
+// accumulate, N 64 or 128; 256 as two chains of 128), the accumulator -> A-fragment rounding, quad
 // reductions, a producer's K and V rings and their release, the attention
 // masks and the tile walk, and the host's tensor map encoding. Everything lives in an anonymous namespace: each kernel
 // source builds into its own library.
@@ -244,12 +244,19 @@ __device__ __forceinline__ void issue_ss(float (&d)[N / 8][4], uint32_t a, int a
 // Issue d[N / 8][4] += A B as one wgmma group: A from registers (KS k16
 // fragments), B MN-major in shared memory (16 KS rows of N columns, stored
 // as N / 64 boxes of 64 columns `b_rows` rows deep), a step 16 rows (2048
-// bytes) down B.
+// bytes) down B. N 256 runs as two chains of n128, each on its half of d's
+// columns and B's boxes.
 template <typename T, int N, int KS>
 __device__ __forceinline__ void issue_rs(float (&d)[N / 8][4], const unsigned (&af)[KS][4], uint32_t b, int b_rows) {
+  constexpr int kN = N > 128 ? 128 : N;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) Wgmma<T, N>::rs(d, af[kk], smem_desc(b + kk * 16 * kRowBytes, b_rows * kRowBytes));
+  for (int half = 0; half < N / kN; ++half) {
+    float(&dh)[kN / 8][4] = *reinterpret_cast<float(*)[kN / 8][4]>(&d[half * kN / 8]);
+    const uint32_t bh = b + half * (kN / kBoxCols) * b_rows * kRowBytes;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) Wgmma<T, kN>::rs(dh, af[kk], smem_desc(bh + kk * 16 * kRowBytes, b_rows * kRowBytes));
+  }
   wgmma_commit();
 }
 
@@ -276,6 +283,40 @@ __device__ __forceinline__ void acc_to_afrags(unsigned (&af)[KS][4], const float
     af[ks][1] = pack2<T>(acc[2 * ks][2], acc[2 * ks][3]);
     af[ks][2] = pack2<T>(acc[2 * ks + 1][0], acc[2 * ks + 1][1]);
     af[ks][3] = pack2<T>(acc[2 * ks + 1][2], acc[2 * ks + 1][3]);
+  }
+}
+
+// The same accumulators as two A-fragment sets: hi, rounded to T as above,
+// and lo, the residual acc - hi (exact in f32) rounded to T. hi + lo carries
+// twice T's significand, so a product of hi and then lo into one f32
+// accumulator does not turn on which way one rounding of acc fell.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(unsigned u);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(unsigned u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned residual2(float x, float y, unsigned hi) {
+  const float2 h = unpack2<T>(hi);
+  return pack2<T>(x - h.x, y - h.y);
+}
+
+template <typename T, int KS>
+__device__ __forceinline__ void acc_to_afrags_split(unsigned (&hi)[KS][4], unsigned (&lo)[KS][4],
+                                                    const float (&acc)[2 * KS][4]) {
+  acc_to_afrags<T, KS>(hi, acc);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    lo[ks][0] = residual2<T>(acc[2 * ks][0], acc[2 * ks][1], hi[ks][0]);
+    lo[ks][1] = residual2<T>(acc[2 * ks][2], acc[2 * ks][3], hi[ks][1]);
+    lo[ks][2] = residual2<T>(acc[2 * ks + 1][0], acc[2 * ks + 1][1], hi[ks][2]);
+    lo[ks][3] = residual2<T>(acc[2 * ks + 1][2], acc[2 * ks + 1][3], hi[ks][3]);
   }
 }
 

@@ -7,7 +7,10 @@ state dict of the port's :class:`~.llama.LlamaModel`. Both layouts of the
 JAX tree are read: the scanned one (``layers/block/...`` leaves with a
 leading ``[L]`` axis, from ``nn.scan`` over ``_ScanLayer``) and the
 unrolled one (``layer_<i>/...``). Flax ``Dense`` kernels are ``[in,
-out]``; ``nn.Linear`` weights are ``[out, in]``. A tree quantized by the
+out]``; ``nn.Linear`` weights are ``[out, in]``. The family knobs' leaves
+cross too: the q/k/v biases (``qkv_bias``), ``q_norm``/``k_norm`` (per
+head or flat), the sandwich and post norms, no ``input_norm`` under
+``norm_after``, and no ``lm_head`` under a tied head. A tree quantized by the
 JAX package's ``load_and_quantize_model`` carries ``qdata``/``qscale``
 leaves in place of each projection's ``kernel``: they cross unchanged
 (``QuantDense`` keeps the reference's layout), integer codes as integers.
@@ -29,6 +32,10 @@ import torch
 _LAYER_NORMS = (
     (("input_norm", "scale"), "input_norm.weight"),
     (("post_attn_norm", "scale"), "post_attn_norm.weight"),
+    (("pre_ffn_norm", "scale"), "pre_ffn_norm.weight"),
+    (("post_ffn_norm", "scale"), "post_ffn_norm.weight"),
+    (("attn", "q_norm", "scale"), "attn.q_norm.weight"),
+    (("attn", "k_norm", "scale"), "attn.k_norm.weight"),
 )
 _LAYER_PROJS = (
     (("attn", "q_proj"), "attn.q_proj"),
@@ -56,10 +63,25 @@ def _codes(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))
 
 
+def _layer_norms(config) -> list:
+    """The norms one layer of ``config`` holds, as ``_LAYER_NORMS`` entries."""
+    names = {"post_attn_norm"}
+    if not config.norm_after:
+        names.add("input_norm")
+    if config.norm_after or config.sandwich_norm:
+        names.add("post_ffn_norm")
+    if config.sandwich_norm and not config.norm_after:
+        names.add("pre_ffn_norm")
+    if config.qk_norm or config.qk_norm_flat:
+        names |= {"q_norm", "k_norm"}
+    return [(path, name) for path, name in _LAYER_NORMS if path[-2] in names]
+
+
 def llama_params_from_jax(params: dict, config) -> dict:
     """The port's llama state dict (f32 tensors; integer codes for a
-    quantized tree) from a JAX llama param tree. Load it with
-    ``model.load_state_dict``, which casts to each parameter's dtype."""
+    quantized tree) from a JAX llama param tree of any family's knobs.
+    Load it with ``model.load_state_dict``, which casts to each
+    parameter's dtype."""
     n_layers = config.num_hidden_layers
     if "layers" in params:
         block = params["layers"]["block"]
@@ -74,9 +96,13 @@ def llama_params_from_jax(params: dict, config) -> dict:
         "embed_tokens.weight": _tensor(_get(params, ("embed_tokens", "embedding")), False),
         "final_norm.weight": _tensor(_get(params, ("final_norm", "scale")), False),
     }
+    norms = _layer_norms(config)
     for i in range(n_layers):
-        for path, name in _LAYER_NORMS:
+        for path, name in norms:
             sd[f"layers.{i}.{name}"] = _tensor(layer_leaf(i, path), False)
+        if config.qkv_bias:
+            for path, name in _LAYER_PROJS[:3]:
+                sd[f"layers.{i}.{name}.bias"] = _tensor(layer_leaf(i, (*path, "bias")), False)
         for path, name in _LAYER_PROJS:
             if config.quant_method is None:
                 sd[f"layers.{i}.{name}.weight"] = _tensor(layer_leaf(i, (*path, "kernel")), True)

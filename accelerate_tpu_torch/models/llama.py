@@ -1,10 +1,12 @@
-"""Llama decoder in PyTorch: RMSNorm, RoPE, GQA, SwiGLU.
+"""Llama-family decoder in PyTorch: RMSNorm, RoPE, GQA, SwiGLU, and the
+knobs of the families built on it.
 
-Counterpart of :mod:`accelerate_tpu.models.llama`, plain pre-norm Llama
-only. The arithmetic follows the JAX module step for step, so converted
-weights (:mod:`.convert`) give the same logits:
+Counterpart of :mod:`accelerate_tpu.models.llama`. The arithmetic follows
+the JAX module step for step, so converted weights (:mod:`.convert`) give
+the same logits:
 
-* RMSNorm normalises in f32, casts to the stream dtype, then scales;
+* RMSNorm normalises in f32, casts to the stream dtype, then scales; with
+  ``norm_plus_one`` (Gemma) it scales by ``1 + w`` in f32 and casts once;
 * rotary embedding uses the interleaved pair layout ``x[..., ::2]`` /
   ``x[..., 1::2]`` (not HF's rotate-half), computed in f32;
 * the LM head runs in f32 whatever the stream dtype: its weight (kept in
@@ -15,6 +17,17 @@ weights (:mod:`.convert`) give the same logits:
 * in training mode with ``cfg.remat`` each layer is recomputed in the
   backward (``torch.utils.checkpoint``, the JAX module's ``nn.remat``).
 
+The family knobs are the JAX config's, with its rounding points:
+``qkv_bias`` (Qwen2), ``qk_norm`` per head and ``qk_norm_flat`` over the
+flat projection (Qwen3, OLMo2), ``norm_after`` and ``sandwich_norm``
+(OLMo2, Gemma2/3), ``query_pre_attn_scalar``, the attention and final
+logit softcaps (Gemma2), ``mlp_activation="gelu_tanh"``,
+``scale_embeddings`` (sqrt(hidden) in the stream dtype) and
+``layer_types`` with per-layer windows, sliding layers rotating with
+``rope_local_theta`` (Gemma2/3). The families themselves are thin configs
+in :mod:`.mistral`, :mod:`.qwen2`, :mod:`.qwen3`, :mod:`.olmo2`,
+:mod:`.gemma`, :mod:`.gemma2`, :mod:`.gemma3` and :mod:`.phi3`.
+
 :func:`causal_lm_loss` and :func:`next_token_cross_entropy` are the JAX
 package's loss, called as ``loss_fn(params, batch)`` through
 ``Model.apply_fn``.
@@ -22,10 +35,6 @@ package's loss, called as ``loss_fn(params, batch)`` through
 With ``cfg.quant_method`` set, every block projection is a
 :class:`~..ops.qdense.QuantDense` whose parameters are the packed codes
 (:func:`quantize_llama_model` makes such a model from a float one).
-
-The knobs other families need (Qwen3/OLMo2 q/k norms, Gemma norms and
-softcaps, per-layer attention kinds, ...) raise ``NotImplementedError``:
-they are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..modeling import Model
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, softcap
 from ..ops.kv_cache import KVCache, cached_attention
 from ..utils.environment import resolve_device
 
@@ -101,46 +110,41 @@ class LlamaConfig:
         return cls(**kw)
 
 
-# knob -> the plain-Llama value the port supports
-_PLAIN = {
-    "qkv_bias": False,
-    "qk_norm": False,
-    "qk_norm_flat": False,
-    "norm_after": False,
-    "sandwich_norm": False,
-    "attn_logit_softcap": None,
-    "final_logit_softcap": None,
-    "query_pre_attn_scalar": None,
-    "layer_types": None,
-    "rope_local_theta": None,
-    "mlp_activation": "silu",
-    "norm_plus_one": False,
-    "scale_embeddings": False,
-}
-
-
 def _check_supported(cfg: LlamaConfig) -> None:
-    for knob, plain in _PLAIN.items():
-        if getattr(cfg, knob) != plain:
-            raise NotImplementedError(
-                f"LlamaConfig.{knob}={getattr(cfg, knob)!r} is not ported to accelerate_tpu_torch yet "
-                "(plain pre-norm Llama only; the model-zoo knobs are queued in ROADMAP.md)"
-            )
-    if cfg.attention_impl not in ("auto", "dense"):
+    """The JAX module's config checks, and the one path not ported yet."""
+    if cfg.attention_impl not in ("auto", "ring", "all_to_all", "dense"):
+        raise ValueError(f"attention_impl must be auto|ring|all_to_all|dense, got {cfg.attention_impl!r}")
+    if cfg.attention_impl in ("ring", "all_to_all"):
         raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} needs context parallelism, queued in ROADMAP.md"
+            f"attention_impl={cfg.attention_impl!r} needs context parallelism, queued in ROADMAP.md (Queue 1 item 8)"
         )
+    if cfg.mlp_activation not in ("silu", "gelu_tanh"):
+        raise ValueError(f"mlp_activation must be silu|gelu_tanh, got {cfg.mlp_activation!r}")
+    if cfg.layer_types is not None and cfg.scan_layers:
+        raise ValueError(
+            "layer_types (per-layer sliding/full attention, Gemma2) requires "
+            "scan_layers=False — a scanned block shares one static config"
+        )
+    if cfg.layer_types is not None and len(cfg.layer_types) != cfg.num_hidden_layers:
+        raise ValueError(f"layer_types has {len(cfg.layer_types)} entries for {cfg.num_hidden_layers} layers")
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5):
+    """RMS normalisation over the last dim. ``plus_one`` (Gemma) keeps a
+    zero-centred weight applied as ``1 + w``, normalising and scaling in
+    f32 and casting once; otherwise the llama order: normalise in f32, cast
+    to the stream dtype, then scale."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, plus_one: bool = False):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.plus_one = plus_one
+        self.weight = nn.Parameter(torch.zeros(dim) if plus_one else torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # llama order: normalise in f32, cast to the stream dtype, then scale
         var = x.float().square().mean(dim=-1, keepdim=True)
+        if self.plus_one:
+            return (x.float() * torch.rsqrt(var + self.eps) * (1.0 + self.weight.float())).to(x.dtype)
         normed = (x * torch.rsqrt(var + self.eps)).to(x.dtype)
         return normed * self.weight.to(x.dtype)
 
@@ -289,61 +293,122 @@ def _head_dim(cfg: LlamaConfig) -> int:
     return cfg.head_dim or cfg.hidden_size // cfg.num_attention_heads
 
 
-def _proj(cfg: LlamaConfig, in_features: int, features: int) -> nn.Module:
-    """Block projection factory: a bias-free ``nn.Linear``, or a
-    ``QuantDense`` when the config carries a weight-only quantization
+def _proj(cfg: LlamaConfig, in_features: int, features: int, bias: bool = False) -> nn.Module:
+    """Block projection factory: an ``nn.Linear`` (bias-free unless asked),
+    or a ``QuantDense`` when the config carries a weight-only quantization
     method (it computes in the stream dtype)."""
     if cfg.quant_method is not None:
         from ..ops.qdense import QuantDense
 
-        return QuantDense(in_features, features, method=cfg.quant_method, group_size=cfg.quant_group_size)
-    return nn.Linear(in_features, features, bias=False)
+        return QuantDense(
+            in_features, features, method=cfg.quant_method, group_size=cfg.quant_group_size, use_bias=bias
+        )
+    return nn.Linear(in_features, features, bias=bias)
+
+
+def _norm(cfg: LlamaConfig, dim: int) -> RMSNorm:
+    return RMSNorm(dim, cfg.rms_norm_eps, cfg.norm_plus_one)
+
+
+def _layer_kinds(cfg: LlamaConfig) -> list[tuple[Optional[int], bool]]:
+    """Per layer ``(window, local rope)``: with ``layer_types`` the band is
+    on the ``"sliding_attention"`` layers only, which rotate with
+    ``rope_local_theta`` (and no scaling) when it is set; without it every
+    layer takes ``sliding_window`` and the global rope."""
+    if cfg.layer_types is None:
+        return [(cfg.sliding_window, False)] * cfg.num_hidden_layers
+    kinds = []
+    for kind in cfg.layer_types:
+        windowed = kind == "sliding_attention"
+        kinds.append((cfg.sliding_window if windowed else None, windowed and cfg.rope_local_theta is not None))
+    return kinds
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, window: Optional[int] = None):
         super().__init__()
         self.config = cfg
+        self.window = window
         hd = _head_dim(cfg)
-        self.q_proj = _proj(cfg, cfg.hidden_size, cfg.num_attention_heads * hd)
-        self.k_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd)
-        self.v_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd)
+        self.q_proj = _proj(cfg, cfg.hidden_size, cfg.num_attention_heads * hd, cfg.qkv_bias)
+        self.k_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd, cfg.qkv_bias)
+        self.v_proj = _proj(cfg, cfg.hidden_size, cfg.num_key_value_heads * hd, cfg.qkv_bias)
         self.o_proj = _proj(cfg, cfg.num_attention_heads * hd, cfg.hidden_size)
+        if cfg.qk_norm_flat:  # OLMo2: over the flat projection, all heads jointly
+            self.q_norm = _norm(cfg, cfg.num_attention_heads * hd)
+            self.k_norm = _norm(cfg, cfg.num_key_value_heads * hd)
+        elif cfg.qk_norm:  # Qwen3, Gemma3: one [head_dim] scale shared by the heads
+            self.q_norm = _norm(cfg, hd)
+            self.k_norm = _norm(cfg, hd)
 
     def forward(self, hidden, cos, sin, cache=None, layer: int = 0):
         cfg = self.config
         b, s, _ = hidden.shape
         hd = _head_dim(cfg)
-        q = apply_rope(self.q_proj(hidden).view(b, s, cfg.num_attention_heads, hd), cos, sin)
-        k = apply_rope(self.k_proj(hidden).view(b, s, cfg.num_key_value_heads, hd), cos, sin)
-        v = self.v_proj(hidden).view(b, s, cfg.num_key_value_heads, hd)
+        q, k, v = self.q_proj(hidden), self.k_proj(hidden), self.v_proj(hidden)
+        if cfg.qk_norm_flat:
+            q, k = self.q_norm(q), self.k_norm(k)
+        q = q.view(b, s, cfg.num_attention_heads, hd)
+        k = k.view(b, s, cfg.num_key_value_heads, hd)
+        v = v.view(b, s, cfg.num_key_value_heads, hd)
+        if cfg.qk_norm and not cfg.qk_norm_flat:
+            q, k = self.q_norm(q), self.k_norm(k)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        scale = None if cfg.query_pre_attn_scalar is None else float(cfg.query_pre_attn_scalar) ** -0.5
         if cache is not None:
-            out = cached_attention(cache, layer, q, k, v, sliding_window=cfg.sliding_window)
+            out = cached_attention(
+                cache, layer, q, k, v, scale=scale, sliding_window=self.window, logit_softcap=cfg.attn_logit_softcap
+            )
         else:
-            out = dot_product_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            out = dot_product_attention(
+                q, k, v, causal=True, scale=scale, window=self.window, logit_softcap=cfg.attn_logit_softcap
+            )
         return self.o_proj(out.reshape(b, s, cfg.num_attention_heads * hd))
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
+        self.gelu = cfg.mlp_activation == "gelu_tanh"
         self.gate_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
         self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, hidden):
-        return self.down_proj(F.silu(self.gate_proj(hidden)) * self.up_proj(hidden))
+        gate = self.gate_proj(hidden)
+        act = F.gelu(gate, approximate="tanh") if self.gelu else F.silu(gate)
+        return self.down_proj(act * self.up_proj(hidden))
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """One block, in the config's norm layout: pre-norm (``input_norm``
+    before attention, ``post_attn_norm`` before the MLP), ``norm_after``
+    (``post_attn_norm`` / ``post_ffn_norm`` on each sublayer's output, no
+    input norms) or ``sandwich_norm`` (``input_norm`` / ``post_attn_norm``
+    around attention, ``pre_ffn_norm`` / ``post_ffn_norm`` around the MLP).
+    ``local_rope`` picks the sliding layers' rotary table."""
+
+    def __init__(self, cfg: LlamaConfig, window: Optional[int] = None, local_rope: bool = False):
         super().__init__()
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.attn = LlamaAttention(cfg)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.layout = "after" if cfg.norm_after else "sandwich" if cfg.sandwich_norm else "pre"
+        self.local_rope = local_rope
+        if self.layout != "after":
+            self.input_norm = _norm(cfg, cfg.hidden_size)
+        self.attn = LlamaAttention(cfg, window)
+        self.post_attn_norm = _norm(cfg, cfg.hidden_size)
+        if self.layout == "sandwich":
+            self.pre_ffn_norm = _norm(cfg, cfg.hidden_size)
+        if self.layout != "pre":
+            self.post_ffn_norm = _norm(cfg, cfg.hidden_size)
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, hidden, cos, sin, cache=None, layer: int = 0):
+        if self.layout == "after":
+            hidden = hidden + self.post_attn_norm(self.attn(hidden, cos, sin, cache, layer))
+            return hidden + self.post_ffn_norm(self.mlp(hidden))
+        if self.layout == "sandwich":
+            hidden = hidden + self.post_attn_norm(self.attn(self.input_norm(hidden), cos, sin, cache, layer))
+            return hidden + self.post_ffn_norm(self.mlp(self.pre_ffn_norm(hidden)))
         hidden = hidden + self.attn(self.input_norm(hidden), cos, sin, cache, layer)
         return hidden + self.mlp(self.post_attn_norm(hidden))
 
@@ -360,8 +425,8 @@ class LlamaModel(nn.Module):
         _check_supported(cfg)
         self.config = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList([LlamaLayer(cfg) for _ in range(cfg.num_hidden_layers)])
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.layers = nn.ModuleList([LlamaLayer(cfg, *kind) for kind in _layer_kinds(cfg)])
+        self.final_norm = _norm(cfg, cfg.hidden_size)
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
@@ -369,19 +434,24 @@ class LlamaModel(nn.Module):
         cfg = self.config
         b, s = input_ids.shape
         hidden = self.embed_tokens(input_ids.long())
+        if cfg.scale_embeddings:  # sqrt(hidden), rounded to the stream dtype first (the JAX module's order)
+            hidden = hidden * torch.tensor(cfg.hidden_size**0.5, dtype=hidden.dtype, device=hidden.device)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
         # longrope picks its table from a static length: the input length
         # for a plain forward, the cache capacity for every cached call
-        rope_len = cfg.max_position_embeddings if decode else s
-        cos, sin = rope_cos_sin(
-            positions, _head_dim(cfg), cfg.rope_theta, cfg.rope_scaling,
-            max_pos=cfg.max_position_embeddings, seq_len=rope_len, orig_max=cfg.original_max_position_embeddings,
+        rope_kw = dict(
+            max_pos=cfg.max_position_embeddings, seq_len=cfg.max_position_embeddings if decode else s,
+            orig_max=cfg.original_max_position_embeddings,
         )
+        tables = {False: rope_cos_sin(positions, _head_dim(cfg), cfg.rope_theta, cfg.rope_scaling, **rope_kw)}
+        if any(layer.local_rope for layer in self.layers):
+            tables[True] = rope_cos_sin(positions, _head_dim(cfg), cfg.rope_local_theta, None, **rope_kw)
         if decode and cache is None:
             cache = KVCache.empty(cfg, b, cfg.max_position_embeddings, hidden.dtype, hidden.device)
         remat = cfg.remat and self.training and not decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
+            cos, sin = tables[layer.local_rope]
             if remat:
                 hidden = _remat_layer(layer, hidden, cos, sin)
             else:
@@ -389,6 +459,8 @@ class LlamaModel(nn.Module):
         hidden = self.final_norm(hidden)
         head = self.embed_tokens.weight if cfg.tie_word_embeddings else self.lm_head.weight
         logits = hidden.float() @ head.float().T
+        if cfg.final_logit_softcap is not None:
+            logits = softcap(logits, cfg.final_logit_softcap)
         if not decode:
             return logits
         cache.advance(s)
@@ -417,9 +489,11 @@ def create_llama_model(
 ) -> Model:
     """A Llama with seeded random weights on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for). Projections and the embedding draw
-    ``N(0, 1/fan_in)`` from a ``torch.Generator`` seeded with ``seed``;
-    norms start at one. Parameters are in ``dtype`` except the LM head,
-    kept in f32. With ``config.quant_method`` set the projections start as
+    ``N(0, 1/fan_in)`` from a ``torch.Generator`` seeded with ``seed``.
+    Parameters are in ``dtype`` except the LM head,
+    kept in f32. Norms start at the identity (one, or zero offsets under
+    ``norm_plus_one``) and biases at zero, as the JAX module's initialisers
+    do. With ``config.quant_method`` set the projections start as
     the reference's do, zero codes and unit f32 scales: real values come
     from :func:`quantize_llama_model` or a state dict."""
     config = config or LlamaConfig.tiny()
@@ -430,8 +504,10 @@ def create_llama_model(
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith(("norm.weight", ".qscale")):
-                p.fill_(1.0)
+            if name.endswith("norm.weight"):
+                p.fill_(0.0 if config.norm_plus_one else 1.0)
+            elif name.endswith((".qscale", "_proj.bias")):
+                p.fill_(1.0 if name.endswith(".qscale") else 0.0)
             elif name.endswith(".qdata"):
                 p.zero_()
             else:

@@ -9,7 +9,10 @@ kernels with ``_flash``'s custom VJP. In bf16 and fp16 they are
 ``csrc/flash_bwd_sm90.cu`` (K2, K3): TMA, wgmma and a producer warpgroup;
 in f32 ``csrc/flash_attention.cu``'s (:func:`fwd_launch`,
 :func:`bwd_launch`), which also states their layout and masking. They take
-the head dims :func:`flash_head_dim_ok` admits.
+the head dims :func:`flash_head_dim_ok` admits, every multiple of 16 up to
+256: each source is built at the widths 64, 128 and 256, and a head dim
+runs at the next of them (:func:`kernel_width`), the columns past it read
+as zeros and never stored.
 
 On CUDA tensors :func:`flash_attention` launches the kernels or raises;
 on ``meta`` tensors under ``kernel_check`` it records their launch sites;
@@ -36,16 +39,23 @@ launches_dq = 0
 launches_dkv = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_WIDTHS = (64, 128, 256)  # the head dims each kernel source is built at
 # keys a block of the plain backward takes; P comes from lse there, so the
 # tile only orders the f32 sums
 _BLOCK = 64
 
 
 def flash_head_dim_ok(d: int) -> bool:
-    """Whether the CUDA flash kernels (K1-K3) take head dim ``d``: the one
-    test the wrappers and ``dot_product_attention``'s dispatch share."""
-    return d in _HEAD_DIMS
+    """Whether the CUDA flash kernels (K1-K3) take head dim ``d``, a multiple
+    of 16 from 16 to 256: the one test the wrappers and
+    ``dot_product_attention``'s dispatch share."""
+    return d % 16 == 0 and 16 <= d <= _WIDTHS[-1]
+
+
+def kernel_width(d: int) -> int:
+    """The built width a head dim ``d`` runs at: the least of 64, 128 and
+    256 that holds it."""
+    return next(w for w in _WIDTHS if d <= w)
 
 
 def _check_args(causal: bool, window: Optional[int]) -> None:
@@ -157,9 +167,18 @@ def flash_attention_plain_dq(q, k, v, dout, lse, delta, causal=False, scale=None
     return dq.transpose(1, 2).contiguous()
 
 
+def _split(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (f32) as K3 carries it into a product in ``dtype``: rounded to
+    ``dtype`` plus the residual rounded to ``dtype``, summed in f32 (``x``
+    itself in f32)."""
+    hi = x.to(dtype).float()
+    return hi + (x - hi).to(dtype).float()
+
+
 def flash_attention_plain_dkv(q, k, v, dout, lse, delta, causal=False, scale=None, window=None):
     """What K3 computes: ``(dk, dv)`` ``[B, Sk, Hkv, D]`` f32, P cast to dO's
-    dtype before P^T dO and dS to q's dtype before dS^T q, the query heads
+    dtype before P^T dO and dS carried as two parts of q's dtype (rounded,
+    and the residual rounded: :func:`_split`) into dS^T q, the query heads
     of each kv group summed."""
     scale = _scale(q, scale)
     b, sq, h, d = q.shape
@@ -168,7 +187,7 @@ def flash_attention_plain_dkv(q, k, v, dout, lse, delta, causal=False, scale=Non
     dv = torch.zeros(b, h, sk, d, device=q.device)
     for k0, k1, qf, _, dof, p, ds in _plain_blocks(q, k, v, dout, lse, delta, causal, scale, window):
         dv[:, :, k0:k1] = p.to(dout.dtype).float().transpose(-1, -2) @ dof
-        dk[:, :, k0:k1] = ds.to(q.dtype).float().transpose(-1, -2) @ qf
+        dk[:, :, k0:k1] = _split(ds, q.dtype).transpose(-1, -2) @ qf
     dk = dk.view(b, hkv, h // hkv, sk, d).sum(dim=2).transpose(1, 2).contiguous()
     dv = dv.view(b, hkv, h // hkv, sk, d).sum(dim=2).transpose(1, 2).contiguous()
     return dk, dv
@@ -214,63 +233,82 @@ class BwdLaunch:
     smem_bytes: int
 
 
-_F32_TILE = 64  # rows of flash_attention.cu's f32 blocks and of the tiles they walk
-_F32_WARP_BUF = 4 * 16 * (_F32_TILE + 8) * 4  # P or dS, 16 rows a warp (pitch 72)
+def _f32_tile(w: int) -> int:
+    """Rows of flash_attention.cu's f32 blocks, and of the tiles they walk,
+    at width ``w``: 64, and 32 at 256 (four tiles of 64 rows would not fit
+    in a block's shared memory)."""
+    return 32 if w > 128 else 64
 
 
-def _f32_tiles(n: int, d: int) -> int:
-    """Shared bytes of ``n`` f32 tiles of 64 rows, pitch D + 8."""
-    return n * _F32_TILE * (d + 8) * 4
+def _f32_smem(tiles: int, w: int, extra: int = 0) -> int:
+    """Shared bytes of ``tiles`` f32 tiles (pitch ``w + 8``), ``extra`` bytes
+    of row statistics, then a P or dS buffer of 16 rows a warp (pitch the
+    tile's keys + 8)."""
+    tile = _f32_tile(w)
+    return (tiles * tile * (w + 8) + extra) * 4 + (tile // 16) * 16 * (tile + 8) * 4
 
 
 def fwd_launch(dtype: torch.dtype, b: int, h: int, sq: int, d: int) -> FwdLaunch:
-    """What K1 launches for q ``[b, sq, h, d]``. In bf16 and fp16 the Hopper
-    kernel (``csrc/flash_fwd_sm90.cu``): a producer warpgroup and 64 query
-    rows for each consumer warpgroup, three at D 64 (192 rows, 512 threads)
-    and two at D 128 (128 rows, 384 threads); Q plus two stages of 128-key
-    K and V tiles in shared memory. In f32 ``csrc/flash_attention.cu``'s: 64
-    rows and 4 warps, one stage of 64-key tiles. The grid is ``(B * H, query
+    """What K1 launches for q ``[b, sq, h, d]``, built at width ``w =
+    kernel_width(d)``. In bf16 and fp16 the Hopper kernel
+    (``csrc/flash_fwd_sm90.cu``): a producer warpgroup and 64 query rows for
+    each consumer warpgroup, three at w 64 (192 rows, 512 threads) and two
+    at 128 and 256 (128 rows, 384 threads); Q plus two stages of K and V
+    tiles of 128 keys (64 at w 256) in shared memory. In f32
+    ``csrc/flash_attention.cu``'s: 64 rows and 4 warps (32 rows and 2 warps
+    at w 256), one stage of tiles as deep. The grid is ``(B * H, query
     blocks)``. Each C launcher reports the same through its
     ``<entry>_config`` entry (``kernels.build.launch_config``). What the
     kernels refuse is :func:`_check_cuda`'s to say."""
+    w = kernel_width(d)
     if dtype in (torch.bfloat16, torch.float16):
-        consumers, keys, stages = (3 if d == 64 else 2), 128, 2
+        consumers, keys, stages = (3 if w == 64 else 2), (64 if w > 128 else 128), 2
         rows = 64 * consumers
-        smem = 1024 + rows * d * 2 + 2 * stages * keys * d * 2 + (1 + 4 * stages) * 8  # align, Q, K and V, barriers
+        smem = 1024 + rows * w * 2 + 2 * stages * keys * w * 2 + (1 + 4 * stages) * 8  # align, Q, K and V, barriers
         return FwdLaunch("flash_fwd_sm90", "flash_fwd_sm90", (b * h, -(-sq // rows)), 128 * (consumers + 1), smem,
                          keys)
-    smem = _f32_tiles(3, d) + _F32_WARP_BUF  # q, k, v and P a warp
-    return FwdLaunch("flash_attention", "flash_attention_fwd", (b * h, -(-sq // _F32_TILE)), 128, smem, _F32_TILE)
+    tile = _f32_tile(w)  # q, k, v and P a warp
+    return FwdLaunch("flash_attention", "flash_attention_fwd", (b * h, -(-sq // tile)), 2 * tile, _f32_smem(3, w), tile)
 
 
 def bwd_launch(kind: str, dtype: torch.dtype, b: int, h: int, hkv: int, sq: int, sk: int, d: int) -> BwdLaunch:
     """What K2 (``kind`` "dq") or K3 ("dkv") launches for q ``[b, sq, h, d]``
     and k ``[b, sk, hkv, d]``: the one source of grid, threads and shared
     memory for the wrappers, for ``kernel_check``'s launch sites and for the
-    checks against each C launcher's ``<entry>_config``. In bf16 and fp16
-    the Hopper kernels (``csrc/flash_bwd_sm90.cu``), 64 rows for each
-    consumer warpgroup beside a producer warpgroup, two stages of 64-row
-    tiles: K2 three consumers at D 64 and two at D 128 (Q and dO of the
-    block, K and V tiles), K3 two (K and V of the block; Q, dO, lse and
-    delta tiles). In f32 ``csrc/flash_attention.cu``'s: 64 rows and 4
-    warps, one stage."""
+    checks against each C launcher's ``<entry>_config``. Built at width ``w
+    = kernel_width(d)``. In bf16 and fp16 the Hopper kernels
+    (``csrc/flash_bwd_sm90.cu``), 64 rows for each consumer warpgroup
+    beside a producer warpgroup, two stages of 64-row tiles: K2 three
+    consumers at w 64, two at 128 and one at 256 (Q and dO of the block, K
+    and V tiles); K3 two (K and V of the block; Q, dO, lse and delta
+    tiles), on 64 key rows each at w up to 128, and at 256 on the same 64
+    key rows, each accumulating half of dK's and dV's columns. In f32
+    ``csrc/flash_attention.cu``'s: 64 rows and 4 warps (32 and 2 at w 256),
+    one stage; at w 256 K3 runs two blocks a key tile, one for each half of
+    dK's and dV's columns (grid x ``B * Hkv * 2``)."""
     if kind not in ("dq", "dkv"):
         raise ValueError(f"kind is 'dq' or 'dkv', got {kind!r}")
+    w = kernel_width(d)
     if dtype in (torch.bfloat16, torch.float16):
         stages, tile = 2, 64
-        consumers = (3 if d == 64 else 2) if kind == "dq" else 2
-        rows = 64 * consumers
+        if kind == "dq":
+            consumers = 3 if w == 64 else 2 if w == 128 else 1
+            rows = 64 * consumers
+        else:
+            consumers = 2
+            rows = 64 if w > 128 else 128
         # align, the block's two row tiles, two rings of tiles, (K3) lse and delta, barriers
-        smem = 1024 + 2 * rows * d * 2 + 2 * stages * tile * d * 2
+        smem = 1024 + 2 * rows * w * 2 + 2 * stages * tile * w * 2
         smem += (1 + 4 * stages) * 8 if kind == "dq" else stages * 2 * tile * 4 + (1 + 2 * stages) * 8
         grid = (b * h, -(-sq // rows)) if kind == "dq" else (b * hkv, -(-sk // rows))
         return BwdLaunch("flash_bwd_sm90", f"flash_{kind}_sm90", grid, 128 * (consumers + 1), smem)
+    tile = _f32_tile(w)
     if kind == "dq":  # q, dO, k, v and dS a warp
-        return BwdLaunch("flash_attention", "flash_attention_dq", (b * h, -(-sq // _F32_TILE)), 128,
-                         _f32_tiles(4, d) + _F32_WARP_BUF)
+        return BwdLaunch("flash_attention", "flash_attention_dq", (b * h, -(-sq // tile)), 2 * tile, _f32_smem(4, w))
     # k, v, q, dO, the lse and delta rows, and P / dS a warp
-    return BwdLaunch("flash_attention", "flash_attention_dkv", (b * hkv, -(-sk // _F32_TILE)), 128,
-                     _f32_tiles(4, d) + 2 * _F32_TILE * 4 + _F32_WARP_BUF)
+    halves = 2 if w > 128 else 1
+    return BwdLaunch("flash_attention", "flash_attention_dkv", (b * hkv * halves, -(-sk // tile)), 2 * tile,
+                     _f32_smem(4, w, 2 * tile))
 
 
 def _check_cuda(q, k, v) -> None:
@@ -293,7 +331,7 @@ def _check_cuda(q, k, v) -> None:
     if h % k.shape[2]:
         raise ValueError(f"heads {h} not divisible by kv heads {k.shape[2]}")
     if not flash_head_dim_ok(d):
-        raise ValueError(f"the CUDA flash kernels take head_dim in {_HEAD_DIMS}; got head_dim {d}")
+        raise ValueError(f"the CUDA flash kernels take head dims that are multiples of 16 up to 256; got head_dim {d}")
     if sq < 1 or k.shape[1] < 1 or b < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if q.dtype != torch.float32:  # the 16-bit kernels read q, k and v through TMA tensor maps

@@ -38,16 +38,26 @@ class KVCache:
         self.index += n
 
 
-def cached_attention(cache, layer: int, q, k, v, scale: Optional[float] = None, sliding_window=None):
+def cached_attention(
+    cache, layer: int, q, k, v, scale: Optional[float] = None, sliding_window=None, logit_softcap=None
+):
     """Incremental causal attention of ``q [B, S_new, H, D]`` against
     ``layer``'s cache after writing ``k``/``v`` ``[B, S_new, H_kv, D]`` at
     the write index. Query ``i`` attends keys ``<= index + i`` (and
-    ``> index + i - W`` with a sliding window). Scores and softmax in f32;
+    ``> index + i - W`` with a sliding window). Scores and softmax in f32,
+    ``logit_softcap`` (Gemma2) applied to the f32 scores before the mask;
     GQA contracts grouped queries against the un-repeated cache. Returns
-    ``[B, S_new, H, D]``."""
+    ``[B, S_new, H, D]``. The paged cache refuses a softcap, as the JAX
+    package's does: its kernel has no tanh-cap branch."""
+    from .attention import softcap
     from .paged_kv import PagedKVCache, paged_cached_attention
 
     if isinstance(cache, PagedKVCache):
+        if logit_softcap is not None:
+            raise NotImplementedError(
+                "attention logit softcapping (Gemma2) is not supported by the paged cache kernel; "
+                "the dense engine layout that serves it is not ported yet (queued in ROADMAP.md)"
+            )
         return paged_cached_attention(cache, layer, q, k, v, scale=scale, sliding_window=sliding_window)
     b, s_new, h_kv, d = k.shape
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
@@ -66,6 +76,8 @@ def cached_attention(cache, layer: int, q, k, v, scale: Optional[float] = None, 
     groups = q.shape[2] // h_kv
     qg = q.reshape(b, s_new, h_kv, groups, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_all).float() * scale
+    if logit_softcap is not None:
+        scores = softcap(scores, logit_softcap)
     scores = scores.masked_fill(~live, -math.inf)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_all)

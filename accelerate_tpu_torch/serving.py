@@ -124,6 +124,12 @@ class ServingEngine:
                 raise _not_ported(what)
         if auto_bucketing:
             raise _not_ported("auto_bucketing")
+        if getattr(model.config, "attn_logit_softcap", None) is not None:
+            # the JAX package's paged cache raises the same at the first decode step
+            raise NotImplementedError(
+                "attention logit softcapping (Gemma2) is not supported by the paged cache kernel; "
+                "the dense engine layout that serves it is not ported yet (queued in ROADMAP.md)"
+            )
         if getattr(model.config, "sliding_window", None) is not None:
             raise _not_ported("paged serving of sliding-window models (windowed block expiry)")
         if scheduler is None:

@@ -70,7 +70,17 @@ it, all three equal. Then the slices:
   BatchNorm statistics through ``build_train_step(has_state=True)``) for
   one epoch with its eval pass, its step traced (convolutions are cuDNN's:
   no kernel of the JAX package runs there); small ResNets held card
-  against CPU; the statistics saved, zeroed and restored bit for bit.
+  against CPU; the statistics saved, zeroed and restored bit for bit;
+* the Llama-knob families: Gemma-2B at full width (seeded random weights,
+  bf16) served with the serving traffic (K4 at head dim 256; greedy
+  tokens against a no-cache loop; one tick profiled) and trained at batch
+  2 x 2048 (K1-K3 at head dim 256; one step profiled), Gemma3-1B trained
+  likewise (its 512-key band on five layers in six), every family at its
+  published widths cut to 2 layers held on the card to the CPU (logits,
+  greedy generate), and Phi-3-mini's widths (head dim 96, a 2047-key
+  band) trained through the kernels against the einsum path. K1-K3 are
+  held to their plain versions at D 96 and 256 too, and swept over head
+  dims 16 to 256.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -555,6 +565,8 @@ FLASH_TOL = {
 }
 LSE_TOL = 1e-5
 GRAD_FLOOR = 2e-5
+# flash against einsum training (loss, grad norm relative errors): phase_train_consistency
+CONSISTENCY_TOL = {"no": (1e-5, 1e-4), "bf16": (1e-4, 2e-3)}
 
 
 def live_pairs(sq, sk, causal, window) -> int:
@@ -640,56 +652,76 @@ def check_flash(errs, what: str) -> None:
         check(over <= 1.0, f"flash {kind} vs plain: error {over} x its tolerance ({what})")
 
 
-def phase_flash_kernel(torch):
+# K1-K3's cases at the shapes the main paths give them: (name, dtype, [B, S, H, H_kv, D], window, timed
+# runs). The training slice's (TinyLlama: D 64), then Phi-3-mini's attention (D 96, MHA, its 2047-key
+# band) and Gemma-2B's (D 256, MQA), each at seq 2048 (the families phases' shapes).
+FLASH_CASES = [
+    ("bf16", "bfloat16", [8, 2048, 32, 4, 64], None, 30),
+    ("fp16", "float16", [8, 2048, 32, 4, 64], None, 30),
+    ("f32", "float32", [8, 2048, 32, 4, 64], None, 5),
+    ("bf16-d128", "bfloat16", [8, 2048, 32, 4, 128], None, 30),
+    ("bf16-d96", "bfloat16", [8, 2048, 32, 32, 96], 2047, 10),
+    ("bf16-d256", "bfloat16", [2, 2048, 8, 1, 256], None, 30),
+    ("fp16-d256", "float16", [2, 2048, 8, 1, 256], None, 10),
+    ("f32-d256", "float32", [2, 2048, 8, 1, 256], None, 3),
+]
+
+
+def phase_flash_kernel(torch, cases=FLASH_CASES):
     """K1-K3 against their plain versions at the training slice's attention
     shape (B 8, H 32, H_kv 4, D 64, S 2048, causal, bf16), again in fp16 and
-    f32 and at D 128; their times beside the bound, the plain version's and
+    f32 and at D 128, and at the families' head dims: D 96 (Phi-3-mini, H
+    32/32, band 2047) and D 256 (Gemma-2B, H 8/1) in bf16, D 256 in fp16 and
+    f32 as well; their times beside the bound, the plain version's and
     scaled_dot_product_attention's (forward; backward, which computes dq,
-    dk and dv in one call), with each one's achieved TFLOP/s and share of
-    its bound. Tolerances: FLASH_TOL."""
+    dk and dv in one call; the band as a boolean mask), with each one's
+    achieved TFLOP/s and share of its bound. Tolerances: FLASH_TOL."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
-    cases = [("bf16", torch.bfloat16, 64, 30), ("fp16", torch.float16, 64, 30), ("f32", torch.float32, 64, 5),
-             ("bf16-d128", torch.bfloat16, 128, 30)]
-    b, s, h, h_kv = 8, 2048, 32, 4
     results = {}
-    for name, dtype, d, reps in cases:
+    for name, dtype_name_, (b, s, h, h_kv, d), window, reps in cases:
+        dtype = getattr(torch, dtype_name_)
         q, k, v, do = flash_inputs(torch, gen, b, s, s, h, h_kv, d, dtype)
-        errs, (out, lse, delta) = flash_compare(torch, fa, q, k, v, do, True, None)
+        errs, (out, lse, delta) = flash_compare(torch, fa, q, k, v, do, True, window)
         check_flash(errs, name)
         scale = d**-0.5
         kernels = {
-            "fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, scale, None),
-            "dq": lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale, None),
-            "dkv": lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, True, scale, None),
+            "fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, scale, window),
+            "dq": lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale, window),
+            "dkv": lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, True, scale, window),
         }
         plains = {
-            "fwd": lambda: fa.flash_attention_plain(q, k, v, True, scale),
-            "dq": lambda: fa.flash_attention_plain_dq(q, k, v, do, lse, delta, True, scale),
-            "dkv": lambda: fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, scale),
+            "fwd": lambda: fa.flash_attention_plain(q, k, v, True, scale, window),
+            "dq": lambda: fa.flash_attention_plain_dq(q, k, v, do, lse, delta, True, scale, window),
+            "dkv": lambda: fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, scale, window),
         }
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        if window is None:
+            lib_kw = {"is_causal": True}
+        else:  # the band as the mask scaled_dot_product_attention takes
+            rows, cols = torch.arange(s, device="cuda")[:, None], torch.arange(s, device="cuda")[None, :]
+            lib_kw = {"attn_mask": (cols <= rows) & (cols > rows - window)}
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw)
         lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
         dot = do.transpose(1, 2).contiguous()
         library = {
-            "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw),
             "bwd": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
         }
-        row = {"phase": "flash_kernel", "case": name, "shape": [b, s, h, h_kv, d], "causal": True,
+        row = {"phase": "flash_kernel", "case": name, "shape": [b, s, h, h_kv, d], "causal": True, "window": window,
                "library_max_abs_err_fwd": lib_err}
         for kind in kernels:
-            bound_ms, bound_by = flash_bound(kind, q, k, True, None)
+            bound_ms, bound_by = flash_bound(kind, q, k, True, window)
             ms = time_ms(torch, kernels[kind], reps=reps, flush=flush)
             row[kind] = {
                 "max_abs_err": errs[kind][0], "err_over_tol": errs[kind][1], "ms": ms,
                 "plain_ms": time_ms(torch, plains[kind], reps=min(reps, 5), warmup=1, flush=flush),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "tflops": flash_flops(kind, q, k, True, None) / (ms * 1e-3) / 1e12, "share_of_bound": bound_ms / ms,
+                "tflops": flash_flops(kind, q, k, True, window) / (ms * 1e-3) / 1e12, "share_of_bound": bound_ms / ms,
             }
         row["library_fwd_ms"] = time_ms(torch, library["fwd"], reps=reps, flush=flush)
         row["library_bwd_ms"] = time_ms(torch, library["bwd"], reps=reps, flush=flush)
@@ -703,7 +735,8 @@ def phase_flash_sweep(torch):
     """K1-K3 against their plain versions over the shapes they take: every
     dtype, groups 1/4/8, D 64/128, Sq = Sk in {1, 100, 2048}, Sq < Sk and
     Sq > Sk (dead rows under causal), non-causal, causal, and bands of 1 and
-    100 keys."""
+    100 keys; then the head dims run at a wider built width (16, 48, 96, 160,
+    208) and D 256, at groups 1 and 8 and without the 2048 shape."""
     import itertools
 
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -713,7 +746,11 @@ def phase_flash_sweep(torch):
     shapes = ((1, 1), (100, 100), (2048, 2048), (100, 300), (300, 100))
     masks = ((False, None), (True, None), (True, 1), (True, 100))
     worst, n = {}, 0
-    for dtype, g, d, (sq, sk), (causal, window) in itertools.product(dtypes, (1, 4, 8), (64, 128), shapes, masks):
+    sweep = itertools.chain(
+        itertools.product(dtypes, (1, 4, 8), (64, 128), shapes, masks),
+        itertools.product(dtypes, (1, 8), (16, 48, 96, 160, 208, 256), shapes[:2] + shapes[3:], masks),
+    )
+    for dtype, g, d, (sq, sk), (causal, window) in sweep:
         q, k, v, do = flash_inputs(torch, gen, 1, sq, sk, 2 * g, 2, d, dtype)
         errs, _ = flash_compare(torch, fa, q, k, v, do, causal, window)
         check_flash(errs, f"sweep {dtype} G{g} D{d} {sq}x{sk} causal={causal} W{window}")
@@ -725,7 +762,7 @@ def phase_flash_sweep(torch):
 
 
 def phase_flash_launch(torch):
-    """K1-K3's launches for every dtype x D, three ways: what the C launcher
+    """K1-K3's launches for every dtype x D (64, 96, 128, 256), three ways: what the C launcher
     reports (its ``*_config`` entry, the arithmetic it launches with), what
     ``fwd_launch`` / ``bwd_launch`` say, and the grid and threads
     ``kernel_check`` records on meta tensors for a forward and backward; all
@@ -744,7 +781,7 @@ def phase_flash_launch(torch):
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     rows = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (64, 128):
+        for d in (64, 96, 128, 256):
             code = fa._DTYPE_CODES[dtype]
             meta = [torch.empty(shape, dtype=dtype, device="meta") for shape in ((b, s, h, d), (b, s, h_kv, d))]
             sites = {site.kernel_name: {"grid": tuple(site.grid), "threads": site.threads}
@@ -765,11 +802,18 @@ def phase_flash_launch(torch):
 
 def llama_step_flops(module, cfg, tokens: int, seq_len: int) -> float:
     """bench.py's _llama_step_flops: 6 x non-embedding params x tokens, plus
-    the attention scores (2 S^2 hidden a layer forward, x3 with the
-    backward, halved by causality)."""
+    the attention scores (2 S^2 x heads x head dim a layer forward, x3 with
+    the backward, halved by causality; a banded layer counts its live
+    (query, key) pairs instead), plus a tied head's 6 x tokens x hidden x
+    vocab."""
+    from accelerate_tpu_torch.models.llama import _head_dim, _layer_kinds
+
     n_params = sum(p.numel() for name, p in module.named_parameters() if "embed" not in name)
     batch = tokens // seq_len
-    attn = 0.5 * 12.0 * cfg.num_hidden_layers * batch * seq_len**2 * cfg.hidden_size
+    width = cfg.num_attention_heads * _head_dim(cfg)
+    pairs = [0.5 * seq_len**2 if window is None else live_pairs(seq_len, seq_len, True, window)
+             for window, _ in _layer_kinds(cfg)]
+    attn = 12.0 * batch * width * sum(pairs)
     lm_head = 6.0 * tokens * cfg.hidden_size * cfg.vocab_size if cfg.tie_word_embeddings else 0.0
     return 6.0 * n_params * tokens + attn + lm_head
 
@@ -884,7 +928,8 @@ def device_time(events) -> tuple[float, dict]:
     return busy / 1e3, by_name
 
 
-def phase_train_profile(torch, step, batches):
+def phase_train_profile(torch, step, batches, phase="train_profile",
+                        what="one train step, TinyLlama shape, batch 8 x 2048, bf16 compute, remat"):
     """One more train step under torch.profiler (``traced``): device busy
     time (the union of the traced kernels' intervals; user annotations
     left out), idle share against the traced step's wall time, and where the
@@ -907,7 +952,7 @@ def phase_train_profile(torch, step, batches):
     gemm = share(lambda nm: any(t in nm for t in ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     row = {
-        "phase": "train_profile", "what": "one train step, TinyLlama shape, batch 8 x 2048, bf16 compute, remat",
+        "phase": phase, "what": what,
         "step_wall_ms": wall_ms, "step_wall_ms_unprofiled": plain_wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall_ms if busy else None,
         "flash_ms": flash, "flash_share": sum(flash.values()) / busy if busy else None,
@@ -919,21 +964,17 @@ def phase_train_profile(torch, step, batches):
     return row
 
 
-def phase_train_consistency(torch, mixed_precision):
-    """TinyLlama widths, 2 layers, batch 1 x seq 2048, where the flash path
-    dispatches by itself: three steps through the kernels, then three from
+def consistency_runs(torch, cfg, mixed_precision) -> dict:
+    """``cfg`` (2 layers) trained three steps at batch 1 x seq 2048, where
+    the flash path dispatches by itself, through the kernels and then from
     the same weights on the einsum attention path (FLASH_MIN_SEQ raised
-    above the sequence for that run only). In f32 (the kernels' CUDA-core
-    path) losses agree within 1e-5 relative and grad norms within 1e-4. In
-    bf16 compute (the tensor-core path) the einsum path rounds its scores to
-    bf16 where the kernels keep them f32: losses within 1e-4, grad norms
-    within 2e-3, about twice the differences read on the card (PERF.md)."""
-    from accelerate_tpu_torch import LlamaConfig
+    above the sequence for that run only): each path's losses, grad norms
+    and K1 launches (2 layers x 2 with remat x 3 steps through the kernels,
+    none on the einsum path)."""
     from accelerate_tpu_torch.ops import attention
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    loss_tol, norm_tol = {"no": (1e-5, 1e-4), "bf16": (1e-4, 2e-3)}[mixed_precision]
-    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2}, remat=True)
+    check(cfg.num_hidden_layers == 2, "a consistency run trains 2 layers")
     batches = token_batches(torch, 3, 1, 2048, cfg.vocab_size, seed=5)
     runs = {}
     saved = attention.FLASH_MIN_SEQ
@@ -952,8 +993,27 @@ def phase_train_consistency(torch, mixed_precision):
         attention.FLASH_MIN_SEQ = saved
     check(runs["flash"]["k1_launches"] == 2 * 2 * 3 and runs["einsum"]["k1_launches"] == 0,
           f"flash run through K1, einsum run not: {runs}")
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["flash"]["losses"], runs["einsum"]["losses"]))
-    norm_err = max(abs(a - b) / abs(b) for a, b in zip(runs["flash"]["grad_norms"], runs["einsum"]["grad_norms"]))
+    return runs
+
+
+def rel_errs(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_train_consistency(torch, mixed_precision):
+    """TinyLlama widths, 2 layers, batch 1 x seq 2048 (consistency_runs). In
+    f32 (the kernels' CUDA-core path) losses agree within 1e-5 relative and
+    grad norms within 1e-4. In bf16 compute (the tensor-core path) the
+    einsum path rounds its scores to bf16 where the kernels keep them f32:
+    losses within 1e-4, grad norms within 2e-3, about twice the differences
+    read on the card (PERF.md)."""
+    from accelerate_tpu_torch import LlamaConfig
+
+    loss_tol, norm_tol = CONSISTENCY_TOL[mixed_precision]
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2}, remat=True)
+    runs = consistency_runs(torch, cfg, mixed_precision)
+    loss_err = rel_errs(runs["flash"]["losses"], runs["einsum"]["losses"])
+    norm_err = rel_errs(runs["flash"]["grad_norms"], runs["einsum"]["grad_norms"])
     check(loss_err <= loss_tol, f"flash vs einsum loss rel err {loss_err} <= {loss_tol} ({mixed_precision})")
     check(norm_err <= norm_tol, f"flash vs einsum grad norm rel err {norm_err} <= {norm_tol} ({mixed_precision})")
     compute = "f32" if mixed_precision == "no" else "f32 masters + bf16 compute"
@@ -987,6 +1047,261 @@ def phase_flash_crossover(torch):
         torch.cuda.empty_cache()
     emit({"phase": "flash_crossover", "what": "fwd+bwd, H 32/4, D 64, causal, bf16, 16384 tokens", "rows": rows})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the Llama-knob families: Gemma-2B served and trained at full width,
+# Gemma3-1B trained, every family's card against the CPU
+# ---------------------------------------------------------------------------
+
+# Published configurations (seeded random weights): google/gemma-2b and
+# google/gemma-3-1b-pt config.json, as GemmaConfig.gemma_2b and
+# Gemma3Config.gemma3_1b give them; the other families' presets name theirs
+# (mistralai/Mistral-7B-v0.1, Qwen/Qwen2-7B, Qwen/Qwen3-8B,
+# allenai/OLMo-2-1124-7B, google/gemma-2-9b, microsoft/Phi-3-mini-4k-instruct).
+FAMILY_PRESETS = (("mistral", "MistralConfig", "mistral_7b_v1"), ("qwen2", "Qwen2Config", "qwen2_7b"),
+                  ("qwen3", "Qwen3Config", "qwen3_8b"), ("olmo2", "Olmo2Config", "olmo2_7b"),
+                  ("gemma", "GemmaConfig", "gemma_2b"), ("gemma2", "Gemma2Config", "gemma2_9b"),
+                  ("gemma3", "Gemma3Config", "gemma3_1b"), ("phi3", "Phi3Config", "phi3_mini_4k"))
+# greedy bf16 serving against the no-cache loop: the two paths round the bf16
+# stream in different places (K4 keeps P in f32, the einsum path its scores
+# in bf16), which moves Gemma-2B's f32 logits by up to a few hundredths
+SERVE_BF16_GAP = 0.1
+
+
+def family_config(family: str, preset: str, **kw):
+    from accelerate_tpu_torch import models
+
+    name = dict((f, c) for f, c, _ in FAMILY_PRESETS)[family]
+    return getattr(getattr(models, name), preset)(**kw)
+
+
+def phase_gemma_serve(torch):
+    """Gemma-2B (google/gemma-2b's shape: vocab 256,000, hidden 2048, 18
+    layers, 8/1 heads, head dim 256, GeGLU, tied head) in bf16 on seeded
+    random weights, served by the paged engine with the serve phase's
+    traffic (8 slots, 12 prompts of 5-400 tokens, 64 new, greedy): every
+    decode step's attention through K4 at D 256 (launches == 18 x decode
+    steps, counted from 0 for the run), every request's greedy tokens
+    against a no-cache loop over the full forward (a token may differ only
+    at a top-2 logit gap under SERVE_BF16_GAP, which ends the request's
+    comparison), logprobs finite; one decode tick profiled for its idle
+    share."""
+    from accelerate_tpu_torch.models import create_gemma_model
+
+    cfg = family_config("gemma", "gemma_2b")
+    t0 = time.perf_counter()
+    model = create_gemma_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    row = serve_run(torch, model, "gemma_serve", "Gemma-2B shape, bf16, seeded random weights")
+    eng, rng = serve_engine(model), np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 130, 400)]
+    uids = [eng.submit(p, 32) for p in prompts]
+    eng.run()
+    served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+    compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit=SERVE_BF16_GAP)
+    check(compared > 0, "gemma serve: tokens compared against the no-cache loop")
+    del eng
+    free_memory(torch)
+    profile = phase_profile(torch, model, phase="gemma_profile", what="Gemma-2B shape bf16")
+    row.update(model_build_s=build_s, head_dim=cfg.head_dim, heads=[cfg.num_attention_heads, cfg.num_key_value_heads],
+               reference_prompts=[len(p) for p in prompts], tokens_compared=compared, stopped_at_near_tie=near_ties,
+               max_logprob_err=max_lp_err, tick_idle_share=profile["idle_share"],
+               tick_wall_ms=profile["tick_wall_ms"])
+    emit(row)
+    del model
+    free_memory(torch)
+    return row
+
+
+def train_family(torch, phase, cfg, what, b=2, s=2048, warmup=2, timed=10, profile=False):
+    """``cfg`` at full width and depth, f32 masters, bf16 compute, remat,
+    AdamW(3e-4, weight decay 0.01), batch ``b`` x ``s``: ``warmup`` + ``timed``
+    steps through build_train_step. Losses finite and falling; every layer's
+    attention through the flash kernels (K1 twice a layer a step, K2 and K3
+    once), counted from 0 for the run; K1-K3 held against their plain
+    versions on the first step's last-layer q, k, v and dO (that layer's
+    band). With ``profile`` one more step is traced (phase_train_profile)."""
+    from accelerate_tpu_torch.models.llama import _layer_kinds
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    free_memory(torch)
+    acc, model, step = build_trainer(torch, cfg, "bf16")
+    batches = token_batches(torch, warmup + timed, b, s, cfg.vocab_size, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    losses, times = [], []
+    with first_dq_call(fa) as seen:
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            loss = step({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n, layers = warmup + timed, cfg.num_hidden_layers
+    check(all(np.isfinite(losses)), f"{phase}: losses finite: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss falls over {n} steps: {losses[0]} -> {losses[-1]}")
+    check(launches == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n},
+          f"{phase}: flash launches {launches} == K1 2 x {layers} x {n}, K2/K3 {layers} x {n}")
+    q, k, v, do = seen[0]
+    window = _layer_kinds(cfg)[-1][0]
+    model_errs, _ = flash_compare(torch, fa, q, k, v, do, True, window)
+    check_flash(model_errs, f"{phase}: the train step's own last-layer inputs")
+    shapes = [list(q.shape), list(k.shape)]
+    del seen, q, k, v, do
+    step_ms = sorted(times[warmup:])
+    flops = llama_step_flops(model.module, cfg, b * s, s)
+    med = statistics.median(step_ms)
+    row = {
+        "phase": phase, "config": what, "params": model.num_parameters(), "batch": b, "seq": s,
+        "warmup_steps": warmup, "timed_steps": timed, "tokens_per_s": b * s / (med / 1e3), "step_ms_median": med,
+        "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1], "step_flops": flops,
+        "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak,
+        "memory_total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9, "losses": losses,
+        "launches": launches, "last_layer_qk_shapes": shapes, "last_layer_window": window,
+        "flash_vs_plain_on_model_inputs": {kind: {"max_abs_err": a, "err_over_tol": o}
+                                           for kind, (a, o) in model_errs.items()},
+    }
+    emit(row)
+    if profile:
+        phase_train_profile(torch, step, batches, f"{phase}_profile", f"one train step, {what}, batch {b} x {s}")
+    del acc, model, step, batches
+    free_memory(torch)
+    return row
+
+
+def phase_gemma_train(torch):
+    """Gemma-2B at full width and depth (18 layers, head dim 256, MQA 8/1,
+    2.51 B parameters): batch 2 x 2048, train_family's recipe. At batch 2
+    the f32 masters, grads and AdamW moments take about 40 GB and each f32
+    copy of the 256,000-wide logits about 4.2 GB."""
+    cfg = family_config("gemma", "gemma_2b", remat=True)
+    return train_family(torch, "gemma_train", cfg, "Gemma-2B shape, 18 layers, f32 masters + bf16 compute, remat",
+                        profile=True)
+
+
+def phase_gemma3_train(torch):
+    """Gemma3-1B (google/gemma-3-1b-pt's shape: 26 layers, hidden 1152, 4/1
+    heads, head dim 256, a 512-key band on five layers in six, dual rope
+    bases, qk-norms) at full width and depth, train_family's recipe."""
+    cfg = family_config("gemma3", "gemma3_1b", remat=True)
+    return train_family(torch, "gemma3_train", cfg, "Gemma3-1B shape, 26 layers, f32 masters + bf16 compute, remat")
+
+
+def attention_op_errors(torch, b, s, h, hkv, d, window) -> dict:
+    """Causal attention (with ``window``) forward and backward on seeded bf16
+    q, k, v and dO in bf16 through the kernels (use_flash=True) and through
+    the einsum path, each against the einsum path in f32 on the same
+    values: ``{path: [relative error (Frobenius) of out, dq, dk, dv]}``."""
+    from accelerate_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = flash_inputs(torch, gen, b, s, s, h, hkv, d, torch.bfloat16)
+    ref, errs = None, {}
+    for name, flash, dtype in (("f32", False, torch.float32), ("bf16-flash", True, torch.bfloat16),
+                               ("bf16-einsum", False, torch.bfloat16)):
+        qq, kk, vv = (x.to(dtype).detach().requires_grad_() for x in (q, k, v))
+        out = dot_product_attention(qq, kk, vv, causal=True, window=window, use_flash=flash)
+        out.backward(do.to(dtype))
+        got = [t.detach().float() for t in (out, qq.grad, kk.grad, vv.grad)]
+        if ref is None:
+            ref = got
+        else:
+            errs[name] = [float((a - r).norm() / r.norm()) for a, r in zip(got, ref)]
+    return errs
+
+
+def phase_families_consistency(torch):
+    """Each family at its published widths cut to 2 layers (Gemma3 keeps one
+    sliding and one full layer), f32, built on the CPU and copied to the
+    card: the card's forward logits (batch 2 x 64) within 1e-4 of the CPU's
+    RMS; greedy generate of 8 tokens after 16 equal to the CPU's, a token
+    differing only where the CPU's top-2 logit gap on that prefix is under
+    1e-3 (which ends that row's comparison). Then Phi-3-mini's widths, 2 of
+    32 layers, train three flash-length steps at seq 2048 (D 96, its
+    2047-key band) against the einsum path (consistency_runs): in f32 at
+    train_consistency's tolerances; in bf16 compute each step's flash loss
+    and grad norm no farther from the f32 run's than the einsum path's,
+    plus train_consistency's bf16 tolerances: there the einsum path, which
+    rounds its scores to bf16, is the farther of the two, as the attention
+    alone at that shape shows first (attention_op_errors: the kernels no
+    farther from f32 than the einsum path in out, dq, dk and dv)."""
+    import copy
+
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models.llama import create_llama_model
+
+    rows = []
+    rng = np.random.default_rng(12)
+    for family, _, preset in FAMILY_PRESETS:
+        kw = {"num_hidden_layers": 2}
+        if family == "gemma3":
+            kw["layer_types"] = ("sliding_attention", "full_attention")
+        cfg = family_config(family, preset, **kw)
+        t0 = time.perf_counter()
+        cpu = create_llama_model(cfg, seed=5, device="cpu")
+        card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+        ids = rng.integers(1, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+        with torch.no_grad():
+            want = cpu(torch.as_tensor(ids))
+            got = card(torch.as_tensor(ids, device="cuda")).cpu()
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= 1e-4 * rms,
+              f"{family}: card logits within 1e-4 of the CPU's RMS: {err} vs {rms}")
+        prompt = ids[:, :16]
+        want_tok = generate(cpu, prompt, max_new_tokens=8).numpy()
+        got_tok = generate(card, prompt, max_new_tokens=8).cpu().numpy()
+        compared, near_ties = 0, 0
+        for r in range(2):
+            diff = np.nonzero(want_tok[r, 16:] != got_tok[r, 16:])[0]
+            upto = int(diff[0]) if len(diff) else 8
+            compared += upto
+            if len(diff):
+                with torch.no_grad():
+                    row_logits = cpu(torch.as_tensor(want_tok[r:r + 1, :16 + upto]))[0, -1]
+                top2 = torch.topk(row_logits, 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap < 1e-3, f"{family}: generated token {upto} differs with top-2 gap {gap}")
+                near_ties += 1
+        rows.append({"family": family, "preset": preset, "head_dim": cfg.head_dim or cfg.hidden_size //
+                     cfg.num_attention_heads, "params": cpu.num_parameters(), "logits_max_abs_err": err,
+                     "logits_rms": rms, "tokens_compared": compared, "stopped_at_near_tie": near_ties,
+                     "seconds": time.perf_counter() - t0})
+        del cpu, card
+        free_memory(torch)
+    phi3 = family_config("phi3", "phi3_mini_4k", num_hidden_layers=2, remat=True)
+    ops = attention_op_errors(torch, 1, 2048, 32, 32, 96, 2047)
+    check(all(f <= e for f, e in zip(ops["bf16-flash"], ops["bf16-einsum"])),
+          f"phi3 attention in bf16: the kernels no farther from f32 than the einsum path: {ops}")
+    runs = {mp: consistency_runs(torch, phi3, mp) for mp in ("no", "bf16")}
+    tol = CONSISTENCY_TOL
+    f32 = {"loss": rel_errs(runs["no"]["flash"]["losses"], runs["no"]["einsum"]["losses"]),
+           "grad_norm": rel_errs(runs["no"]["flash"]["grad_norms"], runs["no"]["einsum"]["grad_norms"])}
+    check(f32["loss"] <= tol["no"][0] and f32["grad_norm"] <= tol["no"][1],
+          f"phi3 f32: flash vs einsum {f32} within {tol['no']}")
+    # bf16: the einsum path rounds its scores to bf16, the kernels keep them f32, and at Phi-3's shape the
+    # einsum path is the farther of the two from the f32 run (PERF.md). Each step's flash loss (grad norm)
+    # may be no farther from the f32 run's than the einsum path's is, plus train_consistency's bf16 tolerance.
+    bf16 = {}
+    for key, t in (("losses", tol["bf16"][0]), ("grad_norms", tol["bf16"][1])):
+        ref = runs["no"]["flash"][key]
+        flash = [abs(a - r) / abs(r) for a, r in zip(runs["bf16"]["flash"][key], ref)]
+        einsum = [abs(a - r) / abs(r) for a, r in zip(runs["bf16"]["einsum"][key], ref)]
+        bf16[key] = {"flash_vs_f32": flash, "einsum_vs_f32": einsum,
+                     "flash_vs_einsum": rel_errs(runs["bf16"]["flash"][key], runs["bf16"]["einsum"][key])}
+        check(all(f <= e + t for f, e in zip(flash, einsum)),
+              f"phi3 bf16 {key}: flash {flash} no farther from the f32 run than einsum {einsum} + {t}")
+    row = {"phase": "families_consistency", "families": rows,
+           "phi3_attention_rel_err_vs_f32": ops,
+           "phi3_train": {"runs": runs, "f32_flash_vs_einsum": f32, "bf16": bf16}}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2608,8 +2923,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet` runs some
-    # groups of phases
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families` runs
+    # some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
@@ -2669,6 +2984,11 @@ def main() -> int:
         phase_resnet_train(torch)
         phase_resnet_consistency(torch)
         phase_resnet_resume(torch)
+    if not only or "families" in only:
+        gemma_serve = phase_gemma_serve(torch)
+        gemma_train = phase_gemma_train(torch)
+        gemma3_train = phase_gemma3_train(torch)
+        phase_families_consistency(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -2678,8 +2998,10 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
-        # the serving paths: the bf16 model's, the int4 model's and LlamaConfig.tiny()'s (head dim 16)
-        "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"],
+        # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16) and
+        # Gemma-2B's (head dim 256)
+        "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
+        + gemma_serve["kernel_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
@@ -2691,7 +3013,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
-            "launches": train["launches"][kind], "max_abs_err": row["max_abs_err"],
+            # the training paths: TinyLlama's (D 64), Gemma-2B's and Gemma3-1B's (D 256)
+            "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind],
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv
             "library_ms": flash["library_fwd_ms"] if kind == "fwd" else flash["library_bwd_ms"],

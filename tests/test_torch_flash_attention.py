@@ -127,6 +127,61 @@ def test_banded_gradients_match_pallas():
         np.testing.assert_allclose(g, np.asarray(w), atol=2e-3, rtol=2e-3, err_msg=f"d{name} mismatch")
 
 
+# The families' head dims: Phi-3-mini's 96 (run at the built width 128) and
+# Gemma's 256, the plain versions against the Pallas kernel in interpret
+# mode (its blocks keep the head dim whole), causal and banded, GQA/MQA.
+WIDE_CASES = [
+    pytest.param(1, 100, 100, 4, 4, 96, None, id="d96-mha-causal"),
+    pytest.param(1, 128, 128, 4, 4, 96, 40, id="d96-mha-band"),
+    pytest.param(1, 100, 100, 4, 1, 256, None, id="d256-mqa-causal"),
+    pytest.param(1, 128, 128, 4, 2, 256, 17, id="d256-gqa-band"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,window", WIDE_CASES)
+def test_wide_head_dim_forward_matches_pallas(b, sq, sk, h, h_kv, d, window):
+    q, k, v = _qkv(14, b, sq, sk, h, h_kv, d)
+    want = np.asarray(_jax(q, k, v, True, window, block=32))
+    out, lse = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=True, window=window)
+    assert out.shape == (b, sq, h, d) and torch.isfinite(lse).all()
+    np.testing.assert_allclose(out.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,window", WIDE_CASES)
+def test_wide_head_dim_gradients_match_pallas(b, sq, sk, h, h_kv, d, window):
+    q, k, v = _qkv(15, b, sq, sk, h, h_kv, d)
+    got = _grads_torch(q, k, v, True, window=window)
+    want = _grads_jax(q, k, v, True, window=window, block=32)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, np.asarray(w), atol=2e-3, rtol=2e-3, err_msg=f"d{name} mismatch")
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("window", [None, 33], ids=["causal", "band"])
+def test_bf16_wide_head_dim_plain_forward_matches_pallas(d, window):
+    """bf16 at the families' head dims, held as the D 64 and 128 cases are
+    (below): 2e-2 of |ref| + RMS(ref), FLASH_TOL's bf16 output tolerance."""
+    q, k, v = _qkv(16, 1, 160, 160, 4, 1, d)
+    want = np.asarray(pallas_flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=True,
+                                             window=window, interpret=True).astype(jnp.float32))
+    got, _ = fa.flash_attention_plain(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)), causal=True,
+                                      window=window)
+    gap = np.abs(got.float().numpy() - want)
+    assert (gap <= 2e-2 * (np.abs(want) + np.sqrt((want**2).mean()))).all(), gap.max()
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_auto_dispatch_takes_the_families_head_dims(monkeypatch, d):
+    """On the card a long sequence at D 96 or 256 now goes to the flash
+    kernels (here their plain versions), and gives the einsum path's answer."""
+    attention, calls = _spy_dispatch(monkeypatch)
+    q, k, v = (torch.tensor(x) for x in _qkv(17, 1, 32, 32, 4, 2, d))
+    got = attention.dot_product_attention(q, k, v, causal=True)
+    assert calls == [d]
+    want = attention.dot_product_attention(q, k, v, causal=True, use_flash=False)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 def test_plain_matches_einsum_path_in_bf16():
     """bf16 inputs: the plain flash version keeps the kernels' rounding
     points (P in bf16 before P v), so it stays within bf16 rounding of the
@@ -163,7 +218,7 @@ def test_cpu_flash_with_window_refuses_like_jax():
 def test_kernel_wrappers_check_their_inputs():
     """Shapes and types the kernels do not take raise before any launch,
     whatever the device (the checks come first)."""
-    q = torch.zeros(1, 8, 2, 48)
+    q = torch.zeros(1, 8, 2, 40)
     with pytest.raises(ValueError, match="head_dim"):
         fa._check_cuda(q, q, q)
     with pytest.raises(TypeError, match="one dtype"):
@@ -223,11 +278,16 @@ def test_bf16_plain_forward_matches_pallas(b, s, h, h_kv, d, causal):
 
 def test_flash_head_dim_predicate():
     """One test of the head dims K1-K3 take, shared by the wrappers and the
-    dispatch."""
-    assert [d for d in (8, 16, 32, 48, 64, 96, 128, 256) if fa.flash_head_dim_ok(d)] == [64, 128]
-    for d in (16, 96, 256):
+    dispatch: every multiple of 16 up to 256, each run at the built width
+    (64, 128 or 256) that holds it."""
+    taken = [d for d in range(0, 290, 8) if fa.flash_head_dim_ok(d)]
+    assert taken == list(range(16, 257, 16))
+    assert [fa.kernel_width(d) for d in (16, 48, 64, 80, 96, 128, 144, 208, 256)] == [64] * 3 + [128] * 3 + [256] * 3
+    for d in (8, 40, 272):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             fa._check_cuda(*(torch.zeros(1, 8, 2, d),) * 3)
+    for d in (16, 96, 256):
+        fa._check_cuda(*(torch.zeros(1, 8, 2, d),) * 3)
 
 
 def _spy_dispatch(monkeypatch):
@@ -248,7 +308,7 @@ def _spy_dispatch(monkeypatch):
     return attention, calls
 
 
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [8, 40, 272])
 def test_auto_dispatch_keeps_other_head_dims_on_einsum(monkeypatch, d):
     """On the card, use_flash=None sends a long sequence to the flash
     kernels only at a head dim they take; any other stays on the einsum
@@ -264,7 +324,7 @@ def test_auto_dispatch_keeps_other_head_dims_on_einsum(monkeypatch, d):
     assert calls == [64]
 
 
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [8, 40, 272])
 def test_explicit_flash_with_other_head_dim_raises_on_the_card(monkeypatch, d):
     """use_flash=True on the card at a head dim the kernels do not take
     raises, naming it: no fallback to the einsum path."""
@@ -275,29 +335,34 @@ def test_explicit_flash_with_other_head_dim_raises_on_the_card(monkeypatch, d):
     assert calls == []
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_backward_launch_config(dtype, d):
     """K2 and K3's launches, bwd_launch against the grid and threads
     kernel_check records on meta tensors: bf16 and fp16 the Hopper kernels
-    (K2 three consumer warpgroups at D 64 and two at D 128, K3 two, each
-    beside a producer warpgroup), f32 the 64-row kernels; shared memory
-    within a block's 232,448 bytes."""
+    (K2 three consumer warpgroups at D 64, two at D 96 and 128 and one at D
+    256; K3 two, on 64 key rows each, or at D 256 on the same 64 rows, each
+    beside a producer warpgroup), f32 the 64-row kernels (32 rows at D 256,
+    K3 two blocks a key tile); shared memory within a block's 232,448
+    bytes."""
     from accelerate_tpu_torch.analysis import kernel_check
 
     b, s, h, hkv = 2, 300, 8, 2
     dq = fa.bwd_launch("dq", dtype, b, h, hkv, s, s, d)
     dkv = fa.bwd_launch("dkv", dtype, b, h, hkv, s, s, d)
+    w, halves = fa.kernel_width(d), 1
     if dtype == torch.float32:
         assert (dq.library, dq.entry, dkv.entry) == ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
-        q_rows, k_rows, dq_threads, dkv_threads = 64, 64, 128, 128
+        q_rows = k_rows = 32 if w == 256 else 64
+        dq_threads = dkv_threads = 2 * q_rows
+        halves = 2 if w == 256 else 1
     else:
         assert (dq.library, dq.entry, dkv.entry) == ("flash_bwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
-        q_rows, dq_threads = (192, 512) if d == 64 else (128, 384)
-        k_rows, dkv_threads = 128, 384
-        assert dkv.smem_bytes >= (2 * 128 + 2 * 2 * 64) * d * 2 and dq.smem_bytes >= (2 * q_rows + 2 * 2 * 64) * d * 2
+        q_rows, dq_threads = {64: (192, 512), 128: (128, 384), 256: (64, 256)}[w]
+        k_rows, dkv_threads = (64 if w == 256 else 128), 384
+        assert dkv.smem_bytes >= (2 * k_rows + 2 * 2 * 64) * w * 2 and dq.smem_bytes >= (2 * q_rows + 2 * 2 * 64) * w * 2
     assert (dq.grid, dq.threads) == ((b * h, -(-s // q_rows)), dq_threads)
-    assert (dkv.grid, dkv.threads) == ((b * hkv, -(-s // k_rows)), dkv_threads)
+    assert (dkv.grid, dkv.threads) == ((b * hkv * halves, -(-s // k_rows)), dkv_threads)
     assert 0 < dq.smem_bytes <= 232_448 and 0 < dkv.smem_bytes <= 232_448
     with pytest.raises(ValueError, match="kind"):
         fa.bwd_launch("fwd", dtype, b, h, hkv, s, s, d)
@@ -315,21 +380,27 @@ def test_backward_launch_config(dtype, d):
     assert sites["flash_attention_dkv"] == (dkv.grid, dkv.threads)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_forward_launch_config(dtype, d):
     """K1's launch at the training shape and at ragged ones: bf16 and fp16
     the Hopper kernel (a producer warpgroup and a consumer warpgroup for
-    each 64 query rows: three at D 64, two at D 128), f32 the 64-row kernel;
-    shared memory within a block's 232,448 bytes, and for the Hopper kernel
-    room for Q and two stages of 128-key K and V tiles."""
+    each 64 query rows: three at D 64, two at D 96, 128 and 256), f32 the
+    64-row kernel (32 rows at D 256); shared memory within a block's 232,448
+    bytes, and for the Hopper kernel room for Q and two stages of K and V
+    tiles of 128 keys (64 at D 256)."""
     launch = fa.fwd_launch(dtype, 8, 32, 2048, d)
+    w = fa.kernel_width(d)
     if dtype == torch.float32:
-        library, entry, rows, threads = "flash_attention", "flash_attention_fwd", 64, 128
+        library, entry = "flash_attention", "flash_attention_fwd"
+        rows = 32 if w == 256 else 64
+        threads, keys = 2 * rows, rows
     else:
         library, entry = "flash_fwd_sm90", "flash_fwd_sm90"
-        rows, threads = (192, 512) if d == 64 else (128, 384)
-        assert launch.smem_bytes >= (rows + 2 * 2 * 128) * d * 2
+        rows, threads = (192, 512) if w == 64 else (128, 384)
+        keys = 64 if w == 256 else 128
+        assert launch.smem_bytes >= (rows + 2 * 2 * keys) * w * 2
+    assert launch.keys == keys
     assert (launch.library, launch.entry, launch.grid, launch.threads) == (
         library, entry, (256, -(-2048 // rows)), threads)
     for sq in (1, rows - 1, rows, rows + 1, 300):
@@ -363,7 +434,7 @@ def test_forward_wrapper_refuses_strides_tma_cannot_read(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float16, 1e-2)])
 def test_cuda_hopper_forward_matches_plain(dtype, atol, d):
     """The Hopper K1 against its plain version: ragged S, Sq < Sk, Sq > Sk
@@ -381,28 +452,30 @@ def test_cuda_hopper_forward_matches_plain(dtype, atol, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2), (torch.float16, 1e-2)])
-def test_cuda_kernels_match_plain(dtype, atol):
+def test_cuda_kernels_match_plain(dtype, atol, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode (chip_smoke.py runs them on the H100)")
-    q, k, v = (torch.tensor(x).cuda().to(dtype) for x in _qkv(8, 2, 200, 200, 8, 2, 64))
+    q, k, v = (torch.tensor(x).cuda().to(dtype) for x in _qkv(8, 2, 200, 200, 8, 2, d))
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0)).cuda().to(dtype)
     before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
-    out, lse = fa.flash_fwd_kernel(q, k, v, True, 0.125, None)
-    want_out, want_lse = fa.flash_attention_plain(q, k, v, True, 0.125)
+    scale = d**-0.5
+    out, lse = fa.flash_fwd_kernel(q, k, v, True, scale, None)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, True, scale)
     delta = fa._delta(out, do)
-    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, 0.125, None)
-    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, True, 0.125, None)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale, None)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, True, scale, None)
     torch.cuda.synchronize()
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
-    want_dq = fa.flash_attention_plain_dq(q, k, v, do, lse, delta, True, 0.125)
-    want_dk, want_dv = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, 0.125)
+    want_dq = fa.flash_attention_plain_dq(q, k, v, do, lse, delta, True, scale)
+    want_dk, want_dv = fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, True, scale)
     for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq), (dk, want_dk), (dv, want_dv)):
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=atol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_hopper_backward_matches_plain(dtype, d):
     """The Hopper K2 and K3 against their plain versions, per element within

@@ -215,12 +215,19 @@ def test_flash_path_is_not_quietly_replaced():
 
 
 @pytest.mark.parametrize(
-    "knob", [{"qk_norm": True}, {"sandwich_norm": True}, {"attn_logit_softcap": 50.0},
-             {"layer_types": ("full_attention",) * 2}, {"qkv_bias": True}]
+    "knob", [{"attention_impl": "ring"}, {"attention_impl": "all_to_all"}, {"attn_logit_softcap": 50.0},
+             {"sliding_window": 4}, {"layer_types": ("sliding_attention", "full_attention"), "scan_layers": False,
+                                     "sliding_window": 4}]
 )
 def test_unported_llama_knobs_raise(knob):
+    """What of the Llama knobs is still queued raises, naming ROADMAP.md:
+    context-parallel attention when the model is built, and a softcap or a
+    band when the paged engine is given the model."""
+    from accelerate_tpu_torch import ServingEngine
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_llama_model(LlamaConfig.tiny(**knob), device="cpu")
+        model = create_llama_model(LlamaConfig.tiny(**knob), device="cpu")
+        ServingEngine(model, num_slots=1, prompt_buckets=(4,), paged_block_size=4, device="cpu")
 
 
 def test_chip_smoke_refuses_without_the_card_or_the_package(tmp_path):
