@@ -33,11 +33,15 @@ lands on it again). The restore labels, in restore order:
 * ``pre_restore_rng``   -- arrays, schedulers and samplers restored, host
   RNG not yet touched
 
-The serving labels are kept with the JAX package's names for the serving
-fleet's chaos matrix (``ReplicaChaos``, ROADMAP.md Queue 1 item 6); no
-serving code of the port calls them yet:
+The serving labels keep the JAX package's names. ``ServingEngine.step``
+calls the first three at the tick's phase boundaries, where the engine's
+host state is consistent; ``pre_handoff`` waits for the fleet's
+disaggregated dispatch (ROADMAP.md Queue 1 item 10):
 
-* ``pre_tick``, ``mid_prefill``, ``mid_decode``, ``pre_handoff``.
+* ``pre_tick``    -- the start of a tick, before shedding and admissions
+* ``mid_prefill`` -- before each prefilling slot's next window or bucket
+* ``mid_decode``  -- before the decode tick runs
+* ``pre_handoff`` -- the fleet router's dispatch (not reached yet).
 """
 
 from __future__ import annotations

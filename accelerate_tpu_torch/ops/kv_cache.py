@@ -56,7 +56,7 @@ def cached_attention(
         if logit_softcap is not None:
             raise NotImplementedError(
                 "attention logit softcapping (Gemma2) is not supported by the paged cache kernel; "
-                "the dense engine layout that serves it is not ported yet (queued in ROADMAP.md)"
+                "the dense engine layout that serves it is not ported yet (ROADMAP.md Queue 1 item 6)"
             )
         return paged_cached_attention(cache, layer, q, k, v, scale=scale, sliding_window=sliding_window)
     b, s_new, h_kv, d = k.shape

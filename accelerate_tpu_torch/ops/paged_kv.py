@@ -14,7 +14,8 @@ fixed-size *blocks* from one pool shared by every serving slot:
 
 The JAX package rebuilds its pools functionally; the port writes them
 in place (``paged_cached_attention``, :func:`paste_row`,
-:func:`set_table_row` and :func:`clear_slot` all mutate the cache).
+:func:`paste_blocks`, :func:`set_table_row` and :func:`clear_slot` all
+mutate the cache).
 The decode step calls the paged-attention kernel
 (:mod:`.paged_attention`) on CUDA and its plain version on the CPU.
 """
@@ -92,27 +93,46 @@ def paged_cached_attention(cache: PagedKVCache, layer: int, q, k, v, scale=None,
     return out[:, None]
 
 
-def paste_row(cache: PagedKVCache, row_cache, write_row, table_row, slot: int, new_index: int) -> None:
-    """Install a dense prefill row cache (``key``/``value`` ``[L, 1,
-    max_len, H_kv, D]``) into the pool for ``slot``: its rows are cut into
-    blocks and written at the non-trash ids of ``write_row`` (pad entries
-    are 0, the trash sink, and are skipped); ``slot``'s table row and
-    frontier become ``table_row`` and ``new_index``. In place."""
+def paste_blocks(cache: PagedKVCache, row_cache, write_row) -> None:
+    """Write pool content only (no slot's table row or frontier): cut a
+    dense row cache (``key``/``value`` ``[L, 1, rows, H_kv, D]``) into
+    blocks and write them at the non-trash ids of ``write_row``: entry
+    ``i`` of the row goes to pool block ``write_row[i]``, and entries that
+    are 0 (the trash sink) are skipped. A row cache shorter than the table
+    (the serving engine's holds ``max_len`` rows) fills the entries it
+    covers, its last block zero-padded; the entries past it hold positions
+    no request reaches, which decode writes before any read. Used alone
+    once for each registered prefix, to install its full blocks as the
+    shared content every aliasing request reads. In place."""
     n_layers, _, bs_, h_kv, d = cache.key_pool.shape
+    n_rows = row_cache.key.shape[2]
+    n_blocks = -(-n_rows // bs_)
     write_row = np.asarray(write_row)
-    mb = write_row.shape[0]
-    entries = np.flatnonzero(write_row)
-    if entries.size:
-        dev = cache.key_pool.device
-        ids = torch.as_tensor(write_row[entries], dtype=torch.long, device=dev)
-        sel = torch.as_tensor(entries, dtype=torch.long, device=dev)
-        for pool, rows in ((cache.key_pool, row_cache.key), (cache.value_pool, row_cache.value)):
-            rows = rows[:, 0]
-            pad = mb * bs_ - rows.shape[1]
-            if pad > 0:
-                rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
-            blocks = rows.reshape(n_layers, mb, bs_, h_kv, d)
-            pool[:, ids] = blocks[:, sel].to(pool.dtype)
+    entries = np.flatnonzero(write_row[:n_blocks])
+    if not entries.size:
+        return
+    dev = cache.key_pool.device
+    ids = torch.as_tensor(write_row[entries], dtype=torch.long, device=dev)
+    sel = torch.as_tensor(entries, dtype=torch.long, device=dev)
+    for pool, rows in ((cache.key_pool, row_cache.key), (cache.value_pool, row_cache.value)):
+        rows = rows[:, 0]
+        pad = n_blocks * bs_ - n_rows
+        if pad > 0:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+        blocks = rows.reshape(n_layers, n_blocks, bs_, h_kv, d)
+        pool[:, ids] = blocks[:, sel].to(pool.dtype)
+
+
+def paste_row(cache: PagedKVCache, row_cache, write_row, table_row, slot: int, new_index: int) -> None:
+    """Install a dense prefill row cache into the pool for ``slot``: its
+    blocks are written at ``write_row``'s non-trash ids
+    (:func:`paste_blocks`), and ``slot``'s table row and frontier become
+    ``table_row`` and ``new_index``. ``write_row`` and ``table_row`` differ
+    exactly on the entries the admission must not write: pad entries and
+    shared prefix blocks are 0 in ``write_row`` (a shared block's content
+    was written once, at registration), while ``table_row`` keeps the real
+    ids for reads. In place."""
+    paste_blocks(cache, row_cache, write_row)
     set_table_row(cache, slot, table_row)
     cache.index[slot] = int(new_index)
 

@@ -2,11 +2,15 @@
 
 The subset of :class:`accelerate_tpu.telemetry.serving_metrics.ServingMetrics`
 that the port's :class:`~accelerate_tpu_torch.serving.ServingEngine`
-drives, with the same hook names and snapshot keys. The engine calls the
-hooks where the events happen (submit, admit, first token, decode walk,
-retire, cancel, pool-blocked admission), so the numbers are exact counts.
-Latency windows are bounded deques. Prometheus output, the event log and
-the fleet merge are not ported yet (ROADMAP.md).
+drives, with the same hook names, counters and snapshot keys. The engine
+calls the hooks where the events happen (submit, admit, first token,
+decode walk, retire, cancel, pool-blocked admission, SLO shedding and
+demotion, decode preemption and resume), so the numbers are exact counts.
+The prefix hooks are the fleet's radix cache's in the JAX package, and
+the engine calls none of them there either. Latency windows are bounded
+deques. Prometheus output, the event log and the fleet merge are not
+ported yet (ROADMAP.md Queue 1 item 6), nor the fleet's counters and
+keys (failovers, replica errors and health: item 10).
 """
 
 from __future__ import annotations
@@ -36,6 +40,24 @@ class ServingMetrics:
         self.tokens_generated = 0
         self.prefills = 0
         self.preemptions = 0  # admission passes blocked on pool exhaustion
+        # scheduler decisions (scheduling.py)
+        self.requests_shed = 0  # SLO load shedding (submit reject + queue-wait shed)
+        self.requests_deprioritized = 0
+        self.decode_preemptions = 0  # decoding slots evicted + requeued
+        self.resumes = 0  # preempted requests resumed by recompute
+        # shared-prefix reuse: counted by the engine's register_prefix,
+        # unregister_prefix and prefix admissions (the JAX package's fleet
+        # counts them for its engines; a miss is its routing term, and the
+        # port's engine never counts one)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        self.prefix_registrations = 0
+        self.prefix_tokens_reused = 0
+        # the paged pool's most blocks in use at once (trash sink excluded)
+        # and the most slots one decode tick advanced
+        self.pool_high_water_blocks = 0
+        self.decode_slots_high_water = 0
         self.ttft_ms: collections.deque = collections.deque(maxlen=window)
         self.e2e_ms: collections.deque = collections.deque(maxlen=window)
         # inter-token latency: one sample per (request, tick)
@@ -62,7 +84,7 @@ class ServingMetrics:
         if t0 is not None:
             self.ttft_ms.append((now - t0) * 1000.0)
 
-    def on_admit(self, uid: int, queue_wait_ms: Optional[float] = None):
+    def on_admit(self, uid: int, priority: int = 0, queue_wait_ms: Optional[float] = None):
         if queue_wait_ms is not None:
             self.queue_wait_ms.append(queue_wait_ms)
 
@@ -92,6 +114,49 @@ class ServingMetrics:
 
     def on_pool_blocked(self):
         self.preemptions += 1
+
+    def on_shed(self, uid: Optional[int]):
+        """SLO load shed: a submit-time reject (``uid`` None) or a queued
+        request dropped after blowing the wait threshold."""
+        self.requests_shed += 1
+        if uid is not None:
+            self._submit_ts.pop(uid, None)
+
+    def on_deprioritize(self, uid: Optional[int]):
+        self.requests_deprioritized += 1
+
+    def on_preempt_decode(self, uid: int):
+        """A decoding slot was evicted and requeued; the ITL chain restarts
+        at the first delivery after the resume, so the gap is no sample."""
+        self.decode_preemptions += 1
+        self._last_tok_ts.pop(uid, None)
+
+    def on_resume(self, uid: int):
+        self.resumes += 1
+        self._last_tok_ts[uid] = self._clock()
+
+    def on_prefix_hit(self, tokens_reused: int = 0):
+        """A request matched a registered shared preamble and skipped
+        prefilling ``tokens_reused`` tokens."""
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += int(tokens_reused)
+
+    def on_prefix_miss(self):
+        self.prefix_misses += 1
+
+    def on_prefix_evict(self):
+        self.prefix_evictions += 1
+
+    def on_prefix_register(self):
+        self.prefix_registrations += 1
+
+    def on_blocks_allocated(self):
+        """The engine took pool blocks: raise the high-water mark."""
+        in_use = self._engine._pcfg.num_blocks - 1 - self._engine._alloc.free_count
+        self.pool_high_water_blocks = max(self.pool_high_water_blocks, in_use)
+
+    def on_decode_tick(self, n_decoding: int):
+        self.decode_slots_high_water = max(self.decode_slots_high_water, n_decoding)
 
     # ---- read surface ----------------------------------------------------
 
@@ -124,8 +189,9 @@ class ServingMetrics:
         return (c1 - c0) / (t1 - t0)
 
     def snapshot(self) -> dict:
-        """One flat dict of every metric (same keys as the JAX package's
-        snapshot, for the counters ported here)."""
+        """One flat dict of every metric: the JAX package's snapshot keys but
+        the fleet's, and ``ttft_ms_mean`` and the two high-water marks
+        besides."""
         return {
             "requests_submitted": self.requests_submitted,
             "requests_completed": self.requests_completed,
@@ -146,4 +212,15 @@ class ServingMetrics:
             "itl_ms_p95": _pct(self.itl_ms, 95),
             "queue_wait_ms_p50": _pct(self.queue_wait_ms, 50),
             "queue_wait_ms_p95": _pct(self.queue_wait_ms, 95),
+            "requests_shed": self.requests_shed,
+            "requests_deprioritized": self.requests_deprioritized,
+            "decode_preemptions": self.decode_preemptions,
+            "resumes": self.resumes,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_registrations": self.prefix_registrations,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+            "pool_high_water_blocks": self.pool_high_water_blocks,
+            "decode_slots_high_water": self.decode_slots_high_water,
         }

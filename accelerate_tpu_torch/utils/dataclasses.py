@@ -3,7 +3,8 @@
 A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy,
 the autocast and grad-scaler handlers, gradient accumulation, the data
 loader configuration, the RNG types, the project (checkpoint directory)
-configuration, the fault-tolerance handler, and a ``ParallelismPlugin`` that
+configuration, the fault-tolerance handler, the serving scheduler's
+knobs (``ServingSchedulerKwargs``), and a ``ParallelismPlugin`` that
 takes the one-device layout only. The other
 layouts (data, fsdp, tensor, seq, pipe, expert axes), ZeRO, gradient
 compression and optimizer offload raise ``NotImplementedError``: they are
@@ -37,6 +38,12 @@ class KwargsHandler:
 
     def to_dict(self) -> dict:
         return copy.deepcopy(dataclasses.asdict(self))
+
+    def to_kwargs(self) -> dict:
+        """Only the fields that differ from the defaults."""
+        default = self.__class__()
+        this = dataclasses.asdict(self)
+        return {k: v for k, v in this.items() if getattr(default, k) != v}
 
 
 @dataclass
@@ -245,6 +252,44 @@ class FaultToleranceKwargs(KwargsHandler):
             raise ValueError("io_retries / tracker_retries must be >= 1")
         if self.retry_base_delay < 0 or self.retry_max_delay < self.retry_base_delay:
             raise ValueError("need 0 <= retry_base_delay <= retry_max_delay")
+
+
+@dataclass
+class ServingSchedulerKwargs(KwargsHandler):
+    """Continuous-batching scheduler knobs for
+    :class:`~accelerate_tpu_torch.serving.ServingEngine`, the kwargs-handler
+    mirror of :class:`~accelerate_tpu_torch.scheduling.SchedulerConfig`:
+    pass it as ``ServingEngine(..., scheduler=ServingSchedulerKwargs(...))``.
+
+    ``token_budget``: model-compute tokens a tick; active decodes claim
+    ``n_decoding x tick_block`` first and prefill chunks take the rest
+    (``None``: unlimited, prefills complete at admission).
+    ``max_queue_depth`` / ``max_queue_wait_s``: SLO shed thresholds for
+    priorities >= ``shed_priority_floor`` (``shed_action`` rejects with a
+    :class:`~accelerate_tpu_torch.scheduling.ShedError` or demotes to
+    ``deprioritize_to``). ``enable_preemption``: evict the youngest decode
+    with priority >= ``preempt_priority_floor`` when a strictly more
+    important request cannot admit; it requeues and resumes by recompute.
+    ``speculative_priorities``: with a draft model, the classes that
+    speculate. ``mode="fifo"`` pins strict FIFO (the benchmark baseline)."""
+
+    mode: str = "continuous"
+    token_budget: Optional[int] = None
+    max_queue_depth: Optional[int] = None
+    max_queue_wait_s: Optional[float] = None
+    shed_priority_floor: int = 1
+    shed_action: str = "reject"
+    deprioritize_to: int = 99
+    enable_preemption: bool = False
+    preempt_priority_floor: int = 1
+    speculative_priorities: Optional[tuple] = None
+
+    def to_scheduler_config(self):
+        """The :class:`~accelerate_tpu_torch.scheduling.SchedulerConfig` the
+        engine consumes (validation happens there)."""
+        from ..scheduling import SchedulerConfig
+
+        return SchedulerConfig(**dataclasses.asdict(self))
 
 
 class RNGType(str, enum.Enum):

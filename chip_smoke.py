@@ -80,7 +80,20 @@ it, all three equal. Then the slices:
   greedy generate), and Phi-3-mini's widths (head dim 96, a 2047-key
   band) trained through the kernels against the einsum path. K1-K3 are
   held to their plain versions at D 96 and 256 too, and swept over head
-  dims 16 to 256.
+  dims 16 to 256. The banded families' 2-layer cuts (Mistral, Phi-3,
+  Gemma3) are served paged on the card and held to the CPU engine; Gemma2
+  on the paged engine raises, naming the dense layout;
+* the paged engine's memory and scheduling (``--only sched``):
+  Mistral-7B-v0.1 at full width and depth (seeded random weights, bf16)
+  behind the engine, every decode step's attention through K4 in its
+  4096-key band, held at that shape against its plain version (NaN in
+  every expired entry): 12 prompts of 300-7,900 tokens on a pool sized
+  by the band, blocks expiring mid-decode (``mistral_serve``, greedy
+  tokens against the dense cache); a 1,536-token system prompt shared by
+  16 requests against the same requests in full (``prefix_serve``); four
+  priority-0 arrivals preempting priority-1 decodes that resume by
+  recompute, against an unpreempted control, and a structured
+  ``ShedError`` (``preempt_serve``).
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -1067,6 +1080,11 @@ FAMILY_PRESETS = (("mistral", "MistralConfig", "mistral_7b_v1"), ("qwen2", "Qwen
 # stream in different places (K4 keeps P in f32, the einsum path its scores
 # in bf16), which moves Gemma-2B's f32 logits by up to a few hundredths
 SERVE_BF16_GAP = 0.1
+# Mistral-7B-v0.1's served logprobs (bf16) against the dense reference fed the
+# same tokens, and between two engine runs: rounding in other places moved them
+# by 0.040-0.060 on the H100 (PERF.md), a lost or misplaced position of context
+# by whole nats
+SERVE_LP_LIMIT = 0.15
 
 
 def family_config(family: str, preset: str, **kw):
@@ -1215,13 +1233,65 @@ def attention_op_errors(torch, b, s, h, hkv, d, window) -> dict:
     return errs
 
 
+# the banded families' 2-layer cuts served paged, card against CPU: prompts that cross Phi-3's 2047-key band and
+# Gemma3's 512-key one (blocks expire on Phi-3; Gemma3's full layer keeps them); Mistral's 4096-key band is crossed
+# at full depth in mistral_serve, where a CPU run would take minutes
+BANDED_SERVE = {"mistral": (5, 300), "phi3": (5, 2100), "gemma3": (5, 600)}
+
+
+def banded_serve_card_vs_cpu(torch, cpu, card, family) -> dict:
+    """``family``'s 2-layer cut served by the paged engine on the card and on
+    the CPU (2 slots, blocks of 16, 20 new tokens, greedy, f32): K4 launches
+    == layers x decode steps, the pool drained, and the card's tokens equal
+    the CPU engine's, a request's comparison ending only at a top-2 logit
+    gap under 1e-3 of the CPU's forward on the shared context."""
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, cpu.config.vocab_size, size=n).astype(np.int32) for n in BANDED_SERVE[family]]
+    kw = dict(num_slots=2, prompt_buckets=(64, 512), paged_block_size=16, tick_block=4, max_len=4096)
+    want = ServingEngine(cpu, device="cpu", **kw).generate_many(prompts, 20)
+    eng = ServingEngine(card, **kw)
+    pa.launches = 0
+    uids = [eng.submit(p, 20) for p in prompts]
+    freed = False
+    while eng.queue or eng.active_count:
+        done, free = len(eng.done), eng.pool_free_blocks
+        eng.step()
+        freed |= len(eng.done) == done and eng.pool_free_blocks > free
+    launches = pa.launches
+    check(launches == cpu.config.num_hidden_layers * eng.decode_steps > 0,
+          f"{family} paged on the card: K4 launches {launches} == layers x decode steps")
+    check(eng.pool_free_blocks == eng._pcfg.num_blocks - 1, f"{family} paged on the card: pool drained")
+    compared = near = 0
+    for p, w, uid in zip(prompts, want, uids):
+        g = eng.poll(uid)
+        diff = np.nonzero(w != g)[0]
+        upto = int(diff[0]) if len(diff) else len(w)
+        compared += upto - len(p)
+        if len(diff):
+            with torch.no_grad():
+                row = cpu(torch.as_tensor(w[None, :upto]))[0, -1]
+            top2 = torch.topk(row, 2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-3, f"{family} paged: card token {upto - len(p)} differs from the CPU's with gap {gap}")
+            near += 1
+    return {"prompts": list(BANDED_SERVE[family]), "window": card.config.sliding_window, "kernel_launches": launches,
+            "decode_steps": eng.decode_steps, "blocks_expired_mid_decode": freed, "tokens_compared": compared,
+            "stopped_at_near_tie": near}
+
+
 def phase_families_consistency(torch):
     """Each family at its published widths cut to 2 layers (Gemma3 keeps one
     sliding and one full layer), f32, built on the CPU and copied to the
     card: the card's forward logits (batch 2 x 64) within 1e-4 of the CPU's
     RMS; greedy generate of 8 tokens after 16 equal to the CPU's, a token
     differing only where the CPU's top-2 logit gap on that prefix is under
-    1e-3 (which ends that row's comparison). Then Phi-3-mini's widths, 2 of
+    1e-3 (which ends that row's comparison). The banded families (Mistral,
+    Phi-3, Gemma3) are served paged on the card and on the CPU, tokens
+    equal (banded_serve_card_vs_cpu); Gemma2 on the paged engine raises,
+    naming the dense layout. Then Phi-3-mini's widths, 2 of
     32 layers, train three flash-length steps at seq 2048 (D 96, its
     2047-key band) against the einsum path (consistency_runs): in f32 at
     train_consistency's tolerances; in bf16 compute each step's flash loss
@@ -1269,10 +1339,23 @@ def phase_families_consistency(torch):
                 gap = float(top2[0] - top2[1])
                 check(gap < 1e-3, f"{family}: generated token {upto} differs with top-2 gap {gap}")
                 near_ties += 1
+        serve = None
+        if family in BANDED_SERVE:
+            serve = banded_serve_card_vs_cpu(torch, cpu, card, family)
+        elif family == "gemma2":
+            from accelerate_tpu_torch import ServingEngine
+
+            try:
+                ServingEngine(card, paged_block_size=16)
+                serve = "served"
+            except NotImplementedError as exc:
+                serve = str(exc)
+            check("softcapping" in serve and "dense engine layout" in serve,
+                  f"gemma2 on the paged engine raises, naming the dense layout: {serve}")
         rows.append({"family": family, "preset": preset, "head_dim": cfg.head_dim or cfg.hidden_size //
                      cfg.num_attention_heads, "params": cpu.num_parameters(), "logits_max_abs_err": err,
                      "logits_rms": rms, "tokens_compared": compared, "stopped_at_near_tie": near_ties,
-                     "seconds": time.perf_counter() - t0})
+                     "paged_serve": serve, "seconds": time.perf_counter() - t0})
         del cpu, card
         free_memory(torch)
     phi3 = family_config("phi3", "phi3_mini_4k", num_hidden_layers=2, remat=True)
@@ -1302,6 +1385,566 @@ def phase_families_consistency(torch):
            "phi3_train": {"runs": runs, "f32_flash_vs_einsum": f32, "bf16": bf16}}
     emit(row)
     return row
+
+
+# ---------------------------------------------------------------------------
+# the paged engine's memory and scheduling: Mistral-7B-v0.1 at full width and
+# depth behind the engine (windowed block expiry, prefix caching, preemption
+# with resume by recompute, SLO shedding), K4 in its 4096-key band
+# ---------------------------------------------------------------------------
+
+# mistralai/Mistral-7B-v0.1 config.json: MistralConfig.mistral_7b_v1()'s defaults (vocab 32000, hidden 4096,
+# intermediate 14336, 32 layers, 32/8 heads, head dim 128, 32,768 positions, sliding_window 4096, theta 1e4)
+MISTRAL_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), paged_block_size=16, tick_block=8, max_len=8192)
+# the windowed need: a request in its band holds at most 266 blocks at 128 new tokens
+MISTRAL_POOL = 8 * 266 + 1
+MISTRAL_LENGTHS = (300, 1200, 2500, 3968, 4000, 4090, 4500, 5000, 5600, 6100, 7000, 7900)
+
+
+# K4 at Mistral's shape against its plain version: each element within t (|ref|
+# + RMS(ref)) (flash_err). Both round an f32 result to bf16 and may part by an
+# ulp, 2^-8 of the value; a key let in or dropped at the band's edge moves an
+# element by its softmax weight times (v - out), a wrong in-band block by more.
+# Each of those three faults is planted in the plain version, and the kernel's
+# output must fail against each (PERF.md).
+MISTRAL_K4_TOL = 8e-3
+
+
+def mistral_kernel_inputs(torch, gen, rng, frontiers, poison):
+    """K4's inputs at Mistral's serving shape: 8 rows, H 32/8, D 128, bf16,
+    blocks of 16, 2,048 table entries (32,768 positions). Each row's in-band
+    entries (the blocks holding positions cur - 4095 .. cur) point at
+    distinct pool blocks; the expired entries below the band and the
+    entries past the frontier point at the trash sink, block 0. With
+    ``poison`` block 0 holds NaN: a split that read an expired or pad entry
+    would turn its row to NaN."""
+    b, heads, kv_heads, dim, bs, mb, window = 8, 32, 8, 128, 16, 2048, 4096
+    cur = np.asarray(frontiers, np.int64)
+    lo = np.maximum(0, cur - window + 1) // bs
+    n_live = cur // bs - lo + 1
+    nb = int(n_live.sum()) + 1
+    q = torch.randn(b, heads, dim, generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn(nb, bs, kv_heads, dim, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(nb, bs, kv_heads, dim, generator=gen, device="cuda").to(torch.bfloat16)
+    kp[0] = float("nan") if poison else 0.0
+    vp[0] = float("nan") if poison else 0.0
+    table = np.zeros((b, mb), np.int32)
+    perm = rng.permutation(np.arange(1, nb))
+    used = 0
+    for i in range(b):
+        table[i, lo[i] : lo[i] + n_live[i]] = perm[used : used + n_live[i]]
+        used += n_live[i]
+    return q, kp, vp, torch.as_tensor(table, device="cuda"), torch.as_tensor(cur.astype(np.int32), device="cuda")
+
+
+def phase_kernel_mistral(torch):
+    """K4 at Mistral-7B-v0.1's decode shape (mistral_kernel_inputs), frontiers
+    3,000-8,000 in a 4096-key band, against its plain version
+    (MISTRAL_K4_TOL), two calls bit-equal, and failing against the plain
+    version of each planted fault: the band one key wider (position cur -
+    4096 let in), one key narrower (cur - 4095 dropped), and one in-band
+    entry of one row pointed at another row's block. Timed beside its plain
+    version, its bound and one scaled_dot_product_attention call over each
+    row's band gathered beforehand (4,112 keys a row, the rest masked).
+    Then the same shape with NaN in the trash sink (every expired and pad
+    entry) and two rows whose live keys are fewer than the launch's splits
+    (frontiers 0 and 2): the kernel's output finite and within
+    MISTRAL_K4_TOL of the plain version on the clean pool, so no split reads
+    an expired entry and short rows join correctly."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    t, window, bs = MISTRAL_K4_TOL, 4096, 16
+    frontiers = np.sort(rng.integers(3000, 8001, size=8))
+    q, kp, vp, table, cur = mistral_kernel_inputs(torch, gen, rng, frontiers, poison=False)
+
+    def kernel():
+        return pa.paged_decode_attention(q, kp, vp, table, cur, sliding_window=window)
+
+    def plain():
+        return pa.paged_decode_attention_plain(q, kp, vp, table, cur, sliding_window=window)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err, over = flash_err(torch, got, want, t)
+    check(bool(torch.isfinite(got).all()), "mistral K4 output finite")
+    check(over <= 1.0, f"mistral K4 vs plain: error {over} x its tolerance (max_abs_err {err})")
+    check(torch.equal(got, again), "mistral K4: two calls bit-equal")
+    wrong = table.clone()
+    lo7 = (int(cur[7]) - window + 1) // bs
+    wrong[7, lo7 + 10] = table[6, (int(cur[6]) - window + 1) // bs]
+    planted = {
+        "edge_key_let_in": pa.paged_decode_attention_plain(q, kp, vp, table, cur, sliding_window=window + 1),
+        "edge_key_dropped": pa.paged_decode_attention_plain(q, kp, vp, table, cur, sliding_window=window - 1),
+        "wrong_in_band_block": pa.paged_decode_attention_plain(q, kp, vp, wrong, cur, sliding_window=window),
+    }
+    planted = {name: flash_err(torch, got, fault, t) for name, fault in planted.items()}
+    for name, (_, fault_over) in planted.items():
+        check(fault_over > 1.0, f"mistral K4 tolerance fails the planted fault {name} ({fault_over} x)")
+
+    # the library yardstick: each row's band (257 blocks from its first in-band one) gathered contiguous
+    band_blocks = window // bs + 1
+    lo = torch.clamp(cur.long() - window + 1, min=0) // bs
+    idx = lo[:, None] + torch.arange(band_blocks, device="cuda")[None]
+    blocks = table.long().gather(1, idx.clamp(max=table.shape[1] - 1))
+    kg = kp[blocks].reshape(8, band_blocks * bs, 8, 128).transpose(1, 2).contiguous()
+    vg = vp[blocks].reshape(8, band_blocks * bs, 8, 128).transpose(1, 2).contiguous()
+    pos = lo[:, None] * bs + torch.arange(band_blocks * bs, device="cuda")[None]
+    mask = ((pos <= cur[:, None].long()) & (pos > cur[:, None].long() - window))[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
+
+    lib_err = (library()[:, :, 0].float() - want.float()).abs().max().item()
+    bound_ms, bound_by = kernel_bound(q, kp, table, cur, window)
+    splits = pa._split_plan(8, 32, 8, bs, table.shape[1])[0]
+    timing = {"ms": time_ms(torch, kernel, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
+              "library_ms": time_ms(torch, library, flush=flush)}
+
+    short = frontiers.copy()
+    short[0], short[1] = 0, 2
+    pq, pkp, pvp, ptable, pcur = mistral_kernel_inputs(torch, gen, rng, short, poison=True)
+    clean_k, clean_v = pkp.clone(), pvp.clone()
+    clean_k[0] = 0.0
+    clean_v[0] = 0.0
+    pgot = pa.paged_decode_attention(pq, pkp, pvp, ptable, pcur, sliding_window=window)
+    pwant = pa.paged_decode_attention_plain(pq, clean_k, clean_v, ptable, pcur, sliding_window=window)
+    torch.cuda.synchronize()
+    poison_err, poison_over = flash_err(torch, pgot, pwant, t)
+    check(bool(torch.isfinite(pgot).all()), "mistral K4 with NaN in every expired and pad entry: output finite")
+    check(poison_over <= 1.0,
+          f"mistral K4 with NaN trash and short rows vs plain: error {poison_over} x its tolerance")
+    row = {
+        "phase": "kernel", "case": "mistral-band", "shape": [8, 32, 8, 128, bs, int(table.shape[1])],
+        "window": window, "frontiers": frontiers.tolist(), "splits": splits, "max_abs_err": err, "tol": t,
+        "err_over_tol": over,
+        "planted_faults": {name: {"max_abs_err": e, "err_over_tol": o} for name, (e, o) in planted.items()},
+        "library_max_abs_err": lib_err, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+        "poisoned_trash": {"frontiers": short.tolist(), "max_abs_err": poison_err, "err_over_tol": poison_over},
+    }
+    emit(row)
+    del flush, kg, vg
+    free_memory(torch)
+    return row
+
+
+def mistral_engine(model, **kw):
+    from accelerate_tpu_torch import ServingEngine
+
+    return ServingEngine(model, **{**MISTRAL_ENGINE, "pool_blocks": MISTRAL_POOL, **kw})
+
+
+def dense_forced(torch, model, prompt, served, rows=MISTRAL_ENGINE["max_len"], chunk=1024):
+    """``generate``'s dense-cache path (the band as a mask; no K4, no block
+    table) over a cache of ``rows`` rows, the prompt fed in ``chunk``-token
+    pieces (``generate``'s one-shot prefill of a 7,900-token prompt would
+    hold 33 GB of f32 scores against the model's 32,768 cache rows), then
+    ``served`` one token at a time. For each served token, the reference's
+    view of the position it fills: ``(argmax, top-2 logit gap, max logit
+    minus the served token's, the served token's log-probability)``."""
+    from accelerate_tpu_torch.ops.kv_cache import KVCache
+
+    cfg = model.config
+    cache = KVCache.empty(cfg, 1, rows, model.dtype, "cuda")
+    ids = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
+    out = []
+    with torch.no_grad():
+        for s in range(0, ids.shape[1], chunk):
+            part = ids[:, s : s + chunk]
+            positions = torch.arange(s, s + part.shape[1], device="cuda")[None]
+            logits, cache = model(part, positions=positions, decode=True, cache=cache)
+        for i, tok in enumerate(int(t) for t in served):
+            row = logits[0, -1].float()
+            top2 = torch.topk(row, 2).values
+            out.append((int(torch.argmax(row)), float(top2[0] - top2[1]), float(top2[0] - row[tok]),
+                        float(torch.log_softmax(row, -1)[tok])))
+            if i + 1 < len(served):
+                positions = torch.tensor([[ids.shape[1] + i]], device="cuda")
+                logits, cache = model(torch.tensor([[tok]], device="cuda"), positions=positions, decode=True,
+                                      cache=cache)
+    return out
+
+
+def against_dense(torch, model, prompt, got, got_lps) -> tuple:
+    """Served greedy tokens against the dense reference fed the same tokens
+    (dense_forced): every served token is the reference's argmax, or within
+    SERVE_BF16_GAP of its max logit (a near tie, where bf16 rounding in
+    another place may pick the other token). ``(tokens compared, near ties
+    taken, max logprob error)``."""
+    ref = dense_forced(torch, model, prompt, got)
+    near = 0
+    for i, (tok, (top, _, behind, _)) in enumerate(zip(got, ref)):
+        if int(tok) != top:
+            check(behind < SERVE_BF16_GAP, f"token {i}: {int(tok)} is {behind} below the reference's max logit")
+            near += 1
+    return len(got), near, float(max(abs(lp - r[3]) for lp, r in zip(got_lps, ref)))
+
+
+def against_run(torch, model, full, got, got_lps, want, want_lps) -> tuple:
+    """One request's generated tokens in two engine runs: equal, but where
+    they part the top-2 gap on the shared context (dense_forced's path)
+    must be under SERVE_BF16_GAP. ``(tokens compared, parted at a near tie,
+    max logprob difference over the tokens compared)``."""
+    diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    n = int(diff[0]) if len(diff) else len(got)
+    lp_diff = float(np.max(np.abs(np.asarray(got_lps[:n]) - np.asarray(want_lps[:n])))) if n else 0.0
+    if len(diff):
+        gap = dense_forced(torch, model, full, want[: n + 1])[n][1]
+        check(gap < SERVE_BF16_GAP, f"runs part at token {n} with top-2 gap {gap}")
+    return n, int(len(diff) > 0), lp_diff
+
+
+def kv_bytes_per_token(cfg) -> int:
+    """K and V of every layer for one position, in bf16."""
+    return 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * (cfg.hidden_size // cfg.num_attention_heads) * 2
+
+
+def phase_mistral_serve(torch, model):
+    """Mistral-7B-v0.1 served by the paged engine (MISTRAL_ENGINE, greedy,
+    a pool of 8 x 266 + 1 blocks, the windowed need): 12 prompts of
+    300-7,900 tokens, 128 new each. Eight requests decode in one tick; free
+    blocks rise during decode before any request retires (expiry behind the
+    4096-key band); the pool drains; K4 launches == 32 x decode steps. The
+    300-, 2,500-, 5,000- and 7,900-token requests' 128 greedy tokens are
+    held to the dense reference fed the same tokens (dense_forced over the
+    engine's 8,192 rows; over generate's 32,768 it follows generate's
+    tokens on the 300-token prompt), each its argmax or a near tie (within
+    SERVE_BF16_GAP of its max logit), logprobs within SERVE_LP_LIMIT. The
+    pool's high-water mark and the most slots a tick decoded come from the
+    engine's metrics."""
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = model.config
+    mistral_engine(model).generate_many([np.arange(1, 9, dtype=np.int32), np.arange(1, 300, dtype=np.int32)], 9)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in MISTRAL_LENGTHS]
+    max_new = 128
+    free_memory(torch)
+    eng = mistral_engine(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.launches = 0
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_new) for p in prompts]
+    freed_before_retire, prev_free = 0, None
+    while eng.queue or eng.active_count:
+        eng.step()
+        if not eng.done and prev_free is not None and eng.pool_free_blocks > prev_free:
+            freed_before_retire += eng.pool_free_blocks - prev_free
+        prev_free = eng.pool_free_blocks
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pa.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == cfg.num_hidden_layers * eng.decode_steps > 0,
+          f"mistral serve: K4 launches {launches} == 32 x decode steps {eng.decode_steps}")
+    snap = eng.metrics.snapshot()
+    check(snap["decode_slots_high_water"] == 8,
+          f"mistral serve: eight requests decode in one tick ({snap['decode_slots_high_water']})")
+    check(freed_before_retire > 0, "mistral serve: blocks freed by the band during decode before any retirement")
+    check(eng.pool_free_blocks == MISTRAL_POOL - 1, f"mistral serve: pool drained ({eng.pool_free_blocks})")
+    served = {}
+    for uid, p in zip(uids, prompts):
+        out, lps = eng.poll(uid), eng.logprobs(uid)
+        check(out is not None and len(out) == len(p) + max_new and bool(np.isfinite(lps).all()),
+              f"mistral serve: request {uid} complete, logprobs finite")
+        served[len(p)] = (out[len(p):], lps)
+    steps, prefill_tokens = eng.decode_steps, eng.prefill_tokens
+    del eng
+    free_memory(torch)
+
+    short = prompts[0]
+    gen_short = generate(model, short[None], max_new_tokens=16)[0, len(short):].cpu().numpy()
+    ref_short = dense_forced(torch, model, short, gen_short, rows=cfg.max_position_embeddings)
+    check(all(tok == ref[0] for tok, ref in zip(gen_short, ref_short)),
+          "dense_forced over generate's 32,768 cache rows follows its greedy tokens on the 300-token request")
+    checked = []
+    for n in (300, 2500, 5000, 7900):
+        compared, near, lp_err = against_dense(torch, model, prompts[MISTRAL_LENGTHS.index(n)], *served[n])
+        check(lp_err <= SERVE_LP_LIMIT, f"mistral serve: {n}-token request's logprobs within {SERVE_LP_LIMIT} "
+              f"of the dense reference's ({lp_err})")
+        checked.append({"prompt": n, "tokens_compared": compared, "near_ties": near, "max_logprob_err": lp_err})
+    free_memory(torch)
+    row = {
+        "phase": "mistral_serve", "config": "Mistral-7B-v0.1 shape, bf16, seeded random weights",
+        "params": model.num_parameters(), "engine": MISTRAL_ENGINE, "pool_blocks": MISTRAL_POOL,
+        "requests": len(prompts), "prompt_lengths": list(MISTRAL_LENGTHS), "max_new_tokens": max_new,
+        "generated_tokens": snap["tokens_generated"], "wall_s": wall, "tokens_per_s": snap["tokens_generated"] / wall,
+        "ttft_ms_mean": snap["ttft_ms_mean"], "ttft_ms_p50": snap["ttft_ms_p50"], "ttft_ms_p95": snap["ttft_ms_p95"],
+        "itl_ms_p50": snap["itl_ms_p50"], "decode_steps": steps, "prefill_tokens": prefill_tokens,
+        "kernel_launches": launches, "max_decoding_in_a_tick": snap["decode_slots_high_water"],
+        "blocks_freed_before_first_retirement": freed_before_retire,
+        "pool_high_water_blocks": snap["pool_high_water_blocks"],
+        "pool_high_water_gb": snap["pool_high_water_blocks"] * 16 * kv_bytes_per_token(cfg) / 1e9,
+        "pool_gb": MISTRAL_POOL * 16 * kv_bytes_per_token(cfg) / 1e9, "peak_memory_gb": peak, "reference": checked,
+    }
+    emit(row)
+    return row
+
+
+def drive(eng, submits, on_step=None):
+    """Tick ``eng`` to the end. ``submits``: ``{tick: [(prompt, max_new,
+    kwargs), ...]}``, submitted before that tick (0 first). Returns
+    ``({(tick, i): uid}, {uid: TTFT ms})``, TTFT read on the host clock
+    after each tick."""
+    uids, sub_ts, ttft = {}, {}, {}
+    tick = 0
+    while True:
+        for i, (p, n, kw) in enumerate(submits.get(tick, ())):
+            uid = eng.submit(p, n, **kw)
+            uids[(tick, i)], sub_ts[uid] = uid, time.perf_counter()
+        if not (eng.queue or eng.active_count) and tick > max(submits):
+            break
+        eng.step()
+        tick += 1
+        now = time.perf_counter()
+        for uid, t in sub_ts.items():
+            if uid not in ttft and (uid in eng.done or len(eng.partial(uid))):
+                ttft[uid] = (now - t) * 1e3
+        if on_step is not None:
+            on_step(eng)
+    return uids, ttft
+
+
+def phase_prefix_serve(torch, model):
+    """A 1,536-token system prompt registered once (its 96 full blocks
+    shared) on MISTRAL_ENGINE; 16 requests with its prefix_id (suffixes of
+    16-512 tokens, and two of 3,000 whose band passes the shared blocks, so
+    their references drop mid-decode), 128 new each; then the same 16 as
+    full prompts on a fresh engine. Tokens equal up to a near tie (gap <
+    SERVE_BF16_GAP on the shared context), logprobs within SERVE_LP_LIMIT;
+    the engine's prefix counters; TTFT and prefill tokens each way;
+    after unregister_prefix no refcount is left and the pool is full."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = model.config
+    rng = np.random.default_rng(22)
+    system = rng.integers(1, cfg.vocab_size, size=1536).astype(np.int32)
+    lengths = [3000, 3000] + rng.integers(16, 513, size=14).tolist()
+    suffixes = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+    max_new = 128
+    free_memory(torch)
+    eng = mistral_engine(model)
+    pa.launches = 0
+    t0 = time.perf_counter()
+    pid = eng.register_prefix(system)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    register_tokens = eng.prefill_tokens
+    shared_blocks = len(eng._prefixes[pid]["block_ids"])
+    refs = []
+
+    def count_refs(e):
+        if not e.done:
+            refs.append(sum(e._shared_refs.values()))
+
+    t0 = time.perf_counter()
+    uids, ttft = drive(eng, {0: [(s, max_new, {"prefix_id": pid}) for s in suffixes]}, count_refs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pa.launches
+    check(launches == cfg.num_hidden_layers * eng.decode_steps > 0,
+          f"prefix serve: K4 launches {launches} == 32 x decode steps {eng.decode_steps}")
+    check(any(b < a for a, b in zip(refs, refs[1:])),
+          "prefix serve: shared-block references dropped mid-decode, before any retirement")
+    with_prefix = [(eng.poll(uids[(0, i)]), eng.logprobs(uids[(0, i)])) for i in range(len(suffixes))]
+    snap = eng.metrics.snapshot()
+    check(snap["prefix_registrations"] == 1 and snap["prefix_hits"] == len(suffixes)
+          and snap["prefix_tokens_reused"] == len(suffixes) * len(system),
+          f"prefix serve: the engine counted 1 registration and {len(suffixes)} hits of {len(system)} tokens "
+          f"({snap['prefix_registrations']}, {snap['prefix_hits']}, {snap['prefix_tokens_reused']})")
+    tokens_with, steps = eng.prefill_tokens - register_tokens, eng.decode_steps
+    eng.unregister_prefix(pid)
+    check(not eng._shared_refs and eng.pool_free_blocks == MISTRAL_POOL - 1,
+          f"prefix serve: no reference left, pool full after unregister ({eng.pool_free_blocks})")
+    del eng
+    free_memory(torch)
+
+    eng = mistral_engine(model)
+    fulls = [np.concatenate([system, s]) for s in suffixes]
+    pa.launches = 0
+    t0 = time.perf_counter()
+    uids2, ttft2 = drive(eng, {0: [(f, max_new, {}) for f in fulls]})
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches2 = pa.launches
+    check(launches2 == cfg.num_hidden_layers * eng.decode_steps,
+          f"prefix serve (full prompts): K4 launches {launches2} == 32 x decode steps")
+    without = [(eng.poll(uids2[(0, i)]), eng.logprobs(uids2[(0, i)])) for i in range(len(suffixes))]
+    snap2 = eng.metrics.snapshot()
+    tokens_without, steps2 = eng.prefill_tokens, eng.decode_steps
+    del eng
+    free_memory(torch)
+
+    compared = near = 0
+    lp_diff = 0.0
+    for full, (a, alp), (b, blp) in zip(fulls, with_prefix, without):
+        check(np.array_equal(a[: len(full)], full) and np.array_equal(b[: len(full)], full),
+              "prefix serve: outputs start with prefix + suffix")
+        n, parted, d = against_run(torch, model, full, a[len(full):], alp, b[len(full):], blp)
+        compared, near, lp_diff = compared + n, near + parted, max(lp_diff, d)
+    check(compared > 0, "prefix serve: tokens compared")
+    check(lp_diff <= SERVE_LP_LIMIT,
+          f"prefix serve: logprobs within {SERVE_LP_LIMIT} of the full prompts' ({lp_diff})")
+    row = {
+        "phase": "prefix_serve", "config": "Mistral-7B-v0.1 shape, bf16; MISTRAL_ENGINE", "prefix_tokens": 1536,
+        "shared_blocks": shared_blocks, "suffix_lengths": lengths, "max_new_tokens": max_new,
+        "register_s": register_s, "register_prefill_tokens": register_tokens,
+        "prefix_hits": snap["prefix_hits"], "prefix_tokens_reused": snap["prefix_tokens_reused"],
+        "with_prefix": {"wall_s": wall, "ttft_ms_mean": float(np.mean(list(ttft.values()))),
+                        "ttft_ms_mean_metrics": snap["ttft_ms_mean"], "prefill_tokens": tokens_with,
+                        "tokens_per_s": snap["tokens_generated"] / wall, "decode_steps": steps,
+                        "kernel_launches": launches},
+        "full_prompts": {"wall_s": wall2, "ttft_ms_mean": float(np.mean(list(ttft2.values()))),
+                         "ttft_ms_mean_metrics": snap2["ttft_ms_mean"], "prefill_tokens": tokens_without,
+                         "tokens_per_s": snap2["tokens_generated"] / wall2, "decode_steps": steps2,
+                         "kernel_launches": launches2},
+        "tokens_compared": compared, "parted_at_near_tie": near, "max_logprob_diff": lp_diff,
+        "kernel_launches": launches + launches2,
+    }
+    emit(row)
+    return row
+
+
+def note_resumes(marks: dict):
+    """An ``on_step`` for drive: for each preempted request waiting in the
+    queue, the count of tokens it had generated when it was evicted. Its
+    resume recomputes all but the last of them and decodes on from there,
+    so every later token is a post-resume one."""
+
+    def on_step(eng):
+        for req in eng.queue:
+            if req.preempted and req.out_tokens:
+                marks.setdefault(req.uid, set()).add(len(req.out_tokens))
+
+    return on_step
+
+
+def phase_preempt_serve(torch, model):
+    """Four slots with SchedulerConfig(enable_preemption=True) on
+    MISTRAL_ENGINE's settings: 6 priority-1 requests (prompts of 512-2,048
+    tokens, 256 new), and after two ticks 4 priority-0 requests (64-256
+    tokens, 64 new), which evict the youngest decodes; the victims resume
+    by recompute. Every token of each resumed request is held to the dense
+    reference fed the same tokens (dense_forced): its argmax or a near tie,
+    logprobs within SERVE_LP_LIMIT; each resumed request's count of tokens
+    compared after its resume is reported. Against a control run of the
+    same schedule without preemption: every request's tokens equal up to a
+    near tie, logprobs within SERVE_LP_LIMIT over the tokens compared;
+    decode_preemptions >= 1 and resumes == decode_preemptions; K4 launches
+    == 32 x decode steps in each run; TTFT of each class each way and the
+    recomputed tokens. Then max_queue_depth=2 on one slot: a third
+    priority-1 submission raises the structured ShedError, a priority-0 one
+    is taken."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.scheduling import SchedulerConfig, ShedError
+
+    cfg = model.config
+    rng = np.random.default_rng(23)
+    low = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in rng.integers(512, 2049, size=6)]
+    high = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in rng.integers(64, 257, size=4)]
+    submits = {0: [(p, 256, {"priority": 1}) for p in low], 2: [(p, 64, {"priority": 0}) for p in high]}
+    runs, outs, marks = {}, {}, {}
+    for name, sched in (("preempt", SchedulerConfig(enable_preemption=True)), ("control", SchedulerConfig())):
+        free_memory(torch)
+        eng = mistral_engine(model, num_slots=4, pool_blocks=None, scheduler=sched)
+        pa.launches = 0
+        t0 = time.perf_counter()
+        uids, ttft = drive(eng, submits, note_resumes(marks) if name == "preempt" else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(pa.launches == cfg.num_hidden_layers * eng.decode_steps,
+              f"preempt serve ({name}): K4 launches {pa.launches} == 32 x decode steps")
+        check(eng.pool_free_blocks == eng._pcfg.num_blocks - 1, f"preempt serve ({name}): pool drained")
+        outs[name] = {key: (uid, eng.poll(uid), eng.logprobs(uid)) for key, uid in uids.items()}
+        snap = eng.metrics.snapshot()
+        runs[name] = {
+            "wall_s": wall, "kernel_launches": pa.launches, "decode_steps": eng.decode_steps,
+            "decode_preemptions": snap["decode_preemptions"], "resumes": snap["resumes"],
+            "recomputed_tokens": eng.recomputed_tokens, "prefill_tokens": eng.prefill_tokens,
+            "ttft_ms_priority0": [ttft[uids[(2, i)]] for i in range(len(high))],
+            "ttft_ms_priority1": [ttft[uids[(0, i)]] for i in range(len(low))],
+            "tokens_per_s": snap["tokens_generated"] / wall,
+        }
+        del eng
+    free_memory(torch)
+    pre, ctl = runs["preempt"], runs["control"]
+    check(pre["decode_preemptions"] >= 1 and pre["resumes"] == pre["decode_preemptions"],
+          f"preempt serve: preemptions {pre['decode_preemptions']} >= 1, resumes {pre['resumes']} equal")
+    check(sum(len(m) for m in marks.values()) == pre["decode_preemptions"],
+          f"preempt serve: each preemption seen in the queue ({marks})")
+    check(ctl["decode_preemptions"] == 0, "preempt serve: the control run preempts nothing")
+    compared = near = 0
+    lp_diff = 0.0
+    resumed = []
+    for key, (uid, out, lps) in outs["preempt"].items():
+        _, c_out, c_lps = outs["control"][key]
+        n_prompt = len(out) - len(lps)
+        check(np.array_equal(out[:n_prompt], c_out[:n_prompt]), "preempt serve: same prompts")
+        n, parted, d = against_run(torch, model, out[:n_prompt], out[n_prompt:], lps, c_out[n_prompt:], c_lps)
+        compared, near, lp_diff = compared + n, near + parted, max(lp_diff, d)
+        if uid in marks:
+            n_ref, ties, lp_err = against_dense(torch, model, out[:n_prompt], out[n_prompt:], lps)
+            after = len(lps) - min(marks[uid])
+            check(after > 0 and lp_err <= SERVE_LP_LIMIT,
+                  f"preempt serve: request {uid}'s {after} tokens after its resume compared, logprobs within "
+                  f"{SERVE_LP_LIMIT} of the dense reference's ({lp_err})")
+            resumed.append({"prompt": n_prompt, "generated": len(lps), "evicted_after": sorted(marks[uid]),
+                            "tokens_compared": n_ref, "tokens_after_resume_compared": after, "near_ties": ties,
+                            "max_logprob_err": lp_err})
+    check(lp_diff <= SERVE_LP_LIMIT, f"preempt serve: logprobs within {SERVE_LP_LIMIT} of the control's ({lp_diff})")
+
+    free_memory(torch)
+    eng = mistral_engine(model, num_slots=1, pool_blocks=None, scheduler=SchedulerConfig(max_queue_depth=2))
+    short = [rng.integers(1, cfg.vocab_size, size=32).astype(np.int32) for _ in range(4)]
+    for p in short[:2]:
+        eng.submit(p, 4, priority=1)
+    shed = None
+    try:
+        eng.submit(short[2], 4, priority=1)
+    except ShedError as err:
+        shed = {"reason": err.reason, "priority": err.priority, "queue_depth": err.queue_depth, "message": str(err)}
+    check(shed is not None and shed["priority"] == 1 and shed["queue_depth"] == 2 and
+          "max_queue_depth" in shed["reason"], f"preempt serve: structured ShedError at depth 2 ({shed})")
+    eng.submit(short[3], 4, priority=0)  # below the shed floor: taken
+    eng.run()
+    check(len(eng.done) == 3 and eng.metrics.requests_shed == 1, "preempt serve: the other three served")
+    del eng
+    free_memory(torch)
+    row = {
+        "phase": "preempt_serve", "config": "Mistral-7B-v0.1 shape, bf16; 4 slots, MISTRAL_ENGINE's settings",
+        "low_prompts": [len(p) for p in low], "high_prompts": [len(p) for p in high],
+        "preempt": pre, "control": ctl, "tokens_compared": compared, "parted_at_near_tie": near,
+        "max_logprob_diff": lp_diff, "resumed_against_dense": resumed, "shed": shed,
+        "kernel_launches": pre["kernel_launches"] + ctl["kernel_launches"],
+    }
+    emit(row)
+    return row
+
+
+def phase_sched(torch):
+    """Mistral-7B-v0.1 (seeded random weights, bf16, 7.24 B parameters)
+    built once and served by mistral_serve, prefix_serve and preempt_serve."""
+    from accelerate_tpu_torch.models import MistralConfig, create_mistral_model
+
+    free_memory(torch)
+    t0 = time.perf_counter()
+    model = create_mistral_model(MistralConfig.mistral_7b_v1(), seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    free_memory(torch)
+    rows = {"mistral_serve": phase_mistral_serve(torch, model), "prefix_serve": phase_prefix_serve(torch, model),
+            "preempt_serve": phase_preempt_serve(torch, model)}
+    emit({"phase": "sched_model", "params": model.num_parameters(), "model_build_s": build_s})
+    del model
+    free_memory(torch)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2923,8 +3566,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families` runs
-    # some groups of phases
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families,sched`
+    # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok"
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
 
@@ -2933,6 +3576,7 @@ def main() -> int:
     if not only or "paged" in only:
         kernel = phase_kernel(torch)
         phase_kernel_sweep(torch)
+        phase_kernel_mistral(torch)
     if not only or "flash" in only:
         flash = phase_flash_kernel(torch)["bf16"]  # the training slice's dtype and shapes
         phase_flash_sweep(torch)
@@ -2988,7 +3632,11 @@ def main() -> int:
         gemma_serve = phase_gemma_serve(torch)
         gemma_train = phase_gemma_train(torch)
         gemma3_train = phase_gemma3_train(torch)
-        phase_families_consistency(torch)
+        families = phase_families_consistency(torch)
+    if not only or "sched" in only:
+        if only:
+            phase_kernel_mistral(torch)
+        sched = phase_sched(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -2998,10 +3646,12 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
-        # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16) and
-        # Gemma-2B's (head dim 256)
+        # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
+        # Gemma-2B's (head dim 256), the banded families' 2-layer cuts and Mistral-7B-v0.1's three phases
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
-        + gemma_serve["kernel_launches"],
+        + gemma_serve["kernel_launches"]
+        + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
+        + sum(r["kernel_launches"] for r in sched.values()),
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -221,10 +222,19 @@ def test_flash_path_is_not_quietly_replaced():
 )
 def test_unported_llama_knobs_raise(knob):
     """What of the Llama knobs is still queued raises, naming ROADMAP.md:
-    context-parallel attention when the model is built, and a softcap or a
-    band when the paged engine is given the model."""
-    from accelerate_tpu_torch import ServingEngine
+    context-parallel attention when the model is built, and a softcap when
+    the paged engine is given the model. A band, on every layer or on the
+    sliding layers of mixed kinds, is served since windowed block expiry
+    was ported: the paged engine's greedy tokens equal ``generate``'s."""
+    from accelerate_tpu_torch import ServingEngine, generate
 
+    if "sliding_window" in knob:
+        model = create_llama_model(LlamaConfig.tiny(**knob), device="cpu")
+        prompt = np.arange(1, 10, dtype=np.int32)
+        engine = ServingEngine(model, num_slots=1, prompt_buckets=(4,), paged_block_size=4, device="cpu")
+        got = engine.generate_many([prompt], max_new_tokens=6)[0]
+        np.testing.assert_array_equal(got, generate(model, prompt[None], max_new_tokens=6)[0].numpy())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = create_llama_model(LlamaConfig.tiny(**knob), device="cpu")
         ServingEngine(model, num_slots=1, prompt_buckets=(4,), paged_block_size=4, device="cpu")

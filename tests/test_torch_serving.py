@@ -200,18 +200,29 @@ def test_streaming_accessors_and_cancel(models):
 
 
 def test_not_ported_surface_raises(models):
+    """What the engine still refuses, each naming its ROADMAP.md item: the
+    dense layout, speculative serving, a softcapped model (which the dense
+    layout serves), perf_check / numerics_check, the runtime services and
+    the fleet's surface (tracing, KV handoff, failover)."""
+    from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
+
     _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         ServingEngine(model, device="cpu")  # dense layout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         ServingEngine(model, device="cpu", paged_block_size=4, draft_model=model)
-    with pytest.raises(NotImplementedError, match="preemption"):
-        ServingEngine(model, device="cpu", paged_block_size=4, scheduler=SchedulerConfig(enable_preemption=True))
-    with pytest.raises(NotImplementedError, match="shedding"):
-        ServingEngine(model, device="cpu", paged_block_size=4, scheduler=SchedulerConfig(max_queue_depth=4))
+    with pytest.raises(NotImplementedError, match="softcapping.*item 6"):
+        ServingEngine(create_gemma2_model(Gemma2Config.tiny(), device="cpu"), device="cpu", paged_block_size=4)
+    for kw in (dict(telemetry_log=object()), dict(program_cache=object()), dict(auto_bucketing=True)):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            ServingEngine(model, device="cpu", paged_block_size=4, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ServingEngine(model, device="cpu", paged_block_size=4, tracer=object())
     eng = ServingEngine(model, device="cpu", paged_block_size=4)
-    for call in (lambda: eng.register_prefix([1, 2]), eng.export_inflight, eng.perf_check):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call, item in ((eng.export_inflight, 10), (eng.import_inflight, 10), (eng.kv_handoff_dims, 10),
+                       (eng.prefill_detached, 10), (eng.submit_prefilled, 10), (eng.perf_check, 6),
+                       (eng.numerics_check, 6), (lambda: eng.submit([1, 2], 2, trace=3), 10)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             call()
     with pytest.raises(ValueError, match="pool blocks"):
         ServingEngine(model, device="cpu", paged_block_size=4, pool_blocks=3).submit([1] * 8, max_new_tokens=8)
@@ -245,3 +256,46 @@ def test_cuda_tiny_head_dim_serves_through_the_kernel():
                     assert float(top2[0] - top2[1]) < 1e-4
                     break
                 seq = torch.cat([seq, torch.tensor([[tok]], device="cuda")], dim=1)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_mistral_serves_through_the_kernel_with_expiry():
+    """MistralConfig.tiny() (an 8-key band, head dim 16) served by the paged
+    engine on the card: every decode step's attention is the paged kernel,
+    blocks behind the band return to the pool while the requests decode,
+    the pool drains, and the greedy tokens equal the CPU engine's on the
+    same weights (a request's comparison may end only at a top-2 logit gap
+    under 1e-4 of the CPU's dense forward, f32 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode (chip_smoke.py runs it on the H100)")
+    import copy
+
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import MistralConfig, create_mistral_model
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = MistralConfig.tiny()
+    cpu = create_mistral_model(cfg, seed=5, device="cpu")
+    card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+    prompts = _prompts(12, (5, 19, 40))
+    kw = dict(num_slots=2, prompt_buckets=(16, 64), paged_block_size=4, tick_block=4)
+    engine = ServingEngine(card, **kw)
+    want = ServingEngine(cpu, device="cpu", **kw).generate_many(prompts, 24)
+    before = pa.launches
+    uids = [engine.submit(p, 24) for p in prompts]
+    freed = False
+    while engine.queue or engine.active_count:
+        done, free = len(engine.done), engine.pool_free_blocks
+        engine.step()
+        freed |= len(engine.done) == done and engine.pool_free_blocks > free  # no retirement freed them
+    assert freed and engine.pool_free_blocks == engine._pcfg.num_blocks - 1
+    assert pa.launches - before == cfg.num_hidden_layers * engine.decode_steps > 0
+    with torch.no_grad():
+        for uid, p, w in zip(uids, prompts, want):
+            got = engine.poll(uid)
+            diff = np.nonzero(got != w)[0]
+            if len(diff):
+                row = cpu(torch.as_tensor(w[None, : diff[0]]).long())[0, -1]
+                top2 = torch.topk(row, 2).values
+                assert float(top2[0] - top2[1]) < 1e-4
+
