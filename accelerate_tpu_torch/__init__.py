@@ -3,8 +3,13 @@
 The JAX package ``accelerate_tpu`` beside it is the reference. This
 package imports nothing of it (nor of jax). Its slices so far:
 
-* serving: paged continuous batching of a Llama (``ServingEngine``), whose
-  decode attention is a hand-written CUDA kernel (``csrc/paged_attention.cu``);
+* serving: continuous batching of a Llama or one of its families
+  (``ServingEngine``) on a paged KV cache, whose decode attention is a
+  hand-written CUDA kernel (``csrc/paged_attention.cu``), or on the dense
+  layout (the default: per-slot frontiers in one cache, the einsum
+  attention as in the JAX package; it serves Gemma2's softcaps), with
+  speculative decoding from a draft model (``draft_model=``,
+  ``speculative_generate``) and ``beam_search``;
 * training on one card: ``Accelerator`` -> ``prepare_model`` /
   ``prepare_optimizer`` -> ``build_train_step(loss_fn)``, with f32 master
   weights, bf16/fp16 compute, gradient accumulation, clipping, fp16 loss
@@ -48,7 +53,7 @@ from .accelerator import Accelerator
 from .checkpointing import load_model, save_model
 from .data_loader import prepare_data_loader, skip_first_batches
 from .ft import CheckpointManager
-from .generation import generate, per_token_latency
+from .generation import beam_search, generate, per_token_latency
 from .models import (
     BertConfig,
     LlamaConfig,
@@ -65,6 +70,7 @@ from .models import (
 )
 from .ops.qdense import QuantDense
 from .serving import ServingEngine
+from .speculative import speculative_generate
 from .utils import (
     DataLoaderConfiguration,
     FaultToleranceKwargs,
@@ -103,6 +109,7 @@ __all__ = [
     "QuantizationConfig",
     "ResNetConfig",
     "ServingEngine",
+    "beam_search",
     "bert_classification_loss",
     "bert_params_from_jax",
     "broadcast",
@@ -132,4 +139,5 @@ __all__ = [
     "set_seed",
     "skip_first_batches",
     "slice_tensors",
+    "speculative_generate",
 ]

@@ -2,17 +2,17 @@
 
 Counterpart of ``accelerate_tpu.generation``: :func:`generate` (prefill
 in one forward over the whole prompt, then one token a step),
-:func:`per_token_latency` and the sampler the serving engine shares.
-The JAX package scans the steps inside one jitted program; here the loop
-is eager Python over the module's cached forward, and the cache is
-written in place.
+:func:`beam_search`, :func:`per_token_latency` and the sampler the
+serving engine shares. The JAX package scans the steps inside one jitted
+program; here the loop is eager Python over the module's cached forward,
+and the cache is written in place.
 
 Sampling is greedy at temperature 0, else temperature sampling,
 optionally truncated to the ``top_k`` highest logits. Randomness comes
 from an explicit ``torch.Generator`` (the JAX package's key chain has no
 bitwise counterpart here, so sampled streams match in distribution, not
-token for token). ``generate_seq2seq`` and ``beam_search`` are not ported
-yet (ROADMAP.md).
+token for token). ``generate_seq2seq`` is not ported yet (ROADMAP.md
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +38,13 @@ def _make_sampler(temperature: float, top_k: Optional[int]):
         return torch.multinomial(probs, 1, generator=generator)[..., 0]
 
     return sample
+
+
+def _device_ids(input_ids, device) -> torch.Tensor:
+    """Token ids (a tensor or anything numpy takes) as int32 on ``device``."""
+    if isinstance(input_ids, torch.Tensor):
+        return input_ids.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(input_ids, np.int32), device=device)
 
 
 def _freeze_after_eos(nxt: torch.Tensor, done: torch.Tensor, eos_token_id: Optional[int]):
@@ -68,10 +75,7 @@ def generate(
     after a sequence's EOS are filled with EOS (the loop still runs to
     ``max_new_tokens``, as the reference's does)."""
     device = model.device
-    if isinstance(input_ids, torch.Tensor):
-        input_ids = input_ids.to(device=device, dtype=torch.int32)
-    else:
-        input_ids = torch.as_tensor(np.asarray(input_ids, np.int32), device=device)
+    input_ids = _device_ids(input_ids, device)
     b, prompt_len = input_ids.shape
 
     if max_new_tokens < 0:
@@ -99,6 +103,86 @@ def generate(
         tok, done = _freeze_after_eos(sample(logits[:, -1], gen), done, eos_token_id)
         new_tokens.append(tok)
     return torch.cat([input_ids, torch.stack(new_tokens, dim=1).to(torch.int32)], dim=1)
+
+
+@torch.no_grad()
+def beam_search(
+    model,
+    input_ids,
+    max_new_tokens: int = 32,
+    num_beams: int = 4,
+    length_penalty: float = 1.0,
+    eos_token_id: Optional[int] = None,
+    return_scores: bool = False,
+):
+    """Beam-search decode of ``input_ids`` [B, S] on the model's device.
+
+    Prefill, then repeat the KV cache to ``num_beams`` rows a batch
+    element; each step (a) scores every (beam, token) continuation, (b)
+    keeps the top ``num_beams`` a batch element, and (c) gathers the cache
+    rows along the chosen beams. The rows share one frontier, so the
+    cache keeps its int index. EOS beams are frozen (score fixed, forced
+    EOS continuation); the returned sequence of each batch element
+    maximises ``score / len(new_tokens) ** length_penalty``. Returns int32
+    [B, S + max_new_tokens] (and the [B] f32 normalised scores when
+    ``return_scores``)."""
+    device = model.device
+    input_ids = _device_ids(input_ids, device)
+    b, prompt_len = input_ids.shape
+    k = num_beams
+    if k < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    max_pos = getattr(getattr(model, "config", None), "max_position_embeddings", None)
+    if max_pos is not None and prompt_len + max_new_tokens > max_pos:
+        raise ValueError(
+            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) exceeds the "
+            f"model's cache size (max_position_embeddings={max_pos})"
+        )
+
+    neg = -1e9
+    positions = torch.arange(prompt_len, device=device).expand(b, prompt_len)
+    logits, cache = model(input_ids, positions=positions, decode=True, cache=None)
+    logp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)  # [B, V]
+    vocab = logp0.shape[-1]
+    scores, tok = torch.topk(logp0, k, dim=-1)  # distinct first tokens seed the beams
+    cache = cache.repeat_rows(k)  # [.., B*K, ..]
+    done = tok == eos_token_id if eos_token_id is not None else torch.zeros_like(tok, dtype=torch.bool)
+    lengths = torch.ones((b, k), dtype=torch.int32, device=device)
+    tokens = torch.zeros((b, k, max_new_tokens), dtype=torch.int64, device=device)
+    tokens[:, :, 0] = tok
+    rows_base = (torch.arange(b, device=device) * k)[:, None]
+    for t in range(1, max_new_tokens):
+        # the last token was emitted at step t - 1 and sits at position prompt_len + t - 1
+        positions = torch.full((b * k, 1), prompt_len + t - 1, device=device)
+        logits, cache = model(tok.reshape(b * k, 1), positions=positions, decode=True, cache=cache)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(b, k, vocab)
+        # live beams extend by any token; done beams only "extend" by EOS at an unchanged score
+        cand = scores[:, :, None] + logp
+        if eos_token_id is not None:
+            frozen = torch.full((b, k, vocab), neg, device=device)
+            frozen[:, :, eos_token_id] = 0.0
+            cand = torch.where(done[:, :, None], frozen + scores[:, :, None], cand)
+        scores, idx = torch.topk(cand.reshape(b, k * vocab), k, dim=-1)  # [B, K]
+        beam_idx = idx // vocab  # the source beam
+        tok = idx % vocab
+        cache = cache.gather_rows((rows_base + beam_idx).reshape(-1))
+        done = done.gather(1, beam_idx)
+        lengths = lengths.gather(1, beam_idx)
+        tokens = tokens.gather(1, beam_idx[:, :, None].expand(b, k, max_new_tokens))
+        lengths = lengths + (~done).to(torch.int32)
+        if eos_token_id is not None:
+            done = done | (tok == eos_token_id)
+        tokens[:, :, t] = tok
+
+    norm = scores / lengths.float() ** length_penalty
+    best = torch.argmax(norm, dim=1)  # [B]
+    best_tokens = tokens[torch.arange(b, device=device), best].to(torch.int32)
+    out = torch.cat([input_ids, best_tokens], dim=1)
+    if not return_scores:
+        return out
+    return out, norm.gather(1, best[:, None])[:, 0]
 
 
 def per_token_latency(model, batch_size: int = 1, prompt_len: int = 32, n_tokens: int = 16) -> float:

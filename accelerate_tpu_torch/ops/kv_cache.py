@@ -1,10 +1,14 @@
 """KV-cache incremental attention for the decode path.
 
 Counterpart of :mod:`accelerate_tpu.ops.kv_cache`. A :class:`KVCache`
-holds every layer's dense ``[B, max_len, H_kv, D]`` buffers and one
-write index; prefill (``S_new`` = prompt or chunk) and single-token
-steps share :func:`cached_attention`. Where the JAX package rebuilds its
-cache pytree, the port writes into the buffers in place. A
+holds every layer's dense ``[B, max_len, H_kv, D]`` buffers and a write
+index: one int for the whole batch (``generate``, prefill, beam search),
+or a ``[B]`` tensor of per-row frontiers (the serving engine's dense
+slots and speculative decoding, where the JAX package ``vmap``s a
+batch-1 step over the rows, each with its own scalar index). Prefill
+(``S_new`` = prompt or chunk) and single-token steps share
+:func:`cached_attention`. Where the JAX package rebuilds its cache
+pytree, the port writes into the buffers in place. A
 :class:`~.paged_kv.PagedKVCache` routes to the paged decode path, as
 ``paged_mode`` does in the JAX package.
 """
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -21,21 +25,53 @@ import torch
 @dataclasses.dataclass
 class KVCache:
     """Dense cache: ``key``/``value`` ``[L, B, max_len, H_kv, D]`` and
-    the write ``index`` (rows ``< index`` are valid)."""
+    the write ``index`` (rows ``< index`` are valid): an int shared by
+    the rows, or an int64 ``[B]`` tensor on the buffers' device, one
+    frontier a row."""
 
     key: torch.Tensor
     value: torch.Tensor
-    index: int = 0
+    index: Union[int, torch.Tensor] = 0
 
     @classmethod
-    def empty(cls, config, batch: int, max_len: int, dtype: torch.dtype, device) -> "KVCache":
+    def empty(cls, config, batch: int, max_len: int, dtype: torch.dtype, device, per_row: bool = False) -> "KVCache":
+        """Zeroed buffers; ``per_row`` gives a ``[batch]`` index of zeros."""
         head_dim = config.head_dim or config.hidden_size // config.num_attention_heads
         shape = (config.num_hidden_layers, batch, max_len, config.num_key_value_heads, head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+        index = torch.zeros(batch, dtype=torch.int64, device=device) if per_row else 0
+        return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device),
+                   index)
 
     def advance(self, n: int) -> None:
-        """Move the write index past the ``n`` rows every layer just wrote."""
-        self.index += n
+        """Move the write index (every row's) past the ``n`` rows every
+        layer just wrote."""
+        self.index = self.index + n
+
+    def row(self, i: int) -> "KVCache":
+        """A batch-1 view of row ``i``'s buffers (writes land in this
+        cache) with an int index of 0."""
+        return KVCache(self.key[:, i : i + 1], self.value[:, i : i + 1], 0)
+
+    def insert(self, row: "KVCache", i: int) -> None:
+        """Copy a batch-1 cache into row ``i`` (its rows past ``row``'s
+        length keep what they held: they lie beyond the frontier) and
+        set row ``i``'s frontier to ``row``'s index. The counterpart of
+        the JAX engine's ``insert`` into its slot axis."""
+        n = row.key.shape[2]
+        self.key[:, i, :n] = row.key[:, 0]
+        self.value[:, i, :n] = row.value[:, 0]
+        self.index[i] = int(row.index)
+
+    def repeat_rows(self, k: int) -> "KVCache":
+        """Each row repeated ``k`` times along the batch axis (``[r0, r0,
+        .., r1, r1, ..]``, ``jnp.repeat``'s order): a new cache."""
+        index = self.index.repeat_interleave(k) if isinstance(self.index, torch.Tensor) else self.index
+        return KVCache(self.key.repeat_interleave(k, dim=1), self.value.repeat_interleave(k, dim=1), index)
+
+    def gather_rows(self, rows: torch.Tensor) -> "KVCache":
+        """The rows ``rows`` (int64 ``[B']``) along the batch axis: a new cache."""
+        index = self.index[rows] if isinstance(self.index, torch.Tensor) else self.index
+        return KVCache(self.key.index_select(1, rows), self.value.index_select(1, rows), index)
 
 
 def cached_attention(
@@ -43,11 +79,13 @@ def cached_attention(
 ):
     """Incremental causal attention of ``q [B, S_new, H, D]`` against
     ``layer``'s cache after writing ``k``/``v`` ``[B, S_new, H_kv, D]`` at
-    the write index. Query ``i`` attends keys ``<= index + i`` (and
-    ``> index + i - W`` with a sliding window). Scores and softmax in f32,
-    ``logit_softcap`` (Gemma2) applied to the f32 scores before the mask;
-    GQA contracts grouped queries against the un-repeated cache. Returns
-    ``[B, S_new, H, D]``. The paged cache refuses a softcap, as the JAX
+    the write index (each row's own, with a ``[B]`` index; a write that
+    would run past ``max_len`` starts at ``max_len - S_new``, as
+    ``dynamic_update_slice`` clamps it). Query ``i`` attends keys
+    ``<= index + i`` (and ``> index + i - W`` with a sliding window).
+    Scores and softmax in f32, ``logit_softcap`` (Gemma2) applied to the
+    f32 scores before the mask; GQA contracts grouped queries against the
+    un-repeated cache. Returns ``[B, S_new, H, D]``. The paged cache refuses a softcap, as the JAX
     package's does: its kernel has no tanh-cap branch."""
     from .attention import softcap
     from .paged_kv import PagedKVCache, paged_cached_attention
@@ -56,22 +94,33 @@ def cached_attention(
         if logit_softcap is not None:
             raise NotImplementedError(
                 "attention logit softcapping (Gemma2) is not supported by the paged cache kernel; "
-                "the dense engine layout that serves it is not ported yet (ROADMAP.md Queue 1 item 6)"
+                "serve with the dense engine layout (paged_block_size=None)"
             )
         return paged_cached_attention(cache, layer, q, k, v, scale=scale, sliding_window=sliding_window)
     b, s_new, h_kv, d = k.shape
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     cur = cache.index
     max_len = cache.key.shape[2]
-    cache.key[layer, :, cur : cur + s_new] = k
-    cache.value[layer, :, cur : cur + s_new] = v
     k_all, v_all = cache.key[layer], cache.value[layer]
-
     key_pos = torch.arange(max_len, device=q.device)
-    q_pos = cur + torch.arange(s_new, device=q.device)
-    live = key_pos[None, :] <= q_pos[:, None]  # [S_new, max_len]
-    if sliding_window is not None:
-        live &= key_pos[None, :] > q_pos[:, None] - sliding_window
+    if isinstance(cur, torch.Tensor):
+        steps = torch.arange(s_new, device=q.device)
+        rows = cur.clamp(0, max_len - s_new)[:, None] + steps  # [B, S_new]
+        batch = torch.arange(b, device=q.device)[:, None]
+        k_all[batch, rows] = k.to(k_all.dtype)
+        v_all[batch, rows] = v.to(v_all.dtype)
+        q_pos = (cur[:, None] + steps)[:, :, None]  # [B, S_new, 1]
+        live = key_pos <= q_pos  # [B, S_new, max_len]
+        if sliding_window is not None:
+            live &= key_pos > q_pos - sliding_window
+        live = live[:, None, None]  # over [B, H_kv, G, S_new, max_len]
+    else:
+        k_all[:, cur : cur + s_new] = k
+        v_all[:, cur : cur + s_new] = v
+        q_pos = cur + torch.arange(s_new, device=q.device)
+        live = key_pos[None, :] <= q_pos[:, None]  # [S_new, max_len]
+        if sliding_window is not None:
+            live &= key_pos[None, :] > q_pos[:, None] - sliding_window
 
     groups = q.shape[2] // h_kv
     qg = q.reshape(b, s_new, h_kv, groups, d)
@@ -84,8 +133,9 @@ def cached_attention(
     return out.reshape(b, s_new, h_kv * groups, d)
 
 
-def reset_cache_index(cache: KVCache, new_index: int) -> KVCache:
-    """Set a dense cache's write index (rows past it are stale but sit
-    beyond the causal mask until overwritten). Returns the cache."""
-    cache.index = int(new_index)
+def reset_cache_index(cache: KVCache, new_index) -> KVCache:
+    """Set a dense cache's write index: an int, or a ``[B]`` tensor of
+    per-row frontiers (rows past it are stale but sit beyond the causal
+    mask until overwritten). Returns the cache."""
+    cache.index = new_index if isinstance(new_index, torch.Tensor) else int(new_index)
     return cache

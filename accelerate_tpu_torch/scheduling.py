@@ -3,8 +3,7 @@
 A copy of :mod:`accelerate_tpu.scheduling` (host-only policy, no jax),
 kept here so the port imports nothing of the JAX package; the fleet
 routing policy stays behind with the fleet (ROADMAP.md Queue 1 item 10).
-:mod:`accelerate_tpu_torch.serving` consults every decision below but
-speculative gating, which waits for speculative serving (item 6).
+:mod:`accelerate_tpu_torch.serving` consults every decision below.
 
 The serving engine owns the *mechanism* (slots, caches, the prefill
 and decode programs); this module owns the *policy* — the

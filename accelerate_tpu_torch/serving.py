@@ -1,13 +1,22 @@
-"""Continuous batching: a slot-based serving engine over a paged KV cache.
+"""Continuous batching: a slot-based serving engine over a dense or a
+paged KV cache.
 
-Counterpart of :class:`accelerate_tpu.serving.ServingEngine` in its
-paged layout, with the same public surface and host bookkeeping. A fixed
+Counterpart of :class:`accelerate_tpu.serving.ServingEngine` in both of
+its layouts, with the same public surface and host bookkeeping. A fixed
 set of ``num_slots`` sequences is in flight: finished sequences retire
-and free their slot and pool blocks at once, queued prompts prefill into
-free slots, and one decode tick advances every slot ``tick_block``
+and free their slot (and pool blocks) at once, queued prompts prefill
+into free slots, and one decode tick advances every slot ``tick_block``
 tokens before the host reads the tokens back.
 
-* **paged KV cache** (:mod:`.ops.paged_kv`): slot caches live in one
+* **dense KV cache** (the default, ``paged_block_size=None``): one
+  :class:`~.ops.kv_cache.KVCache` of ``[L, num_slots, max_len, H_kv, D]``
+  rows whose write index is a ``[num_slots]`` tensor, so each slot keeps
+  its own frontier (the JAX engine ``vmap``s a batch-1 step over the
+  slots instead) and a decode step is one batched forward. A bucketed
+  prefill runs straight into its slot's rows; a chunked, prefix-seeded
+  or resumed one builds a row cache and is copied in. This layout serves
+  a softcapped model (Gemma2), which the paged kernel refuses;
+* **paged KV cache** (``paged_block_size=...``, :mod:`.ops.paged_kv`): slot caches live in one
   shared block pool addressed through per-slot block tables; pool
   capacity (``pool_blocks``) is sized by tokens in flight, and admission
   waits while the pool is exhausted. Block 0 is the trash sink that
@@ -29,14 +38,24 @@ tokens before the host reads the tokens back.
   shared refcount) after every tick. Mixed layer kinds (Gemma3) are
   served in their bands without expiry, as in the JAX package;
 * **prefix caching**: :meth:`register_prefix` prefills a shared prefix
-  once and writes its full in-band blocks into the pool; requests
-  submitted with its ``prefix_id`` alias those blocks and prefill only
-  their suffix, from a copy of the prefix's rows;
-* **decode tick**: per-row frontiers are native to the paged layout, so
-  each step is one batched forward whose attention is the paged decode
-  kernel (CUDA) or its plain version (CPU); a slot that finishes
-  mid-tick keeps computing until the tick ends and its overshoot tokens
-  are discarded on the host;
+  once and keeps its rows (paged: and writes its full in-band blocks
+  into the pool, which requests alias); requests submitted with its
+  ``prefix_id`` prefill only their suffix, each from its own copy of the
+  prefix's rows;
+* **decode tick**: each step is one batched forward over every slot,
+  its attention the paged decode kernel (CUDA) or its plain version
+  (CPU) on the paged layout, the dense cache's einsum attention on the
+  dense one; a slot that finishes mid-tick keeps computing until the
+  tick ends and its overshoot tokens are discarded on the host;
+* **speculative serving** (``draft_model=``, dense layout, greedy): a
+  tick runs ``tick_block`` iterations of :mod:`.speculative`'s batched
+  step (the draft proposes ``gamma`` tokens a slot, one target forward
+  verifies them all), each slot emitting its accepted run plus the
+  target's correction; the slot caches become a target and a draft
+  cache (:attr:`draft_caches`). The scheduler's
+  ``speculative_priorities`` may route a tick to the plain target tick,
+  which leaves the draft cache stale (that costs acceptance, never a
+  token: greedy speculation emits the target's own argmax stream);
 * **scheduling** (``scheduler=SchedulerConfig(...)`` or
   :class:`~.utils.dataclasses.ServingSchedulerKwargs`): a token budget a
   tick (active decodes claim ``n_decoding x tick_block`` tokens, prefill
@@ -52,11 +71,9 @@ tokens before the host reads the tokens back.
   distribution.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): the dense layout and speculative serving (item 6), a
-softcapped model, which the dense layout serves (item 6), ``perf_check``
-/ ``numerics_check`` (item 6), telemetry logs, program caches and
-auto-bucketing (item 9), request tracing, KV handoff and failover
-export/import (item 10).
+Queue 1 item): ``perf_check`` / ``numerics_check`` (item 11), telemetry
+logs, program caches and auto-bucketing (item 9), request tracing, KV
+handoff and failover export/import (item 10).
 """
 
 from __future__ import annotations
@@ -82,6 +99,7 @@ from .ops.paged_kv import (
     set_table_row,
 )
 from .scheduling import Scheduler, SchedulerConfig, ShedError
+from .speculative import build_spec_step
 from .telemetry.serving_metrics import ServingMetrics
 from .utils.environment import resolve_device
 
@@ -123,10 +141,14 @@ class ServingEngine:
 
     ``prompt_buckets``: ascending prefill sizes. ``max_len``: cache
     capacity per request (default: the model's ``max_position_embeddings``).
-    ``paged_block_size``: rows per pool block (required: the paged layout
-    is the only one ported). ``pool_blocks``: pool blocks including the
+    ``paged_block_size``: rows per pool block (None: the dense layout,
+    ``max_len`` rows a slot). ``pool_blocks``: pool blocks including the
     trash sink (default ``num_slots * ceil(max_len / block_size) + 1``;
-    pass less to oversubscribe and let admission queue requests).
+    pass less to oversubscribe and let admission queue requests; paged
+    layout only). ``draft_model``: a model sharing the target's
+    vocabulary that proposes ``gamma`` tokens a slot for one target
+    forward to verify (dense layout, ``temperature=0``, bucket-sized
+    prompts, no prefix caching, no preemption).
     ``scheduler``: a :class:`~.scheduling.SchedulerConfig`, a
     :class:`~.scheduling.Scheduler`, or anything with
     ``to_scheduler_config()``. ``device``: where the engine runs (``cuda``
@@ -156,35 +178,52 @@ class ServingEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if model.device.type != self.device.type:
-            raise ValueError(f"model is on {model.device}, engine device is {self.device}; move one of them")
-        if paged_block_size is None:
-            raise _not_ported("the dense serving layout (paged_block_size=None)", 6)
-        if draft_model is not None:
-            raise _not_ported("speculative serving (draft_model)", 6)
+        for m in (model, draft_model):
+            if m is not None and m.device.type != self.device.type:
+                raise ValueError(f"model is on {m.device}, engine device is {self.device}; move one of them")
         for what, val, item in (("telemetry_log", telemetry_log, 9), ("program_cache", program_cache, 9),
                                 ("tracer", tracer, 10)):
             if val is not None:
                 raise _not_ported(what, item)
         if auto_bucketing:
             raise _not_ported("auto_bucketing", 9)
-        if getattr(model.config, "attn_logit_softcap", None) is not None:
+        self.paged = paged_block_size is not None
+        if self.paged and getattr(model.config, "attn_logit_softcap", None) is not None:
             # the JAX package's paged cache raises the same at the first decode step
             raise NotImplementedError(
-                "attention logit softcapping (Gemma2) is not supported by the paged cache kernel; "
-                "the dense engine layout that serves it is not ported yet (ROADMAP.md Queue 1 item 6)"
+                "attention logit softcapping (Gemma2) is not supported by the paged cache kernel yet; "
+                "serve with the dense engine layout"
             )
         if scheduler is None:
             scheduler = SchedulerConfig()
         if hasattr(scheduler, "to_scheduler_config"):
             scheduler = scheduler.to_scheduler_config()
         self._sched = scheduler if isinstance(scheduler, Scheduler) else Scheduler(scheduler)
+        if draft_model is not None and self._sched.config.enable_preemption:
+            raise NotImplementedError(
+                "decode preemption does not compose with speculative serving yet "
+                "(resume recomputes only the target cache)"
+            )
 
         self.metrics = ServingMetrics(self)
         self.model = model
         self.num_slots = num_slots
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.max_len = max_len or model.config.max_position_embeddings
+        self.draft_model = draft_model
+        self.gamma = int(gamma)
+        if draft_model is not None:
+            if self.paged:
+                raise NotImplementedError("speculative serving is dense-layout only (no paged cache yet)")
+            if temperature != 0.0:
+                raise NotImplementedError("speculative serving is greedy-only (temperature=0)")
+            if self.gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            draft_cap = draft_model.config.max_position_embeddings
+            if self.max_len > draft_cap:
+                raise ValueError(
+                    f"max_len {self.max_len} exceeds the draft cache (max_position_embeddings={draft_cap})"
+                )
         if self.max_len > model.config.max_position_embeddings:
             raise ValueError(
                 f"max_len {self.max_len} exceeds the model cache "
@@ -202,10 +241,52 @@ class ServingEngine:
         self._greedy = temperature <= 0.0
         self._sampler = _make_sampler(temperature, top_k)
         self._chunk = max(self.prompt_buckets)
+        if self.paged:
+            self._init_pool(model, int(paged_block_size), pool_blocks)
+        elif pool_blocks is not None:
+            raise ValueError("pool_blocks requires paged_block_size (paged mode)")
+        else:
+            self._window = None  # block expiry is the paged layout's
+            self.slot_caches = KVCache.empty(model.config, num_slots, self.max_len, model.dtype, self.device,
+                                             per_row=True)
+            if draft_model is not None:
+                self.draft_caches = KVCache.empty(draft_model.config, num_slots, self.max_len, draft_model.dtype,
+                                                  self.device, per_row=True)
+                self._spec_step = build_spec_step(model, draft_model, self.gamma)
+                # accept-rate telemetry, counted as the JAX engine counts it
+                self.spec_stats = {"steps": 0, "accepted": 0, "emitted": 0}
 
-        bs_ = int(paged_block_size)
+        # registered shared prefixes: id -> {"len", "tokens", "rows"(, "block_ids")}
+        self._prefixes: dict[int, dict] = {}
+        self._prefix_uid = 0
+
+        # host-side slot state
+        self.slot_req: list[Optional[_Request]] = [None] * num_slots
+        self.slot_tok = np.zeros((num_slots,), np.int32)
+        self.slot_pos = np.zeros((num_slots,), np.int32)
+        # slot phase: None (free) | "prefill" | "decode"
+        self.slot_phase: list[Optional[str]] = [None] * num_slots
+        self._prefill_state: list[Optional[dict]] = [None] * num_slots
+        self._prefill_order: list[int] = []  # prefilling slots, admission order
+        self._slot_gens: list[Optional[torch.Generator]] = [None] * num_slots
+        self.queue: list[_Request] = []  # sorted by the scheduler's order key
+        self._index: dict[int, tuple] = {}  # uid -> ("queued"|"active"|"done", req|None)
+        self._shed: dict[int, ShedError] = {}  # uid -> structured rejection
+        self.done: dict[int, np.ndarray] = {}
+        self._done_new: dict[int, np.ndarray] = {}
+        self._done_lps: dict[int, np.ndarray] = {}
+        self._uid = 0
+        self._pool_blocked = False  # the last admission pass hit pool exhaustion
+        self.decode_steps = 0  # batched target decode forwards run (tick_block per tick, plain or speculative)
+        self.prefill_forwards = 0  # prefill forwards run (bucketed prompts and chunk windows)
+        self.prefill_tokens = 0  # positions those forwards computed (bucket and window widths)
+        self.recomputed_tokens = 0  # positions rebuilt by resumes (prompt + all but the last generated token)
+
+    def _init_pool(self, model, bs_: int, pool_blocks) -> None:
+        """The paged layout's pool, block bookkeeping and slot caches."""
         if bs_ < 1:
-            raise ValueError(f"paged_block_size must be >= 1, got {paged_block_size}")
+            raise ValueError(f"paged_block_size must be >= 1, got {bs_}")
+        num_slots = self.num_slots
         # table width follows the MODEL's horizon; reservations and the
         # default pool follow max_len, which submit() enforces
         self._mb = -(-model.config.max_position_embeddings // bs_)
@@ -230,32 +311,6 @@ class ServingEngine:
             self._window = None
         self.slot_caches = PagedKVCache.empty(model.config, self._pcfg, num_slots, model.dtype, self.device)
 
-        # registered shared prefixes: id -> {"len", "tokens", "rows", "block_ids"}
-        self._prefixes: dict[int, dict] = {}
-        self._prefix_uid = 0
-
-        # host-side slot state
-        self.slot_req: list[Optional[_Request]] = [None] * num_slots
-        self.slot_tok = np.zeros((num_slots,), np.int32)
-        self.slot_pos = np.zeros((num_slots,), np.int32)
-        # slot phase: None (free) | "prefill" | "decode"
-        self.slot_phase: list[Optional[str]] = [None] * num_slots
-        self._prefill_state: list[Optional[dict]] = [None] * num_slots
-        self._prefill_order: list[int] = []  # prefilling slots, admission order
-        self._slot_gens: list[Optional[torch.Generator]] = [None] * num_slots
-        self.queue: list[_Request] = []  # sorted by the scheduler's order key
-        self._index: dict[int, tuple] = {}  # uid -> ("queued"|"active"|"done", req|None)
-        self._shed: dict[int, ShedError] = {}  # uid -> structured rejection
-        self.done: dict[int, np.ndarray] = {}
-        self._done_new: dict[int, np.ndarray] = {}
-        self._done_lps: dict[int, np.ndarray] = {}
-        self._uid = 0
-        self._pool_blocked = False  # the last admission pass hit pool exhaustion
-        self.decode_steps = 0  # batched decode forwards run (tick_block per tick)
-        self.prefill_forwards = 0  # prefill forwards run (bucketed prompts and chunk windows)
-        self.prefill_tokens = 0  # positions those forwards computed (bucket and window widths)
-        self.recomputed_tokens = 0  # positions rebuilt by resumes (prompt + all but the last generated token)
-
     # ---- the forwards --------------------------------------------------
 
     def _request_generator(self, uid: int) -> Optional[torch.Generator]:
@@ -275,18 +330,23 @@ class ServingEngine:
         """An empty dense row cache of ``max_len`` rows for one prefill."""
         return KVCache.empty(self.model.config, 1, self.max_len, self.model.dtype, self.device)
 
-    def _prefill_bucket(self, prompt: np.ndarray, b: int, gen):
+    def _prefill_bucket(self, prompt: np.ndarray, b: int, gen, slot: int):
         """Pad ``prompt`` to bucket ``b`` and run one cached forward;
-        returns ``(first token, its logprob, row cache)``."""
+        returns ``(first token, its logprob, row cache)``. On the dense
+        layout the forward writes straight into the slot's rows (and the
+        draft's, with a draft model) and the row cache is None."""
         ids = np.zeros((1, b), np.int32)
         ids[0, : len(prompt)] = prompt
+        ids = torch.as_tensor(ids, device=self.device)
         positions = torch.arange(b, device=self.device)[None]
-        logits, cache = self.model(torch.as_tensor(ids, device=self.device), positions=positions, decode=True,
-                                   cache=self._row_cache())
+        row = self._row_cache() if self.paged else self.slot_caches.row(slot)
+        logits, cache = self.model(ids, positions=positions, decode=True, cache=row)
+        if self.draft_model is not None:
+            self.draft_model(ids, positions=positions, decode=True, cache=self.draft_caches.row(slot))
         self.prefill_forwards += 1
         self.prefill_tokens += b
         tok, lp = self._sample_row(logits[0, len(prompt) - 1], gen)
-        return tok, lp, cache
+        return tok, lp, (cache if self.paged else None)
 
     def _next_window(self, t: int, s: int):
         """Plan the next end-aligned prefill window over ``full[s:t]``:
@@ -328,7 +388,9 @@ class ServingEngine:
     def _decode_tick(self):
         """``tick_block`` batched decode steps for every slot; returns
         ``(tokens [K, slots], logprobs [K, slots])`` on the host after one
-        sync. Slots not decoding compute garbage into the trash sink."""
+        sync. Slots not decoding compute garbage into the trash sink
+        (paged) or past their own frontier (dense); a draft cache is left
+        as it was."""
         toks = torch.as_tensor(self.slot_tok, device=self.device)
         poss = torch.as_tensor(self.slot_pos, device=self.device)
         sampled = [] if self._greedy else [s for s, ph in enumerate(self.slot_phase) if ph == "decode"]
@@ -345,6 +407,25 @@ class ServingEngine:
             self.decode_steps += 1
         return torch.stack(toks_k).cpu().numpy(), torch.stack(lps_k).cpu().numpy()
 
+    def _spec_tick(self):
+        """``tick_block`` speculative iterations for every slot, each slot
+        fed its last emitted token at its own frontier; returns ``(emits
+        [K, slots, gamma+1], logprobs [K, slots, gamma+1], emit counts
+        [K, slots])`` on the host after one sync."""
+        toks = torch.as_tensor(self.slot_tok, device=self.device).long()
+        poss = torch.as_tensor(self.slot_pos, device=self.device).long()
+        emits_k, lps_k, n_k = [], [], []
+        for _ in range(self.tick_block):
+            emit, lps, n_emit = self._spec_step(self.slot_caches, self.draft_caches, toks, poss)
+            toks = emit.gather(1, (n_emit - 1)[:, None])[:, 0]  # the next fed token: the last emitted
+            poss = poss + n_emit
+            emits_k.append(emit)
+            lps_k.append(lps)
+            n_k.append(n_emit)
+            self.decode_steps += 1
+        return (torch.stack(emits_k).cpu().numpy(), torch.stack(lps_k).cpu().numpy(),
+                torch.stack(n_k).cpu().numpy())
+
     # ---- public API ----------------------------------------------------
 
     @torch.no_grad()
@@ -354,6 +435,8 @@ class ServingEngine:
         suffix. Under a sliding window only the blocks some request's band
         can read are registered. The finished output includes the prefix."""
         toks = np.asarray(prefix_ids, np.int32).ravel()
+        if self.draft_model is not None:
+            raise NotImplementedError("speculative serving does not compose with prefix caching yet")
         if len(toks) == 0:
             raise ValueError("empty prefix")
         if len(toks) + 1 > self.max_len:
@@ -363,6 +446,18 @@ class ServingEngine:
         while s < n:  # the scheduler's chunk windows, run to the end at once
             _, cache, _, s = self._run_window(toks, s, cache)
         entry = {"len": n, "tokens": toks, "rows": (cache.key[:, :, :n].clone(), cache.value[:, :, :n].clone())}
+        if self.paged:
+            self._register_prefix_blocks(entry, cache)
+        pid = self._prefix_uid
+        self._prefix_uid += 1
+        self._prefixes[pid] = entry
+        self.metrics.on_prefix_register()
+        return pid
+
+    def _register_prefix_blocks(self, entry: dict, cache: KVCache) -> None:
+        """Paged layout: reserve a registered prefix's full in-band blocks
+        and write their content once."""
+        n = entry["len"]
         bs_ = self._pcfg.block_size
         n_full = n // bs_
         # no request reads below the band of the shortest suffix (1 token)
@@ -386,11 +481,6 @@ class ServingEngine:
             for i, bid in entry["block_ids"].items():
                 write_row[i] = bid
             paste_blocks(self.slot_caches, cache, write_row)
-        pid = self._prefix_uid
-        self._prefix_uid += 1
-        self._prefixes[pid] = entry
-        self.metrics.on_prefix_register()
-        return pid
 
     def unregister_prefix(self, prefix_id: int) -> None:
         """Release a registered prefix's rows and its shared pool blocks."""
@@ -403,12 +493,12 @@ class ServingEngine:
         entry = self._prefixes[prefix_id]
         # every refcount is checked before anything changes, so a broken
         # invariant leaves the pool's accounting whole for diagnosis
-        for bid in entry["block_ids"].values():
+        for bid in entry.get("block_ids", {}).values():
             refs = self._shared_refs.get(bid)
             if refs != 1:
                 raise RuntimeError(f"shared block {bid} still referenced ({refs})")
         del self._prefixes[prefix_id]
-        for bid in entry["block_ids"].values():
+        for bid in entry.get("block_ids", {}).values():
             self._shared_refs.pop(bid)
             self._alloc.free([bid])
         self.metrics.on_prefix_evict()
@@ -441,6 +531,19 @@ class ServingEngine:
         stops = tuple(tuple(int(t) for t in s) for s in (stop_sequences or ()))
         if any(len(s) == 0 for s in stops):
             raise ValueError("empty stop sequence")
+        if self.draft_model is not None:
+            if prefix_id is not None:
+                raise NotImplementedError("speculative serving does not compose with prefix caching yet")
+            if len(prompt) > max(self.prompt_buckets):
+                raise ValueError(
+                    f"speculative serving needs bucket-sized prompts "
+                    f"(len {len(prompt)} > largest bucket {max(self.prompt_buckets)})"
+                )
+            if len(prompt) + max_new_tokens + self.gamma > self.max_len:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) + gamma "
+                    f"({self.gamma}) headroom exceeds the slot cache ({self.max_len})"
+                )
         plen = 0
         if prefix_id is not None:
             if prefix_id not in self._prefixes:
@@ -451,12 +554,13 @@ class ServingEngine:
                 f"prefix ({plen}) + prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the slot cache ({self.max_len})"
             )
-        need = self._new_blocks_for(plen, len(prompt), max_new_tokens)
-        if need > self._pcfg.num_blocks - 1:
-            raise ValueError(
-                f"request needs {need} pool blocks but the pool has "
-                f"{self._pcfg.num_blocks - 1}; raise pool_blocks or paged_block_size"
-            )
+        if self.paged:
+            need = self._new_blocks_for(plen, len(prompt), max_new_tokens)
+            if need > self._pcfg.num_blocks - 1:
+                raise ValueError(
+                    f"request needs {need} pool blocks but the pool has "
+                    f"{self._pcfg.num_blocks - 1}; raise pool_blocks or paged_block_size"
+                )
         priority = self._admission_shed_check(int(priority))
         uid = self._uid
         self._uid += 1
@@ -553,8 +657,10 @@ class ServingEngine:
         admission and the oldest prefill may overrun it, so no budget can
         livelock), evicting a lower-priority decode when a more important
         request finds no slot or no blocks (with preemption on); then ONE
-        decode tick for every decoding slot, and the expiry of blocks the
-        band left behind. Returns the number of occupied slots."""
+        decode tick for every decoding slot (speculative when a draft model
+        is attached and the scheduler lets every decoding class
+        speculate), and the expiry of blocks the band left behind. Returns
+        the number of occupied slots."""
         crash_point("pre_tick")
         self._pool_blocked = False
         self._shed_pass(time.monotonic())
@@ -581,7 +687,8 @@ class ServingEngine:
             budget = self._advance_prefill(slot, budget, force=force)
             force = False
         if any(ph == "decode" for ph in self.slot_phase):
-            self._plain_decode_pass()
+            self._decode_pass(self.draft_model is not None and self._sched.use_speculative(
+                [p for _, p, _ in self._decoding_info()]))
         self._expire_window_blocks()
         return self.active_count
 
@@ -613,8 +720,9 @@ class ServingEngine:
         return self._sched.config
 
     @property
-    def pool_free_blocks(self) -> int:
-        return self._alloc.free_count
+    def pool_free_blocks(self) -> Optional[int]:
+        """Free blocks in the paged pool (None on the dense layout)."""
+        return self._alloc.free_count if self.paged else None
 
     # ---- not ported yet --------------------------------------------------
 
@@ -634,10 +742,10 @@ class ServingEngine:
         raise _not_ported("fleet failover (import_inflight)", 10)
 
     def perf_check(self, *args, **kwargs) -> dict:
-        raise _not_ported("perf_check", 6)
+        raise _not_ported("perf_check", 11)
 
     def numerics_check(self, *args, **kwargs) -> dict:
-        raise _not_ported("numerics_check", 6)
+        raise _not_ported("numerics_check", 11)
 
     # ---- scheduler passes ------------------------------------------------
 
@@ -764,29 +872,31 @@ class ServingEngine:
         return owned, shared_entries, table, write_row
 
     def _admit(self, slot: int) -> bool:
-        """Move the queue head into ``slot`` in the prefill phase after
-        reserving its pool blocks. Under pool exhaustion, policy may evict
-        the youngest lower-priority decode and retry once; failing that,
-        False, and the whole queue waits on its head."""
+        """Move the queue head into ``slot`` in the prefill phase (paged:
+        after reserving its pool blocks). Under pool exhaustion, policy may
+        evict the youngest lower-priority decode and retry once; failing
+        that, False, and the whole queue waits on its head."""
         req = self.queue[0]
-        plan = self._reserve_blocks(req)
-        if plan is None:
-            victim = self._sched.pick_victim(req.priority, self._decoding_info())
-            if victim is not None:
-                self._preempt(victim)
-                plan = self._reserve_blocks(req)
-        if plan is None:
-            self._pool_blocked = True
-            self.metrics.on_pool_blocked()
-            return False
-        owned, shared_entries, table, write_row = plan
+        if self.paged:
+            plan = self._reserve_blocks(req)
+            if plan is None:
+                victim = self._sched.pick_victim(req.priority, self._decoding_info())
+                if victim is not None:
+                    self._preempt(victim)
+                    plan = self._reserve_blocks(req)
+            if plan is None:
+                self._pool_blocked = True
+                self.metrics.on_pool_blocked()
+                return False
         self.queue.pop(0)
         resume = req.preempted and len(req.out_tokens) > 0
-        self._slot_blocks[slot], self._slot_shared[slot] = owned, shared_entries
-        self._slot_table[slot] = table
         # a resumed request carries its generator, so its stream continues
         gen = req.resume_gen if resume else self._request_generator(req.uid)
-        st: dict = {"req": req, "resume": resume, "table": table, "write_row": write_row, "gen": gen, "bucket": None}
+        st: dict = {"req": req, "resume": resume, "gen": gen, "bucket": None}
+        if self.paged:
+            owned, shared_entries, st["table"], st["write_row"] = plan
+            self._slot_blocks[slot], self._slot_shared[slot] = owned, shared_entries
+            self._slot_table[slot] = st["table"]
         b = next((b for b in self.prompt_buckets if b >= len(req.prompt)), None)
         if not resume and req.prefix_id is None and b is not None:
             st["bucket"] = b  # a short prompt: one bucketed forward
@@ -826,7 +936,7 @@ class ServingEngine:
             b = st["bucket"]
             if budget < b and not force:
                 return budget
-            tok, lp, row_cache = self._prefill_bucket(prompt, b, st["gen"])
+            tok, lp, row_cache = self._prefill_bucket(prompt, b, st["gen"], slot)
             self._finalize_prefill(slot, row_cache, len(prompt), tok, lp)
             return budget - b
         full = st["full"]
@@ -847,13 +957,22 @@ class ServingEngine:
         return budget
 
     def _finalize_prefill(self, slot: int, row_cache, total: int, tok, lp) -> None:
-        """Prefill complete: paste the row cache into the slot's own blocks,
-        move the slot to the decode phase, and emit the first token, or (a
-        resume) feed the carried last token again at the recomputed
-        frontier without sampling anything."""
+        """Prefill complete: paste the row cache into the slot's own blocks
+        (paged) or copy it into the slot's rows (dense; None: the prefill
+        ran in them), set the slot's frontier to ``total``, move the slot
+        to the decode phase, and emit the first token, or (a resume) feed
+        the carried last token again at the recomputed frontier without
+        sampling anything."""
         st = self._prefill_state[slot]
         req = st["req"]
-        paste_row(self.slot_caches, row_cache, st["write_row"], st["table"], slot, total)
+        if self.paged:
+            paste_row(self.slot_caches, row_cache, st["write_row"], st["table"], slot, total)
+        elif row_cache is not None:
+            self.slot_caches.insert(reset_cache_index(row_cache, total), slot)
+        else:
+            self.slot_caches.index[slot] = total
+            if self.draft_model is not None:
+                self.draft_caches.index[slot] = total
         self._slot_gens[slot] = st["gen"]
         self._prefill_state[slot] = None
         self._prefill_order.remove(slot)
@@ -877,37 +996,55 @@ class ServingEngine:
         self.slot_tok[slot] = tok
         self.slot_pos[slot] = total
 
-    def _plain_decode_pass(self) -> None:
-        """ONE ``tick_block``-step decode tick for every slot, then the host
-        walk that streams tokens/logprobs out (overshoot past a finish is
-        discarded)."""
+    def _decode_pass(self, speculative: bool) -> None:
+        """ONE tick for every slot: ``tick_block`` plain steps, or
+        ``tick_block`` speculative iterations (each slot emitting its
+        accepted run plus the target's token, ``accepted + 1`` tokens an
+        iteration); then the host walk that streams tokens/logprobs out
+        (overshoot past a finish is discarded). ``spec_stats`` counts only
+        the tokens kept: an iteration's correction or bonus token comes
+        from the target, not the draft."""
         crash_point("mid_decode")
         self.metrics.on_decode_tick(sum(ph == "decode" for ph in self.slot_phase))
-        toks_k, lps_k = self._decode_tick()
+        if speculative:
+            emits_k, lps_k, n_k = self._spec_tick()
+        else:
+            toks_k, lps_k = self._decode_tick()
+            emits_k, lps_k, n_k = toks_k[:, :, None], lps_k[:, :, None], np.ones(toks_k.shape, np.int64)
         for slot, req in enumerate(self.slot_req):
             if req is None or self.slot_phase[slot] != "decode":
                 continue
             n_new, retired = 0, False
             for k in range(self.tick_block):
-                tok = int(toks_k[k, slot])
-                req.out_tokens.append(tok)
-                req.out_lps.append(float(lps_k[k, slot]))
-                self.metrics.on_tokens(1)
-                n_new += 1
-                self.slot_pos[slot] += 1
-                self.slot_tok[slot] = tok
-                if self._finished(req, tok):
-                    retired = True
+                n, walked = int(n_k[k, slot]), 0
+                for j in range(n):
+                    tok = int(emits_k[k, slot, j])
+                    req.out_tokens.append(tok)
+                    req.out_lps.append(float(lps_k[k, slot, j]))
+                    self.metrics.on_tokens(1)
+                    walked += 1
+                    self.slot_pos[slot] += 1
+                    self.slot_tok[slot] = tok
+                    if self._finished(req, tok):
+                        retired = True
+                        break
+                n_new += walked
+                if speculative:
+                    self.spec_stats["steps"] += 1  # one target forward spent
+                    self.spec_stats["emitted"] += walked
+                    self.spec_stats["accepted"] += min(walked, n - 1)
+                if retired:
                     break
             self.metrics.on_tick_tokens(req.uid, n_new)
             if retired:
                 self._retire(slot)
 
     def _expire_window_blocks(self) -> None:
-        """Sliding-window models: entries wholly below ``frontier - W + 1``
-        can no longer be read; their owned blocks return to the pool and
-        their shared blocks drop a refcount, and the entries point at the
-        trash sink before the next tick reads the table."""
+        """Sliding-window models on the paged layout: entries wholly below
+        ``frontier - W + 1`` can no longer be read; their owned blocks
+        return to the pool and their shared blocks drop a refcount, and the
+        entries point at the trash sink before the next tick reads the
+        table."""
         if self._window is None:
             return
         bs_ = self._pcfg.block_size
@@ -949,20 +1086,25 @@ class ServingEngine:
 
     def _release(self, slot: int) -> None:
         """Free a slot's resources without publishing a result (retirement,
-        cancellation and preemption): its owned blocks return to the pool,
-        its shared ones drop a refcount, and its table row points at the
-        trash sink (the tick keeps computing for every slot, and a stale
-        table would write into blocks handed to another request). Every
-        shared refcount is checked before anything changes."""
-        for bid in self._slot_shared[slot].values():
-            if self._shared_refs.get(bid, 0) < 2:
-                raise RuntimeError(f"shared block {bid} over-freed")
+        cancellation and preemption). Paged: its owned blocks return to the
+        pool, its shared ones drop a refcount, and its table row points at
+        the trash sink (the tick keeps computing for every slot, and a
+        stale table would write into blocks handed to another request);
+        every shared refcount is checked before anything changes. Dense:
+        the slot's rows stay as they are until the next prefill replaces
+        them."""
+        if self.paged:
+            for bid in self._slot_shared[slot].values():
+                if self._shared_refs.get(bid, 0) < 2:
+                    raise RuntimeError(f"shared block {bid} over-freed")
         self.slot_phase[slot] = None
         self._prefill_state[slot] = None
         if slot in self._prefill_order:
             self._prefill_order.remove(slot)
         self.slot_req[slot] = None
         self._slot_gens[slot] = None
+        if not self.paged:
+            return
         self._alloc.free(list(self._slot_blocks[slot].values()))
         self._slot_blocks[slot] = {}
         for bid in self._slot_shared[slot].values():

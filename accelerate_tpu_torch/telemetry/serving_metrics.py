@@ -169,8 +169,11 @@ class ServingMetrics:
         return self._engine.active_count
 
     @property
-    def kv_block_utilization(self) -> float:
-        """Fraction of the paged pool in use (trash sink excluded)."""
+    def kv_block_utilization(self) -> Optional[float]:
+        """Fraction of the paged pool in use (trash sink excluded; None on
+        the dense layout)."""
+        if not self._engine.paged:
+            return None
         total = self._engine._pcfg.num_blocks - 1
         return 1.0 - self._engine._alloc.free_count / total
 

@@ -18,7 +18,7 @@ auto-resume always lands on a valid checkpoint::
 ``os._exit`` (no atexit, no finally blocks). :func:`corrupt_file`
 truncates, garbles or deletes committed files to exercise the manifest's
 size/crc32 detection. The serving fleet's ``ReplicaChaos`` waits for the
-fleet (ROADMAP.md Queue 1 item 6).
+fleet (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -151,13 +151,17 @@ class MixedPrecisionPolicy(KwargsHandler):
 
     def __post_init__(self):
         if self.fp8:
-            raise NotImplementedError("fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md)")
+            raise NotImplementedError(
+                "fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
+            )
 
     @classmethod
     def from_mixed_precision(cls, mixed_precision: Optional[str]) -> "MixedPrecisionPolicy":
         mp = PrecisionType(mixed_precision or "no")
         if mp == PrecisionType.FP8:
-            raise NotImplementedError("fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md)")
+            raise NotImplementedError(
+                "fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
+            )
         return cls(compute_dtype={"no": "float32", "bf16": "bfloat16", "fp16": "float16"}[mp.value])
 
     @staticmethod

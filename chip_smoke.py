@@ -93,7 +93,19 @@ it, all three equal. Then the slices:
   16 requests against the same requests in full (``prefix_serve``); four
   priority-0 arrivals preempting priority-1 decodes that resume by
   recompute, against an unpreempted control, and a structured
-  ``ShedError`` (``preempt_serve``).
+  ``ShedError`` (``preempt_serve``);
+* the dense serving layout, speculative serving and beam search (``--only
+  dense``): Gemma-2-9B at full width and depth (seeded random weights,
+  bf16; its softcaps and its 4096-key band on alternate layers) served on
+  the dense layout (``gemma2_serve``: 12 prompts of 16-2,000 tokens and
+  one of 3,000, 64 new, greedy tokens against the teacher-forced dense
+  reference, one tick traced), with a Gemma-2-2B draft
+  (``gemma2_spec_serve``, tokens against the plain run's), as its own
+  draft (``gemma2_self_spec``: acceptance at least 0.9, every rejection
+  at a near tie), through ``speculative_generate`` and ``beam_search``,
+  and 2-layer f32 cuts held card against CPU (``dense_consistency``). No
+  kernel of the JAX package lies on these paths: the dense cache's
+  attention is an einsum in both packages.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -1570,13 +1582,13 @@ def dense_forced(torch, model, prompt, served, rows=MISTRAL_ENGINE["max_len"], c
     return out
 
 
-def against_dense(torch, model, prompt, got, got_lps) -> tuple:
+def against_dense(torch, model, prompt, got, got_lps, rows=MISTRAL_ENGINE["max_len"]) -> tuple:
     """Served greedy tokens against the dense reference fed the same tokens
     (dense_forced): every served token is the reference's argmax, or within
     SERVE_BF16_GAP of its max logit (a near tie, where bf16 rounding in
     another place may pick the other token). ``(tokens compared, near ties
     taken, max logprob error)``."""
-    ref = dense_forced(torch, model, prompt, got)
+    ref = dense_forced(torch, model, prompt, got, rows=rows)
     near = 0
     for i, (tok, (top, _, behind, _)) in enumerate(zip(got, ref)):
         if int(tok) != top:
@@ -1585,7 +1597,7 @@ def against_dense(torch, model, prompt, got, got_lps) -> tuple:
     return len(got), near, float(max(abs(lp - r[3]) for lp, r in zip(got_lps, ref)))
 
 
-def against_run(torch, model, full, got, got_lps, want, want_lps) -> tuple:
+def against_run(torch, model, full, got, got_lps, want, want_lps, rows=MISTRAL_ENGINE["max_len"]) -> tuple:
     """One request's generated tokens in two engine runs: equal, but where
     they part the top-2 gap on the shared context (dense_forced's path)
     must be under SERVE_BF16_GAP. ``(tokens compared, parted at a near tie,
@@ -1594,7 +1606,7 @@ def against_run(torch, model, full, got, got_lps, want, want_lps) -> tuple:
     n = int(diff[0]) if len(diff) else len(got)
     lp_diff = float(np.max(np.abs(np.asarray(got_lps[:n]) - np.asarray(want_lps[:n])))) if n else 0.0
     if len(diff):
-        gap = dense_forced(torch, model, full, want[: n + 1])[n][1]
+        gap = dense_forced(torch, model, full, want[: n + 1], rows=rows)[n][1]
         check(gap < SERVE_BF16_GAP, f"runs part at token {n} with top-2 gap {gap}")
     return n, int(len(diff) > 0), lp_diff
 
@@ -1944,6 +1956,417 @@ def phase_sched(torch):
     emit({"phase": "sched_model", "params": model.num_parameters(), "model_build_s": build_s})
     del model
     free_memory(torch)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the dense serving layout, speculative serving and beam search: Gemma-2-9B at
+# full width and depth (its softcaps, its 4096-key band on alternate layers)
+# with a Gemma-2-2B draft; no kernel of the JAX package lies on these paths
+# (the dense cache's attention is an einsum there as here)
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-2b config.json, the draft: vocab 256,000, hidden 2,304, intermediate 9,216, 26 layers, 8/4
+# heads, head dim 256, query_pre_attn_scalar 256, sliding_window 4,096, softcaps 50/30, tied embeddings (the
+# rest Gemma2Config's defaults, which are google/gemma-2-9b's config.json: Gemma2Config.gemma2_9b())
+GEMMA2_2B = dict(hidden_size=2304, intermediate_size=9216, num_hidden_layers=26, num_attention_heads=8,
+                 num_key_value_heads=4, head_dim=256, query_pre_attn_scalar=256.0, sliding_window=4096)
+DENSE_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), tick_block=8, max_len=4096)
+DENSE_LENGTHS = (16, 128, 200, 333, 512, 700, 1000, 1234, 1500, 1750, 1900, 2000)
+DENSE_LONG = 3000  # past the largest bucket: chunked prefill, plain serving only (speculation takes bucket-sized)
+DENSE_NEW = 64
+DENSE_CHECKED = (16, 512, 1234, 2000)  # gemma2_serve's requests held to the teacher-forced dense reference
+DENSE_GENERATE_PROMPT, DENSE_BEAM_PROMPT = 512, 128  # speculative_generate's prompt and beam_search's
+DENSE_GAMMA = 4
+
+
+def dense_prompts(seed: int, vocab: int) -> tuple:
+    """The dense group's prompt set, made from ``seed``: 12 prompts of
+    DENSE_LENGTHS tokens and one of DENSE_LONG."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, vocab, size=n).astype(np.int32) for n in DENSE_LENGTHS]
+    return prompts, rng.integers(1, vocab, size=DENSE_LONG).astype(np.int32)
+
+
+def kernel_kind(name: str) -> str:
+    n = name.lower()
+    for kind, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul", "nvjet")), ("softmax", ("softmax",)),
+                       ("copy", ("copy", "cat")), ("index", ("index", "scatter", "gather")),
+                       ("reduce", ("reduce",))):
+        if any(k in n for k in keys):
+            return kind
+    return "elementwise"
+
+
+def dense_tick_profile(torch, model, prompts) -> dict:
+    """One dense decode tick (8 slots decoding 200-token prompts, 8 steps)
+    timed without the profiler, the next traced (``traced``): the device's
+    busy time, its idle share, and the busy time by kernel kind."""
+    from accelerate_tpu_torch import ServingEngine
+
+    eng = ServingEngine(model, **DENSE_ENGINE)
+    for p in prompts[-8:]:
+        eng.submit(p[:200], DENSE_NEW)
+    eng.step()  # admits and prefills all 8, then one tick
+    eng.step()  # a warm tick
+    check(all(ph == "decode" for ph in eng.slot_phase), "dense profile: all 8 slots decoding")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events, traced_ms, attempts, lost = traced(torch, eng.step)
+    by_name, by_kind = {}, {}
+    for ev in events:
+        ms = ev.time_range.elapsed_us() / 1e3
+        t, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (t + ms, n + 1)
+        by_kind[kernel_kind(ev.name)] = by_kind.get(kernel_kind(ev.name), 0.0) + ms
+    busy = sum(by_kind.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    del eng
+    free_memory(torch)
+    return {"what": "one dense decode tick, 8 slots x 8 steps, 200-token prompts", "tick_wall_ms": wall_ms,
+            "tick_wall_ms_profiled": traced_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "busy_ms_by_kind": by_kind, "kernels_traced": len(events), "trace_attempts": attempts,
+            "trace_lead_lost": lost, "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+
+
+def phase_gemma2_serve(torch, model, prompts, long_prompt):
+    """Gemma-2-9B served on the dense layout (DENSE_ENGINE, greedy, 64 new):
+    the 12 prompts and the 3,000-token one (chunked prefill). Eight
+    requests decode in one tick; every request completes with finite
+    logprobs; DENSE_CHECKED's requests are held token by token to the
+    dense reference fed the same tokens (dense_forced over the engine's
+    4,096 rows): each its argmax or within SERVE_BF16_GAP of its max logit,
+    logprobs within SERVE_LP_LIMIT. One tick traced for its time split."""
+    from accelerate_tpu_torch import ServingEngine
+
+    ServingEngine(model, **DENSE_ENGINE).generate_many([prompts[0], prompts[3]], 9)  # warm-up
+    free_memory(torch)
+    eng = ServingEngine(model, **DENSE_ENGINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    every = prompts + [long_prompt]
+    uids = [eng.submit(p, DENSE_NEW) for p in every]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    snap = eng.metrics.snapshot()
+    check(eng.pool_free_blocks is None and snap["kv_block_utilization"] is None, "gemma2 serve: the dense layout")
+    check(snap["decode_slots_high_water"] == 8, f"gemma2 serve: eight decode in one tick ({snap['decode_slots_high_water']})")
+    served = {}
+    for uid, p in zip(uids, every):
+        out, lps = eng.poll(uid), eng.logprobs(uid)
+        check(out is not None and len(out) == len(p) + DENSE_NEW and bool(np.isfinite(lps).all()),
+              f"gemma2 serve: request {uid} complete, logprobs finite")
+        served[len(p)] = (out[len(p):], lps)
+    steps, forwards, prefill_tokens = eng.decode_steps, eng.prefill_forwards, eng.prefill_tokens
+    del eng
+    free_memory(torch)
+    checked = []
+    for n in DENSE_CHECKED:
+        compared, near, lp_err = against_dense(torch, model, prompts[DENSE_LENGTHS.index(n)], *served[n],
+                                               rows=DENSE_ENGINE["max_len"])
+        check(lp_err <= SERVE_LP_LIMIT, f"gemma2 serve: {n}-token request's logprobs within {SERVE_LP_LIMIT} ({lp_err})")
+        checked.append({"prompt": n, "tokens_compared": compared, "near_ties": near, "max_logprob_err": lp_err})
+    profile = dense_tick_profile(torch, model, prompts)
+    row = {
+        "phase": "gemma2_serve", "config": "Gemma-2-9B shape, bf16, seeded random weights, dense layout",
+        "params": model.num_parameters(), "engine": DENSE_ENGINE, "requests": len(every),
+        "prompt_lengths": [len(p) for p in every], "max_new_tokens": DENSE_NEW,
+        "generated_tokens": snap["tokens_generated"], "wall_s": wall, "tokens_per_s": snap["tokens_generated"] / wall,
+        "ttft_ms_mean": snap["ttft_ms_mean"], "ttft_ms_p50": snap["ttft_ms_p50"], "ttft_ms_p95": snap["ttft_ms_p95"],
+        "itl_ms_p50": snap["itl_ms_p50"], "decode_steps": steps, "prefill_forwards": forwards,
+        "prefill_tokens": prefill_tokens, "peak_memory_gb": peak, "reference": checked, "tick": profile,
+    }
+    emit(row)
+    return row, served
+
+
+def phase_gemma2_spec_serve(torch, target, draft, prompts, plain):
+    """The same engine with the Gemma-2-2B draft (gamma 4) on the 12
+    prompts: each request's tokens those of gemma2_serve for its prompt,
+    parting only where the plain stream's top-2 gap is under SERVE_BF16_GAP
+    (against_run), logprobs within SERVE_LP_LIMIT over the tokens compared.
+    spec_stats and the target forwards for each token are reported, not
+    gated: two unrelated random-weight models agree on next to nothing."""
+    from accelerate_tpu_torch import ServingEngine
+
+    kw = dict(DENSE_ENGINE, draft_model=draft, gamma=DENSE_GAMMA)
+    ServingEngine(target, **kw).generate_many([prompts[0], prompts[3]], 9)  # warm-up
+    free_memory(torch)
+    eng = ServingEngine(target, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, DENSE_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    snap, stats = eng.metrics.snapshot(), dict(eng.spec_stats)
+    steps, forwards = eng.decode_steps, eng.prefill_forwards
+    outs = [(eng.poll(u), eng.logprobs(u)) for u in uids]
+    del eng
+    free_memory(torch)
+    compared = parted = 0
+    lp_diff = 0.0
+    for p, (out, lps) in zip(prompts, outs):
+        check(out is not None and len(out) == len(p) + DENSE_NEW, "gemma2 spec serve: request complete")
+        n, part, d = against_run(torch, target, p, out[len(p):], lps, *plain[len(p)], rows=DENSE_ENGINE["max_len"])
+        compared, parted, lp_diff = compared + n, parted + part, max(lp_diff, d)
+    check(lp_diff <= SERVE_LP_LIMIT, f"gemma2 spec serve: logprobs within {SERVE_LP_LIMIT} of plain serving ({lp_diff})")
+    row = {
+        "phase": "gemma2_spec_serve", "config": "Gemma-2-9B target, Gemma-2-2B draft, bf16, seeded random weights",
+        "draft_params": draft.num_parameters(), "gamma": DENSE_GAMMA, "requests": len(prompts),
+        "generated_tokens": snap["tokens_generated"], "wall_s": wall, "tokens_per_s": snap["tokens_generated"] / wall,
+        "ttft_ms_mean": snap["ttft_ms_mean"], "ttft_ms_p50": snap["ttft_ms_p50"], "ttft_ms_p95": snap["ttft_ms_p95"],
+        "itl_ms_p50": snap["itl_ms_p50"], "spec_stats": stats,
+        "accept_rate": stats["accepted"] / max(1, DENSE_GAMMA * stats["steps"]),
+        "tokens_per_slot_iteration": stats["emitted"] / max(1, stats["steps"]),
+        "target_forwards_per_token": (forwards + steps) / snap["tokens_generated"],
+        "tokens_compared_with_plain": compared, "parted_at_near_tie": parted, "max_logprob_diff": lp_diff,
+        "peak_memory_gb": peak,
+    }
+    emit(row)
+    return row
+
+
+def phase_gemma2_self_spec(torch, target, prompts):
+    """The target as its own draft (gamma 4) on 4 requests (16-2,000
+    tokens, 61 new: the prefill's token and 12 full iterations): the
+    acceptance rate is at least 0.9, and every rejection falls at a verify
+    row whose top-2 gap is under SERVE_BF16_GAP (the draft's one-token
+    forward and the verify forward round bf16 in other places). The verify
+    forwards' top-2 gaps are read by wrapping the engine's step around a
+    target that records them."""
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.speculative import build_spec_step
+
+    eng = ServingEngine(target, draft_model=target, gamma=DENSE_GAMMA, **DENSE_ENGINE)
+    gaps, rejections = [], []
+
+    def recording_target(ids, **kw):
+        logits, cache = target(ids, **kw)
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append(top2[..., 0] - top2[..., 1])  # [slots, gamma + 1]
+        return logits, cache
+
+    core = build_spec_step(recording_target, target, DENSE_GAMMA)
+
+    def spec_step(t_cache, d_cache, last, pos):
+        emit_, lps, n_emit = core(t_cache, d_cache, last, pos)
+        live = [s for s, ph in enumerate(eng.slot_phase) if ph == "decode"]
+        for s in live:
+            n_acc = int(n_emit[s]) - 1
+            if n_acc < DENSE_GAMMA:
+                rejections.append(float(gaps[-1][s, n_acc]))
+        return emit_, lps, n_emit
+
+    eng._spec_step = spec_step
+    chosen = [prompts[DENSE_LENGTHS.index(n)] for n in DENSE_CHECKED]
+    n_new = 1 + 12 * (DENSE_GAMMA + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate_many(chosen, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = dict(eng.spec_stats)
+    rate = stats["accepted"] / max(1, DENSE_GAMMA * stats["steps"])
+    check(all(len(o) == len(p) + n_new for o, p in zip(outs, chosen)), "gemma2 self spec: requests complete")
+    check(rate >= 0.9, f"gemma2 self spec: acceptance {rate} >= 0.9 ({stats})")
+    worst = max(rejections, default=0.0)
+    check(worst < SERVE_BF16_GAP, f"gemma2 self spec: every rejection at a top-2 gap under {SERVE_BF16_GAP} ({worst})")
+    row = {"phase": "gemma2_self_spec", "config": "Gemma-2-9B as its own draft, bf16", "gamma": DENSE_GAMMA,
+           "prompts": list(DENSE_CHECKED), "max_new_tokens": n_new, "spec_stats": stats, "accept_rate": rate,
+           "tokens_per_target_forward": stats["emitted"] / max(1, stats["steps"]), "rejections": len(rejections),
+           "max_rejection_gap": worst, "wall_s": wall}
+    del eng
+    free_memory(torch)
+    emit(row)
+    return row
+
+
+def phase_gemma2_spec_generate(torch, target, draft, prompt):
+    """``speculative_generate`` with the Gemma-2-2B draft (gamma 4) on the
+    512-token prompt, 64 new, against ``generate``: tokens equal up to a
+    near tie (where they part, the top-2 gap of generate's context under
+    SERVE_BF16_GAP), both timed; its stats reported."""
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.speculative import speculative_generate
+
+    ids = prompt[None]
+    generate(target, ids, max_new_tokens=4)  # warm-ups
+    speculative_generate(target, draft, ids, max_new_tokens=4, gamma=DENSE_GAMMA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = generate(target, ids, max_new_tokens=DENSE_NEW)[0, len(prompt):].cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, stats = speculative_generate(target, draft, ids, max_new_tokens=DENSE_NEW, gamma=DENSE_GAMMA,
+                                      return_stats=True)
+    got = got[0, len(prompt):].cpu().numpy()
+    spec_s = time.perf_counter() - t0
+    diff = np.nonzero(got != want)[0]
+    n = int(diff[0]) if len(diff) else len(want)
+    if len(diff):
+        gap = dense_forced(torch, target, prompt, want[: n + 1])[n][1]
+        check(gap < SERVE_BF16_GAP, f"speculative_generate parts from generate at token {n} with top-2 gap {gap}")
+    row = {"phase": "gemma2_spec_generate", "prompt": len(prompt), "max_new_tokens": DENSE_NEW, "gamma": DENSE_GAMMA,
+           "stats": stats, "tokens_equal": n, "parted_at_near_tie": int(len(diff) > 0),
+           "generate_s": plain_s, "speculative_s": spec_s}
+    emit(row)
+    return row
+
+
+def phase_gemma2_beam(torch, target, prompt):
+    """``beam_search`` on the 128-token prompt, 32 new, length_penalty 1:
+    num_beams=1 equals greedy ``generate`` up to a near tie; with 4 beams
+    the reported score equals the teacher-forced log-probability of the
+    returned tokens over their count (one forward, no cache) within
+    SERVE_LP_LIMIT, and is no lower than greedy's, so computed, less that
+    tolerance."""
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.generation import beam_search
+
+    ids, n_new, n_prompt = prompt[None], 32, len(prompt)
+
+    def forced_mean(seq):
+        with torch.no_grad():
+            logp = torch.log_softmax(target(seq.long()).float(), dim=-1)[0]
+        picked = logp[n_prompt - 1 : -1].gather(-1, seq[0, n_prompt:, None].long())
+        return float(picked.sum()) / n_new
+
+    greedy = generate(target, ids, max_new_tokens=n_new)
+    one = beam_search(target, ids, max_new_tokens=n_new, num_beams=1)
+    want, got = greedy[0, n_prompt:].cpu().numpy(), one[0, n_prompt:].cpu().numpy()
+    diff = np.nonzero(got != want)[0]
+    if len(diff):
+        gap = dense_forced(torch, target, prompt, want[: int(diff[0]) + 1])[int(diff[0])][1]
+        check(gap < SERVE_BF16_GAP, f"beam 1 parts from greedy at token {int(diff[0])} with top-2 gap {gap}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, score = beam_search(target, ids, max_new_tokens=n_new, num_beams=4, length_penalty=1.0, return_scores=True)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    score = float(score[0])
+    forced, greedy_mean = forced_mean(out), forced_mean(greedy)
+    check(abs(score - forced) <= SERVE_LP_LIMIT, f"beam score {score} vs teacher-forced {forced}")
+    check(score >= greedy_mean - SERVE_LP_LIMIT, f"beam score {score} below greedy's {greedy_mean}")
+    row = {"phase": "gemma2_beam", "prompt": n_prompt, "max_new_tokens": n_new, "num_beams": 4,
+           "beam1_tokens_equal_greedy": int(diff[0]) if len(diff) else n_new, "score": score,
+           "teacher_forced_score": forced, "greedy_score": greedy_mean, "beam_s": beam_s}
+    emit(row)
+    return row
+
+
+def stream_vs_cpu(torch, cpu, prompt, want, got, want_lps, got_lps, what) -> tuple:
+    """One request's tokens on the card against the CPU's: equal, a
+    comparison ending only at a top-2 gap under 1e-3 of the CPU's forward
+    on the shared context; logprobs within 1e-4 over the tokens compared.
+    ``(tokens compared, stopped at a near tie)``."""
+    diff = np.nonzero(want != got)[0]
+    n = int(diff[0]) if len(diff) else len(want)
+    if len(diff):
+        with torch.no_grad():
+            row = cpu(torch.as_tensor(np.concatenate([prompt, want[:n]])[None]).long())[0, -1]
+        top2 = torch.topk(row, 2).values
+        check(float(top2[0] - top2[1]) < 1e-3, f"{what}: card token {n} differs from the CPU's")
+    err = float(np.max(np.abs(np.asarray(want_lps[:n]) - np.asarray(got_lps[:n])))) if n else 0.0
+    check(err <= 1e-4, f"{what}: logprobs within 1e-4 of the CPU's ({err})")
+    return n, int(len(diff) > 0)
+
+
+def phase_dense_consistency(torch):
+    """2-layer f32 cuts of TinyLlama's and Gemma-2-9B's widths, built on the
+    CPU and copied to the card, each with a 1-layer cut as its draft: the
+    dense engine plain (a 100-token prompt through chunk windows) and
+    speculative (gamma 3), and beam search (2 prompts, 3 beams), on the card
+    and on the CPU: tokens equal (stream_vs_cpu), logprobs and beam scores
+    within 1e-4."""
+    import copy
+
+    from accelerate_tpu_torch import LlamaConfig, ServingEngine
+    from accelerate_tpu_torch.generation import beam_search
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import Gemma2Config
+    from accelerate_tpu_torch.models.llama import create_llama_model
+
+    rows = []
+    rng = np.random.default_rng(15)
+    for name, cfg, dcfg in (
+        ("tinyllama", LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2}),
+         LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 1})),
+        ("gemma2_9b", Gemma2Config.gemma2_9b(num_hidden_layers=2), Gemma2Config.gemma2_9b(num_hidden_layers=1)),
+    ):
+        t0 = time.perf_counter()
+        cpu, dcpu = create_llama_model(cfg, seed=5, device="cpu"), create_llama_model(dcfg, seed=6, device="cpu")
+        card, dcard = (Model(copy.deepcopy(m.module).to("cuda"), m.config, name=m.name) for m in (cpu, dcpu))
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 40, 100)]
+        kw = dict(num_slots=2, prompt_buckets=(16, 64), tick_block=4, max_len=512)
+        row = {"model": name, "params": cpu.num_parameters(), "draft_params": dcpu.num_parameters()}
+        for mode, extra, ps in (("plain", {}, prompts), ("speculative", {"gamma": 3}, prompts[:2])):
+            outs = []
+            for dev, m, d in (("cpu", cpu, dcpu), ("cuda", card, dcard)):
+                eng = ServingEngine(m, device=dev, draft_model=d if extra else None, **kw, **extra)
+                uids = [eng.submit(p, 12) for p in ps]
+                eng.run()
+                outs.append([(eng.poll(u)[len(p):], eng.logprobs(u)) for u, p in zip(uids, ps)])
+            compared = near = 0
+            for p, (w, wl), (g, gl) in zip(ps, *outs):
+                n, tie = stream_vs_cpu(torch, cpu, p, w, g, wl, gl, f"{name} {mode}")
+                compared, near = compared + n, near + tie
+            row[mode] = {"prompts": [len(p) for p in ps], "tokens_compared": compared, "stopped_at_near_tie": near}
+        ids = np.stack([prompts[1][:16], prompts[2][:16]])
+        want, want_score = beam_search(cpu, ids, max_new_tokens=8, num_beams=3, return_scores=True)
+        got, score = beam_search(card, ids, max_new_tokens=8, num_beams=3, return_scores=True)
+        check(np.array_equal(got.cpu().numpy(), want.numpy()), f"{name} beam: card tokens equal the CPU's")
+        err = float((score.cpu() - want_score).abs().max())
+        check(err <= 1e-4, f"{name} beam: scores within 1e-4 of the CPU's ({err})")
+        row.update(beam_score_err=err, seconds=time.perf_counter() - t0)
+        rows.append(row)
+        del cpu, dcpu, card, dcard
+        free_memory(torch)
+    row = {"phase": "dense_consistency", "models": rows}
+    emit(row)
+    return row
+
+
+def phase_dense(torch, seed: int):
+    """Gemma-2-9B (seeded random weights, bf16, 9.24 B parameters) and the
+    Gemma-2-2B draft built once, for gemma2_serve, gemma2_spec_serve,
+    gemma2_spec_generate, gemma2_self_spec and gemma2_beam on one prompt
+    set made from ``seed``; then dense_consistency."""
+    from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
+
+    t_group = time.perf_counter()
+    free_memory(torch)
+    t0 = time.perf_counter()
+    target = create_gemma2_model(Gemma2Config.gemma2_9b(), seed=0, dtype=torch.bfloat16)
+    draft = create_gemma2_model(Gemma2Config(**GEMMA2_2B), seed=1, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    free_memory(torch)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    params = {"params": target.num_parameters(), "draft_params": draft.num_parameters()}
+    prompts, long_prompt = dense_prompts(seed, target.config.vocab_size)
+    rows = {}
+    rows["gemma2_serve"], plain = phase_gemma2_serve(torch, target, prompts, long_prompt)
+    rows["gemma2_spec_serve"] = phase_gemma2_spec_serve(torch, target, draft, prompts, plain)
+    rows["gemma2_spec_generate"] = phase_gemma2_spec_generate(torch, target, draft,
+                                                              prompts[DENSE_LENGTHS.index(DENSE_GENERATE_PROMPT)])
+    del draft
+    free_memory(torch)
+    rows["gemma2_self_spec"] = phase_gemma2_self_spec(torch, target, prompts)
+    rows["gemma2_beam"] = phase_gemma2_beam(torch, target, prompts[DENSE_LENGTHS.index(DENSE_BEAM_PROMPT)])
+    emit({"phase": "dense_models", **params, "model_build_s": build_s, "weights_gb": weights_gb, "seed": seed})
+    del target
+    free_memory(torch)
+    rows["dense_consistency"] = phase_dense_consistency(torch)
+    emit({"phase": "dense_group", "seconds": time.perf_counter() - t_group})
     return rows
 
 
@@ -3566,10 +3989,12 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families,sched`
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families,sched,dense`
     # runs some groups of phases
-    # while a kernel is being worked on; it prints no kernels line and no "ok"
+    # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
+    # group's prompt set (default 0)
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
+    seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
 
     phase_build()
     print(smi, flush=True)
@@ -3637,6 +4062,8 @@ def main() -> int:
         if only:
             phase_kernel_mistral(torch)
         sched = phase_sched(torch)
+    if not only or "dense" in only:
+        phase_dense(torch, seed)
     if only:
         emit({"partial": sorted(only)})
         return 0

@@ -222,18 +222,24 @@ def test_flash_path_is_not_quietly_replaced():
 )
 def test_unported_llama_knobs_raise(knob):
     """What of the Llama knobs is still queued raises, naming ROADMAP.md:
-    context-parallel attention when the model is built, and a softcap when
-    the paged engine is given the model. A band, on every layer or on the
-    sliding layers of mixed kinds, is served since windowed block expiry
-    was ported: the paged engine's greedy tokens equal ``generate``'s."""
+    context-parallel attention when the model is built. A band, on every
+    layer or on the sliding layers of mixed kinds, is served since
+    windowed block expiry was ported: the paged engine's greedy tokens
+    equal ``generate``'s. A softcap is served by the dense engine layout,
+    its greedy tokens equal ``generate``'s, and the paged engine refuses
+    it, as the JAX package's does."""
     from accelerate_tpu_torch import ServingEngine, generate
 
-    if "sliding_window" in knob:
+    prompt = np.arange(1, 10, dtype=np.int32)
+    if "sliding_window" in knob or "attn_logit_softcap" in knob:
         model = create_llama_model(LlamaConfig.tiny(**knob), device="cpu")
-        prompt = np.arange(1, 10, dtype=np.int32)
-        engine = ServingEngine(model, num_slots=1, prompt_buckets=(4,), paged_block_size=4, device="cpu")
+        layout = {} if "attn_logit_softcap" in knob else {"paged_block_size": 4}
+        engine = ServingEngine(model, num_slots=1, prompt_buckets=(4,), device="cpu", **layout)
         got = engine.generate_many([prompt], max_new_tokens=6)[0]
         np.testing.assert_array_equal(got, generate(model, prompt[None], max_new_tokens=6)[0].numpy())
+        if "attn_logit_softcap" in knob:
+            with pytest.raises(NotImplementedError, match="softcapping.*dense engine layout"):
+                ServingEngine(model, num_slots=1, prompt_buckets=(4,), paged_block_size=4, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = create_llama_model(LlamaConfig.tiny(**knob), device="cpu")

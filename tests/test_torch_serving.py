@@ -200,18 +200,14 @@ def test_streaming_accessors_and_cancel(models):
 
 
 def test_not_ported_surface_raises(models):
-    """What the engine still refuses, each naming its ROADMAP.md item: the
-    dense layout, speculative serving, a softcapped model (which the dense
-    layout serves), perf_check / numerics_check, the runtime services and
-    the fleet's surface (tracing, KV handoff, failover)."""
+    """What the engine still refuses, each naming its ROADMAP.md item:
+    perf_check / numerics_check, the runtime services and the fleet's
+    surface (tracing, KV handoff, failover); and, as the JAX package does,
+    a softcapped model on the paged layout (the dense layout serves it)."""
     from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
 
     _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        ServingEngine(model, device="cpu")  # dense layout
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServingEngine(model, device="cpu", paged_block_size=4, draft_model=model)
-    with pytest.raises(NotImplementedError, match="softcapping.*item 6"):
+    with pytest.raises(NotImplementedError, match="softcapping.*serve with the dense engine layout"):
         ServingEngine(create_gemma2_model(Gemma2Config.tiny(), device="cpu"), device="cpu", paged_block_size=4)
     for kw in (dict(telemetry_log=object()), dict(program_cache=object()), dict(auto_bucketing=True)):
         with pytest.raises(NotImplementedError, match="item 9"):
@@ -220,8 +216,8 @@ def test_not_ported_surface_raises(models):
         ServingEngine(model, device="cpu", paged_block_size=4, tracer=object())
     eng = ServingEngine(model, device="cpu", paged_block_size=4)
     for call, item in ((eng.export_inflight, 10), (eng.import_inflight, 10), (eng.kv_handoff_dims, 10),
-                       (eng.prefill_detached, 10), (eng.submit_prefilled, 10), (eng.perf_check, 6),
-                       (eng.numerics_check, 6), (lambda: eng.submit([1, 2], 2, trace=3), 10)):
+                       (eng.prefill_detached, 10), (eng.submit_prefilled, 10), (eng.perf_check, 11),
+                       (eng.numerics_check, 11), (lambda: eng.submit([1, 2], 2, trace=3), 10)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             call()
     with pytest.raises(ValueError, match="pool blocks"):
