@@ -43,7 +43,16 @@ package imports nothing of it (nor of jax). Its slices so far:
   model state (``build_train_step(has_state=True)``, ``Model.state``):
   ResNet-50 v1.5 with BatchNorm running statistics, the CV example's
   model, its convolutions cuDNN's (no kernel of the JAX package runs
-  there either).
+  there either);
+* fp8 mixed precision (``mixed_precision="fp8"``, :mod:`.ops.fp8`): every
+  dense layer's product in e4m3 with f32 accumulation and e5m2 gradients,
+  ``torch._scaled_mm`` on the card; the dynamic recipe, or the delayed one
+  (``Fp8RecipeKwargs``) whose amax histories are ``Model.state``;
+* the run's telemetry and trackers: ``Accelerator(log_with=...)`` /
+  ``init_trackers`` / ``log`` (:mod:`.tracking`), and
+  ``accelerator.telemetry`` (:mod:`.telemetry`: the JSONL event log, the
+  step timeline, the recompile watchdog, MFU, device memory, the
+  non-finite watchdog; ``TelemetryKwargs``).
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
@@ -61,6 +70,7 @@ from .models import (
     bert_classification_loss,
     bert_params_from_jax,
     causal_lm_loss,
+    causal_lm_loss_state,
     create_bert_model,
     create_llama_model,
     create_resnet_model,
@@ -74,10 +84,12 @@ from .speculative import speculative_generate
 from .utils import (
     DataLoaderConfiguration,
     FaultToleranceKwargs,
+    Fp8RecipeKwargs,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
     ProfileKwargs,
     ProjectConfiguration,
+    TelemetryKwargs,
     broadcast,
     broadcast_object_list,
     concatenate,
@@ -100,6 +112,7 @@ __all__ = [
     "CheckpointManager",
     "DataLoaderConfiguration",
     "FaultToleranceKwargs",
+    "Fp8RecipeKwargs",
     "GradientAccumulationPlugin",
     "LlamaConfig",
     "MixedPrecisionPolicy",
@@ -109,12 +122,14 @@ __all__ = [
     "QuantizationConfig",
     "ResNetConfig",
     "ServingEngine",
+    "TelemetryKwargs",
     "beam_search",
     "bert_classification_loss",
     "bert_params_from_jax",
     "broadcast",
     "broadcast_object_list",
     "causal_lm_loss",
+    "causal_lm_loss_state",
     "concatenate",
     "convert_outputs_to_fp32",
     "convert_to_fp32",

@@ -56,10 +56,19 @@ loss scale and the RNGs through an atomic commit; ``FaultToleranceKwargs``
 installs a SIGTERM/SIGINT handler read through ``should_checkpoint`` /
 ``should_stop``.
 
-Not ported (each raises ``NotImplementedError``): multi-card layouts and
-multi-process data, ZeRO, gradient compression, optimizer offload, the
-program cache, trackers (``log_with``) and the shape bucketer; ROADMAP.md
-queues them.
+``mixed_precision="fp8"`` runs every dense layer's product in fp8
+(:mod:`.ops.fp8`): the dynamic recipe, or the delayed one with
+``Fp8RecipeKwargs(delayed_scaling=True)``, whose amax histories are
+``Model.state`` (train with ``build_train_step(..., has_state=True)``).
+``log_with`` / ``init_trackers`` / ``log`` drive the trackers
+(:mod:`.tracking`); :attr:`Accelerator.telemetry` is the run's event log,
+step timeline, recompile watchdog, MFU and non-finite watchdog
+(:mod:`.telemetry`, ``TelemetryKwargs``).
+
+Not ported (each raises ``NotImplementedError``, naming its ROADMAP.md
+Queue 1 item): multi-card layouts and multi-process data, ZeRO, gradient
+compression and optimizer offload (item 8), the program cache and the
+shape bucketer (item 9).
 """
 
 from __future__ import annotations
@@ -83,12 +92,14 @@ from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
     FaultToleranceKwargs,
+    Fp8RecipeKwargs,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     MixedPrecisionPolicy,
     ParallelismPlugin,
     ProfileKwargs,
     ProjectConfiguration,
+    TelemetryKwargs,
 )
 from .utils.operations import (
     _leaves,
@@ -121,16 +132,14 @@ class Accelerator:
         kwargs_handlers: Optional[list] = None,
         step_scheduler_with_optimizer: bool = True,
     ):
-        if log_with is not None:
-            raise NotImplementedError(
-                f"log_with={log_with!r}: trackers (tracking.py, init_trackers, log) are not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
-            )
         self.autocast_handler = AutocastKwargs()
         self.scaler_handler = GradScalerKwargs()
         self.ft_handler = FaultToleranceKwargs()
         self.profile_handler = ProfileKwargs()
-        ft_explicit = False  # the preemption handler installs only when the handler was passed
+        self.telemetry_handler = TelemetryKwargs()
+        self.fp8_recipe_handler = None
+        # the preemption handler installs, and tracker logging retries, only when the handler was passed
+        self._ft_explicit = False
         policy_override = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, AutocastKwargs):
@@ -139,14 +148,20 @@ class Accelerator:
                 self.scaler_handler = handler
             elif isinstance(handler, FaultToleranceKwargs):
                 self.ft_handler = handler
-                ft_explicit = True
+                self._ft_explicit = True
             elif isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
+            elif isinstance(handler, TelemetryKwargs):
+                self.telemetry_handler = handler
+            elif isinstance(handler, Fp8RecipeKwargs):
+                self.fp8_recipe_handler = handler
             elif isinstance(handler, MixedPrecisionPolicy):
                 policy_override = handler
             else:
+                # the JAX package's other handlers: DistributedInitKwargs (item 8), CompileKwargs (item 9)
                 raise NotImplementedError(
-                    f"{type(handler).__name__} is not ported to accelerate_tpu_torch yet (ROADMAP.md)"
+                    f"{type(handler).__name__} is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 "
+                    "items 8 and 9)"
                 )
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
@@ -162,7 +177,7 @@ class Accelerator:
         )
         if policy_override is not None:
             derived = self.state.dtype_policy
-            for name in ("param_dtype", "compute_dtype", "output_dtype"):
+            for name in ("param_dtype", "compute_dtype", "output_dtype", "fp8"):
                 if getattr(policy_override, name) != getattr(derived, name):
                     raise ValueError(
                         f"MixedPrecisionPolicy({name}={getattr(policy_override, name)!r}) conflicts with "
@@ -170,6 +185,12 @@ class Accelerator:
                         f"{name}={getattr(derived, name)!r}); set the field to match, or change mixed_precision"
                     )
             self.state.dtype_policy = policy_override
+        if self.state.dtype_policy.fp8:
+            # the recipe rides on the global policy, where the model zoo's
+            # dense factory reads it; a bare mixed_precision="fp8" keeps the
+            # stateless dynamic recipe (the delayed one needs its histories
+            # threaded as model.state)
+            self.state.dtype_policy.fp8_recipe = self.fp8_recipe_handler or Fp8RecipeKwargs(delayed_scaling=False)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.device_placement = device_placement
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(split_batches=split_batches)
@@ -197,13 +218,22 @@ class Accelerator:
         self._loss_scale = self.scaler_handler.init_scale if self.mixed_precision == "fp16" else 1.0
         self._scale_growth_tracker = 0
 
+        self.trackers: list = []
+        self._log_with = log_with
+        self._telemetry = None  # made on first access of the `telemetry` property
+
         # fault tolerance: the checkpoint this run resumed from (protected
         # from pruning), the one-final-checkpoint latch, the signal handler
         self._resumed_from: Optional[str] = None
         self._preempt_checkpointed = False
         self._preemption: Optional[PreemptionHandler] = None
-        if ft_explicit and self.ft_handler.handle_preemption:
-            self._preemption = PreemptionHandler(signals=self.ft_handler.preemption_signals)
+        if self._ft_explicit and self.ft_handler.handle_preemption:
+
+            def on_preempt(signame: str):
+                if self._telemetry is not None:
+                    self._telemetry.log.event("preempt", severity="warning", signal=signame)
+
+            self._preemption = PreemptionHandler(signals=self.ft_handler.preemption_signals, on_preempt=on_preempt)
             self._preemption.install()
 
     # ------------------------------------------------------------------ #
@@ -328,6 +358,18 @@ class Accelerator:
         for i, obj in enumerate(args):
             if i not in staged:
                 staged[i] = self.prepare_scheduler(obj)
+        if self._telemetry is not None:
+            # telemetry already live: mark the prepare on the timeline (never
+            # create it here: prepare() must not start writing files)
+            self._telemetry.log.event(
+                "prepare",
+                models=len(self._models),
+                optimizers=len(self._optimizers),
+                dataloaders=len(self._dataloaders),
+                schedulers=len(self._schedulers),
+                mesh={"data": 1},
+                mixed_precision=self.mixed_precision,
+            )
         result = [staged[i] for i in range(len(args))]
         return result[0] if len(result) == 1 else tuple(result)
 
@@ -344,7 +386,7 @@ class Accelerator:
             raise NotImplementedError(
                 f"model is weight-only quantized ({model.config.quant_method}): its integer codes cannot be cast "
                 "to f32 masters or trained; prepare the float model, or serve the quantized one as it is "
-                "(preparing a quantized model for sharded inference is queued in ROADMAP.md)"
+                "(preparing a quantized model for sharded inference is queued in ROADMAP.md Queue 1 item 8)"
             )
         placement = self.device_placement if device_placement is None else device_placement
         param_dtype = MixedPrecisionPolicy.torch_dtype(self.state.dtype_policy.param_dtype)
@@ -547,6 +589,16 @@ class Accelerator:
                 self._last_grad_norm = torch.zeros((), device=self.device)
             box["micro"] = 0 if do_sync else box["micro"] + 1
             self.step += 1
+            if self._telemetry is not None and self._telemetry.nonfinite.enabled:
+                # the opt-in finiteness probe: off-cadence steps read nothing back
+                self._telemetry.nonfinite.observe(
+                    self.step,
+                    loss=loss,
+                    grad_norm=self._last_grad_norm,
+                    loss_scale=self._loss_scale if self.mixed_precision == "fp16" else None,
+                    # an fp16 gradient overflow is the scaler's to handle (skip and back off)
+                    scaler_handled=self.mixed_precision == "fp16",
+                )
             return (loss, aux) if has_aux else loss
 
         return step
@@ -643,9 +695,16 @@ class Accelerator:
     def accumulate(self, *models):
         """Gradient-accumulation bookkeeping for one microbatch: inside,
         ``backward`` adds into the buffer and ``optimizer.step()`` applies it
-        on a sync boundary only."""
+        on a sync boundary only. Once :attr:`telemetry` is live, each block
+        is recorded as one step, fenced on the model's parameters."""
         self._do_sync()
-        yield
+        if self._telemetry is None:
+            yield
+            return
+        with self._telemetry.steps.step() as handle:
+            yield
+            target = (models[0] if models else None) or (self._models[-1] if self._models else None)
+            handle.done(None if target is None else target.params)
 
     @contextlib.contextmanager
     def no_sync(self, model=None):
@@ -779,9 +838,117 @@ class Accelerator:
         return self.free_memory(*objects)
 
     def end_training(self) -> None:
-        """The end of the run: a barrier (trackers, which would finish here,
-        are ROADMAP.md Queue 1 item 9)."""
+        """The end of the run: every tracker finishes (on the main process),
+        then a barrier."""
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.finish()
         self.wait_for_everyone()
+
+    # ------------------------------------------------------------------ #
+    # runtime telemetry and trackers
+    # ------------------------------------------------------------------ #
+
+    @property
+    def telemetry(self):
+        """The run's :class:`~.telemetry.Telemetry` (made on first access
+        from the ``TelemetryKwargs`` handler): the event log under
+        ``logging_dir``, memory sampling, the recompile watchdog, the
+        non-finite probe and forwarding to the trackers::
+
+            step = accelerator.telemetry.wrap(accelerator.build_train_step(loss_fn))
+
+        Once it is live, ``accumulate()`` blocks are timed as steps and the
+        checkpoint events land in its log. ``TelemetryKwargs(enabled=False)``
+        keeps it off the disk (the in-memory records still accumulate)."""
+        if self._telemetry is None:
+            from .telemetry import Telemetry, default_path
+
+            h = self.telemetry_handler
+            self._telemetry = Telemetry(
+                (h.output_path or default_path(self.logging_dir)) if h.enabled else None,
+                rank=self.process_index,
+                main_process_only=h.main_process_only,
+                warmup_steps=h.warmup_steps,
+                fence=h.fence,
+                watchdog=h.recompile_watchdog,
+                n_devices=self.num_processes,
+                hbm_sample_every=h.hbm_sample_every,
+                forward_fn=lambda values, step: self.log(values, step=step),
+                forward_every=h.forward_to_trackers_every,
+                nonfinite_every=h.nonfinite_every,
+            )
+        return self._telemetry
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: Optional[dict] = None):
+        """Start the trackers ``log_with`` named (:func:`~.tracking.filter_trackers`)."""
+        from .tracking import filter_trackers
+
+        self.trackers = filter_trackers(self._log_with, self.logging_dir, project_name, config, init_kwargs or {})
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        """The active tracker ``name`` (its backend object with ``unwrap``).
+        With no active tracker at all, a no-op blank tracker; a name
+        missing among active ones raises ``ValueError``."""
+        if self.trackers:
+            for tracker in self.trackers:
+                if tracker.name == name:
+                    return tracker.tracker if unwrap else tracker
+            raise ValueError(f"{name} is not an active tracker: {[t.name for t in self.trackers]}")
+        from .tracking import GeneralTracker
+
+        return GeneralTracker(_blank=True)
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        """``values`` to every active tracker, on the main process. With a
+        ``FaultToleranceKwargs`` handler a failing tracker is retried with
+        backoff and, past its retries, logged and skipped (a
+        ``tracker_retry`` / ``tracker_giveup`` event each when telemetry is
+        live): losing metrics must not end a run."""
+        if not self.is_main_process:
+            return
+        log_kwargs = log_kwargs or {}
+        retries = self.ft_handler.tracker_retries if self._ft_explicit else 1
+        for tracker in self.trackers:
+            kw = log_kwargs.get(tracker.name, {})
+            if retries <= 1:
+                tracker.log(values, step=step, **kw)
+                continue
+            from .utils.retry import retry_call
+
+            def on_retry(attempt, delay, exc, name=tracker.name):
+                if self._telemetry is not None:
+                    self._telemetry.log.event("tracker_retry", severity="warning", tracker=name, attempt=attempt,
+                                              delay_s=round(delay, 3), error=str(exc))
+
+            try:
+                retry_call(tracker.log, values, step=step, attempts=retries,
+                           base_delay=self.ft_handler.retry_base_delay, max_delay=self.ft_handler.retry_max_delay,
+                           exceptions=(Exception,), on_retry=on_retry, **kw)
+            except Exception as e:
+                logger.warning(f"tracker {tracker.name}.log failed after {retries} attempts: {e}")
+                if self._telemetry is not None:
+                    self._telemetry.log.event("tracker_giveup", severity="error", tracker=tracker.name, error=str(e))
+
+    def _media_trackers(self, method: str) -> list:
+        """The active trackers that implement ``method`` (the base raises)."""
+        from .tracking import GeneralTracker
+
+        return [t for t in self.trackers if getattr(type(t), method) is not getattr(GeneralTracker, method)]
+
+    def log_images(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        """``{name: [images]}`` to every active tracker that logs images."""
+        if self.is_main_process:
+            for tracker in self._media_trackers("log_images"):
+                tracker.log_images(values, step=step, **(log_kwargs or {}).get(tracker.name, {}))
+
+    def log_table(self, table_name: str, columns: Optional[list] = None, data: Optional[list] = None,
+                  dataframe=None, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        """A table to every active tracker that logs tables."""
+        if self.is_main_process:
+            for tracker in self._media_trackers("log_table"):
+                tracker.log_table(table_name, columns=columns, data=data, dataframe=dataframe, step=step,
+                                  **(log_kwargs or {}).get(tracker.name, {}))
 
     @contextlib.contextmanager
     def profile(self, profile_handler=None):

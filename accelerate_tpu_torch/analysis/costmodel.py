@@ -1,7 +1,9 @@
-"""Per-card constants of the kernel analyzer: shared memory a block can use.
+"""Per-card constants: shared memory a block can use, peak FLOP/s and
+device memory.
 
-Counterpart of :data:`accelerate_tpu.analysis.costmodel.VMEM_KB_TABLE` and
-``device_generation``/``vmem_bytes``. A Pallas block must fit a core's
+Counterpart of :data:`accelerate_tpu.analysis.costmodel.VMEM_KB_TABLE`,
+``PEAK_FLOPS_TABLE``, ``HBM_GB_TABLE`` and ``device_generation`` /
+``vmem_bytes`` / ``peak_flops``. A Pallas block must fit a core's
 VMEM; a CUDA block must fit the shared memory one block may ask for. The
 TPU rows do not carry over. With a card attached the capacity is the
 card's own, ``torch.cuda.get_device_properties(i).shared_memory_per_block_optin``.
@@ -18,6 +20,14 @@ from typing import Optional
 
 #: shared memory one block may ask for, in bytes, by card
 SMEM_BYTES_TABLE: dict = {"h100": 232_448}
+
+#: dense peak FLOP/s by card and compute type, no sparsity: the H100 SXM
+#: datasheet's 989.4 TFLOP/s bf16 tensor-core and 1,978.9 TOPS int8. The
+#: shared denominator of MFU (:mod:`..telemetry.mfu`).
+PEAK_FLOPS_TABLE: dict = {"h100": {"bf16": 989.4e12, "int8": 1978.9e12}}
+
+#: device memory by card, GB (the H100 SXM's 80)
+HBM_GB_TABLE: dict = {"h100": 80.0}
 
 #: the row a trace without a card is judged against
 DEFAULT_GENERATION = "h100"
@@ -47,3 +57,10 @@ def smem_bytes(generation: Optional[str] = None, device_index: int = 0) -> int:
     if generation not in SMEM_BYTES_TABLE:
         raise ValueError(f"no shared-memory row for {generation!r}; the table has {sorted(SMEM_BYTES_TABLE)}")
     return int(SMEM_BYTES_TABLE[generation])
+
+
+def peak_flops(generation: str, dtype: str = "bf16") -> float:
+    """Peak FLOP/s of one card of ``generation``; a card without a row
+    falls back to the H100's, and a type without a column to bf16."""
+    row = PEAK_FLOPS_TABLE.get(generation, PEAK_FLOPS_TABLE[DEFAULT_GENERATION])
+    return row.get(dtype, row["bf16"])

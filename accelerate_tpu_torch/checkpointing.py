@@ -184,10 +184,11 @@ def _to_host(tree):
 
 
 def _telemetry_log(accelerator):
-    """The telemetry event log, or None: the port's telemetry is ROADMAP.md
-    Queue 1 item 9, so this returns None and the event calls below wait
-    for it."""
-    return None
+    """The live telemetry event log, or None. Reads the private slot:
+    checkpointing must not be what creates the telemetry (the
+    ``Accelerator.telemetry`` property is lazy)."""
+    tel = getattr(accelerator, "_telemetry", None)
+    return tel.log if tel is not None else None
 
 
 def _retry_cfg(accelerator, log, what: str) -> dict:

@@ -40,8 +40,7 @@ class PreemptionHandler:
     8.)
 
     ``on_preempt(signame)`` (optional) runs once on the first signal --
-    the JAX package's Accelerator wires a telemetry ``preempt`` event
-    through it; the port's telemetry is ROADMAP.md Queue 1 item 9. A
+    the Accelerator emits a telemetry ``preempt`` event through it. A
     second SIGINT while preempted re-raises ``KeyboardInterrupt`` so a
     user hammering ctrl-C can still kill a hung drain."""
 

@@ -3,7 +3,7 @@ from .convert import bert_params_from_jax, llama_params_from_jax, resnet_params_
 from .gemma import GemmaConfig, create_gemma_model
 from .gemma2 import Gemma2Config, create_gemma2_model
 from .gemma3 import Gemma3Config, create_gemma3_model
-from .llama import LlamaConfig, causal_lm_loss, create_llama_model, next_token_cross_entropy
+from .llama import LlamaConfig, causal_lm_loss, causal_lm_loss_state, create_llama_model, next_token_cross_entropy
 from .mistral import MistralConfig, create_mistral_model
 from .olmo2 import Olmo2Config, create_olmo2_model
 from .phi3 import Phi3Config, create_phi3_model
@@ -26,6 +26,7 @@ __all__ = [
     "bert_classification_loss",
     "bert_params_from_jax",
     "causal_lm_loss",
+    "causal_lm_loss_state",
     "create_bert_model",
     "create_gemma2_model",
     "create_gemma3_model",

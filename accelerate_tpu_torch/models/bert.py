@@ -11,6 +11,10 @@ wrapped in :class:`~..modeling.Model`. It keeps the JAX module's numerics:
   uniform weights, not NaN; the softmax runs in the policy's
   ``softmax_dtype``;
 * GELU is exact (erf);
+* the six dense layers of each encoder layer (query, key, value, out and
+  the two FFN ones) are :class:`~..ops.fp8.PolicyLinear`: fp8 products
+  under ``mixed_precision="fp8"``, as the JAX module hands them
+  ``policy_dot_general()``; the pooler and the classifier stay plain;
 * the pooler computes in the stream dtype, the classifier in f32 on the
   weights it is given (under bf16 compute, the bf16 copy made f32);
 * parameters are named so that ``AutocastKwargs.keep_fp32_patterns``
@@ -38,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..modeling import Model
 from ..ops.attention import dot_product_attention
+from ..ops.fp8 import PolicyLinear
 from ..utils.environment import resolve_device
 
 
@@ -94,7 +99,7 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.config = cfg
         h = cfg.hidden_size
-        self.query, self.key, self.value, self.out = (nn.Linear(h, h) for _ in range(4))
+        self.query, self.key, self.value, self.out = (PolicyLinear(h, h) for _ in range(4))
 
     def forward(self, hidden, attention_mask, rng: Optional[torch.Generator] = None):
         cfg = self.config
@@ -123,8 +128,8 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(cfg)
         self.attention_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.ffn = nn.ModuleDict({
-            "intermediate": nn.Linear(cfg.hidden_size, cfg.intermediate_size),
-            "output": nn.Linear(cfg.intermediate_size, cfg.hidden_size),
+            "intermediate": PolicyLinear(cfg.hidden_size, cfg.intermediate_size),
+            "output": PolicyLinear(cfg.intermediate_size, cfg.hidden_size),
         })
         self.ffn_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 

@@ -14,6 +14,10 @@ head or flat), the sandwich and post norms, no ``input_norm`` under
 JAX package's ``load_and_quantize_model`` carries ``qdata``/``qscale``
 leaves in place of each projection's ``kernel``: they cross unchanged
 (``QuantDense`` keeps the reference's layout), integer codes as integers.
+A JAX model built under the delayed fp8 recipe carries its amax
+histories in an ``fp8`` collection (``model.state``, scanned ``[L, H]``
+leaves or unrolled ``[H]`` ones): pass it as ``state`` and they cross
+into the ``FP8Dense`` buffers of the same names.
 ``bert_params_from_jax`` does the same for
 :func:`accelerate_tpu.models.bert.create_bert_model`'s tree (unrolled
 ``layer_<i>``; ``Embed`` tables cross as they are), and
@@ -77,20 +81,22 @@ def _layer_norms(config) -> list:
     return [(path, name) for path, name in _LAYER_NORMS if path[-2] in names]
 
 
-def llama_params_from_jax(params: dict, config) -> dict:
+def _layer_reader(tree: dict):
+    """``leaf(i, path)`` of layer ``i`` in either JAX layout."""
+    if "layers" in tree:
+        block = tree["layers"]["block"]
+        return lambda i, path: _get(block, path)[i]
+    return lambda i, path: _get(tree[f"layer_{i}"], path)
+
+
+def llama_params_from_jax(params: dict, config, state: dict = None) -> dict:
     """The port's llama state dict (f32 tensors; integer codes for a
-    quantized tree) from a JAX llama param tree of any family's knobs.
-    Load it with ``model.load_state_dict``, which casts to each
+    quantized tree) from a JAX llama param tree of any family's knobs,
+    and, with ``state`` (the JAX model's ``model.state``), the fp8 amax
+    histories. Load it with ``model.load_state_dict``, which casts to each
     parameter's dtype."""
     n_layers = config.num_hidden_layers
-    if "layers" in params:
-        block = params["layers"]["block"]
-
-        def layer_leaf(i, path):
-            return _get(block, path)[i]
-    else:
-        def layer_leaf(i, path):
-            return _get(params[f"layer_{i}"], path)
+    layer_leaf = _layer_reader(params)
 
     sd = {
         "embed_tokens.weight": _tensor(_get(params, ("embed_tokens", "embedding")), False),
@@ -111,6 +117,13 @@ def llama_params_from_jax(params: dict, config) -> dict:
                 sd[f"layers.{i}.{name}.qscale"] = _codes(layer_leaf(i, (*path, "qscale")))
     if not config.tie_word_embeddings:
         sd["lm_head.weight"] = _tensor(_get(params, ("lm_head", "kernel")), True)
+    fp8 = (state or {}).get("fp8")
+    if fp8:
+        hist_leaf = _layer_reader(fp8)
+        for i in range(n_layers):
+            for path, name in _LAYER_PROJS:
+                for hist in ("amax_history_x", "amax_history_k"):
+                    sd[f"layers.{i}.{name}.{hist}"] = _tensor(hist_leaf(i, (*path, hist)), False)
     return sd
 
 

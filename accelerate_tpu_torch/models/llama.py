@@ -35,6 +35,14 @@ package's loss, called as ``loss_fn(params, batch)`` through
 With ``cfg.quant_method`` set, every block projection is a
 :class:`~..ops.qdense.QuantDense` whose parameters are the packed codes
 (:func:`quantize_llama_model` makes such a model from a float one).
+Otherwise it is a :class:`~..ops.fp8.PolicyLinear` (fp8 products under
+``mixed_precision="fp8"``), or, when the model is built under the
+delayed-scaling fp8 recipe, an :class:`~..ops.fp8.FP8Dense` whose amax
+histories are the model's ``fp8`` state: train it with
+:func:`causal_lm_loss_state` through ``build_train_step(...,
+has_state=True)``. The histories go into each layer (remat included) as
+inputs and come out new beside its output, so a recomputed layer neither
+rolls them twice nor quantizes with other scales.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..modeling import Model
 from ..ops.attention import dot_product_attention, softcap
+from ..ops.fp8 import FP8Dense, PolicyLinear, fp8_recipe
 from ..ops.kv_cache import KVCache, cached_attention
 from ..utils.environment import resolve_device
 
@@ -294,16 +303,35 @@ def _head_dim(cfg: LlamaConfig) -> int:
 
 
 def _proj(cfg: LlamaConfig, in_features: int, features: int, bias: bool = False) -> nn.Module:
-    """Block projection factory: an ``nn.Linear`` (bias-free unless asked),
-    or a ``QuantDense`` when the config carries a weight-only quantization
-    method (it computes in the stream dtype)."""
+    """Block projection factory: a ``QuantDense`` when the config carries a
+    weight-only quantization method (it computes in the stream dtype), an
+    ``FP8Dense`` when the active precision policy asks for the
+    delayed-scaling fp8 recipe, else a ``PolicyLinear`` (bias-free unless
+    asked)."""
     if cfg.quant_method is not None:
         from ..ops.qdense import QuantDense
 
         return QuantDense(
             in_features, features, method=cfg.quant_method, group_size=cfg.quant_group_size, use_bias=bias
         )
-    return nn.Linear(in_features, features, bias=bias)
+    recipe = fp8_recipe()
+    if recipe is not None and recipe.delayed_scaling:
+        if bias:
+            raise NotImplementedError("FP8Dense (delayed scaling) has no bias; qkv_bias models need the bf16 path")
+        return FP8Dense(
+            in_features, features, amax_history_len=recipe.amax_history_len,
+            amax_compute_algo=recipe.amax_compute_algo, margin=recipe.margin,
+        )
+    return PolicyLinear(in_features, features, bias=bias)
+
+
+def _project(proj: nn.Module, x: torch.Tensor, fp8: Optional[dict], new: dict, name: str) -> torch.Tensor:
+    """``proj(x)``; an ``FP8Dense`` reads its histories from ``fp8[name]``
+    (None: its buffers) and leaves the new ones in ``new[name]``."""
+    if not isinstance(proj, FP8Dense):
+        return proj(x)
+    y, new[name] = proj(x, None if fp8 is None else fp8[name])
+    return y
 
 
 def _norm(cfg: LlamaConfig, dim: int) -> RMSNorm:
@@ -341,11 +369,12 @@ class LlamaAttention(nn.Module):
             self.q_norm = _norm(cfg, hd)
             self.k_norm = _norm(cfg, hd)
 
-    def forward(self, hidden, cos, sin, cache=None, layer: int = 0):
+    def forward(self, hidden, cos, sin, cache=None, layer: int = 0, fp8=None, new=None):
         cfg = self.config
         b, s, _ = hidden.shape
         hd = _head_dim(cfg)
-        q, k, v = self.q_proj(hidden), self.k_proj(hidden), self.v_proj(hidden)
+        new = {} if new is None else new
+        q, k, v = (_project(getattr(self, n), hidden, fp8, new, n) for n in ("q_proj", "k_proj", "v_proj"))
         if cfg.qk_norm_flat:
             q, k = self.q_norm(q), self.k_norm(k)
         q = q.view(b, s, cfg.num_attention_heads, hd)
@@ -363,7 +392,7 @@ class LlamaAttention(nn.Module):
             out = dot_product_attention(
                 q, k, v, causal=True, scale=scale, window=self.window, logit_softcap=cfg.attn_logit_softcap
             )
-        return self.o_proj(out.reshape(b, s, cfg.num_attention_heads * hd))
+        return _project(self.o_proj, out.reshape(b, s, cfg.num_attention_heads * hd), fp8, new, "o_proj")
 
 
 class LlamaMLP(nn.Module):
@@ -374,10 +403,12 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, hidden):
-        gate = self.gate_proj(hidden)
+    def forward(self, hidden, fp8=None, new=None):
+        new = {} if new is None else new
+        gate = _project(self.gate_proj, hidden, fp8, new, "gate_proj")
         act = F.gelu(gate, approximate="tanh") if self.gelu else F.silu(gate)
-        return self.down_proj(act * self.up_proj(hidden))
+        return _project(self.down_proj, act * _project(self.up_proj, hidden, fp8, new, "up_proj"), fp8, new,
+                        "down_proj")
 
 
 class LlamaLayer(nn.Module):
@@ -402,23 +433,43 @@ class LlamaLayer(nn.Module):
             self.post_ffn_norm = _norm(cfg, cfg.hidden_size)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, hidden, cos, sin, cache=None, layer: int = 0):
+    def forward(self, hidden, cos, sin, cache=None, layer: int = 0, fp8=None):
+        """The new hidden state; with ``fp8`` (this layer's amax histories,
+        ``{"attn": {...}, "mlp": {...}}``) ``(hidden, new histories)``."""
+        new = {"attn": {}, "mlp": {}}
+        hist = fp8 or {}
+
+        def attn(x):
+            return self.attn(x, cos, sin, cache, layer, hist.get("attn"), new["attn"])
+
+        def mlp(x):
+            return self.mlp(x, hist.get("mlp"), new["mlp"])
+
         if self.layout == "after":
-            hidden = hidden + self.post_attn_norm(self.attn(hidden, cos, sin, cache, layer))
-            return hidden + self.post_ffn_norm(self.mlp(hidden))
-        if self.layout == "sandwich":
-            hidden = hidden + self.post_attn_norm(self.attn(self.input_norm(hidden), cos, sin, cache, layer))
-            return hidden + self.post_ffn_norm(self.mlp(self.pre_ffn_norm(hidden)))
-        hidden = hidden + self.attn(self.input_norm(hidden), cos, sin, cache, layer)
-        return hidden + self.mlp(self.post_attn_norm(hidden))
+            hidden = hidden + self.post_attn_norm(attn(hidden))
+            hidden = hidden + self.post_ffn_norm(mlp(hidden))
+        elif self.layout == "sandwich":
+            hidden = hidden + self.post_attn_norm(attn(self.input_norm(hidden)))
+            hidden = hidden + self.post_ffn_norm(mlp(self.pre_ffn_norm(hidden)))
+        else:
+            hidden = hidden + attn(self.input_norm(hidden))
+            hidden = hidden + mlp(self.post_attn_norm(hidden))
+        return hidden if fp8 is None else (hidden, new)
 
 
 class LlamaModel(nn.Module):
-    """``forward(input_ids, positions=None, decode=False, cache=None)``:
-    logits ``[B, S, V]`` (f32), or with ``decode=True`` ``(logits,
-    cache)``, where ``cache=None`` starts a dense cache of
+    """``forward(input_ids, positions=None, decode=False, cache=None,
+    state=None)``: logits ``[B, S, V]`` (f32), or with ``decode=True``
+    ``(logits, cache)``, where ``cache=None`` starts a dense cache of
     ``max_position_embeddings`` rows and a :class:`~..ops.paged_kv.PagedKVCache`
-    selects the paged decode path. The cache is updated in place."""
+    selects the paged decode path. The cache is updated in place.
+
+    Built under the delayed fp8 recipe, the model keeps mutable state, the
+    ``fp8`` collection of amax histories (``state_collection``). Passing
+    ``state`` (``{"fp8": ...}``, as :attr:`~..modeling.Model.state` holds
+    it) to a forward that is not a decode returns ``(logits,
+    new_state)``; without it the layers read their own buffers and the new
+    histories are dropped, as a decode drops them."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -429,8 +480,10 @@ class LlamaModel(nn.Module):
         self.final_norm = _norm(cfg, cfg.hidden_size)
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        if any(isinstance(m, FP8Dense) for m in self.modules()):
+            self.state_collection = "fp8"
 
-    def forward(self, input_ids, positions=None, decode: bool = False, cache=None):
+    def forward(self, input_ids, positions=None, decode: bool = False, cache=None, state=None):
         cfg = self.config
         b, s = input_ids.shape
         hidden = self.embed_tokens(input_ids.long())
@@ -450,9 +503,17 @@ class LlamaModel(nn.Module):
         if decode and cache is None:
             cache = KVCache.empty(cfg, b, cfg.max_position_embeddings, hidden.dtype, hidden.device)
         remat = cfg.remat and self.training and not decode and torch.is_grad_enabled()
+        threaded = state is not None and not decode and hasattr(self, "state_collection")
+        hists = state[self.state_collection]["layers"] if threaded else None
+        new_hists = {}
         for i, layer in enumerate(self.layers):
             cos, sin = tables[layer.local_rope]
-            if remat:
+            if threaded:
+                if remat:
+                    hidden, new_hists[str(i)] = _remat_layer(layer, hidden, cos, sin, hists[str(i)])
+                else:
+                    hidden, new_hists[str(i)] = layer(hidden, cos, sin, None, i, hists[str(i)])
+            elif remat:
                 hidden = _remat_layer(layer, hidden, cos, sin)
             else:
                 hidden = layer(hidden, cos, sin, cache if decode else None, i)
@@ -462,23 +523,28 @@ class LlamaModel(nn.Module):
         if cfg.final_logit_softcap is not None:
             logits = softcap(logits, cfg.final_logit_softcap)
         if not decode:
-            return logits
+            if state is None:
+                return logits
+            return logits, ({self.state_collection: {"layers": new_hists}} if threaded else state)
         cache.advance(s)
         return logits, cache
 
 
-def _remat_layer(layer: LlamaLayer, hidden, cos, sin):
+def _remat_layer(layer: LlamaLayer, hidden, cos, sin, fp8=None):
     """``layer(hidden, cos, sin)`` with its activations recomputed in the
     backward. The layer's current parameter tensors are passed in as inputs
     and bound again for the recompute: under ``Model.apply_fn`` they are
     the compute-dtype copies, which ``functional_call`` has unbound again
-    by the time the backward runs."""
+    by the time the backward runs. With ``fp8`` (the layer's amax
+    histories) it returns ``(hidden, new histories)``: the recompute reads
+    the same input histories, so it quantizes with the forward's scales,
+    and its own new histories are dropped."""
     names, tensors = zip(*layer.named_parameters())
 
-    def run(hidden, cos, sin, *tensors):
-        return functional_call(layer, dict(zip(names, tensors)), (hidden, cos, sin))
+    def run(hidden, cos, sin, fp8, *tensors):
+        return functional_call(layer, dict(zip(names, tensors)), (hidden, cos, sin), {"fp8": fp8})
 
-    return checkpoint(run, hidden, cos, sin, *tensors, use_reentrant=False)
+    return checkpoint(run, hidden, cos, sin, fp8, *tensors, use_reentrant=False)
 
 
 def create_llama_model(
@@ -503,6 +569,8 @@ def create_llama_model(
     module.to_empty(device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
+        for b in module.buffers():  # the fp8 amax histories start at zero
+            b.zero_()
         for name, p in module.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(0.0 if config.norm_plus_one else 1.0)
@@ -562,6 +630,14 @@ def causal_lm_loss(params: dict, batch: dict, apply_fn) -> torch.Tensor:
     padding is masked by ``loss_mask``. When labels are derived from the
     input, the last position (whose target would be made up) is masked."""
     return next_token_cross_entropy(apply_fn(params, batch["input_ids"]), batch)
+
+
+def causal_lm_loss_state(params: dict, state: dict, batch: dict, apply_fn):
+    """:func:`causal_lm_loss` for a model with mutable state (the delayed
+    fp8 recipe's amax histories): the ``build_train_step(has_state=True)``
+    contract, ``(loss, new_state)``."""
+    logits, new_state = apply_fn(params, batch["input_ids"], state=state)
+    return next_token_cross_entropy(logits, batch), new_state
 
 
 def next_token_cross_entropy(logits: torch.Tensor, batch: dict) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Config dataclasses and kwargs handlers of the training path.
 
-A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy,
-the autocast and grad-scaler handlers, gradient accumulation, the data
-loader configuration, the RNG types, the project (checkpoint directory)
+A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy
+(fp8 included, with ``Fp8RecipeKwargs``), the autocast and grad-scaler
+handlers, the runtime telemetry's knobs (``TelemetryKwargs``), the tracker
+types (``LoggerType``), gradient accumulation, the data loader
+configuration, the RNG types, the project (checkpoint directory)
 configuration, the fault-tolerance handler, the serving scheduler's
 knobs (``ServingSchedulerKwargs``), and a ``ParallelismPlugin`` that
 takes the one-device layout only. The other
@@ -28,6 +30,26 @@ class PrecisionType(str, enum.Enum):
     BF16 = "bf16"
     FP16 = "fp16"
     FP8 = "fp8"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class LoggerType(str, enum.Enum):
+    """The trackers ``Accelerator(log_with=...)`` takes (``"all"``: every
+    one whose package is installed)."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    MLFLOW = "mlflow"
+    AIM = "aim"
+    COMETML = "comet_ml"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    SWANLAB = "swanlab"
+    TRACKIO = "trackio"
+    JSONL = "jsonl"
 
     def __str__(self) -> str:
         return self.value
@@ -121,6 +143,87 @@ class GradScalerKwargs(KwargsHandler):
 
 
 @dataclass
+class Fp8RecipeKwargs(KwargsHandler):
+    """The fp8 recipe (TransformerEngine's knobs, as the JAX package keeps
+    them). ``delayed_scaling=True`` keeps an amax history per tensor (the
+    buffers of :class:`~..ops.fp8.FP8Dense`, threaded through the train
+    step as ``Model.state``) and scales by ``max(history) * 2**margin``;
+    ``False`` takes each tensor's amax on every call (the dynamic recipe,
+    no state). A bare ``mixed_precision="fp8"`` runs the dynamic recipe;
+    pass this handler for the delayed one."""
+
+    delayed_scaling: bool = True
+    amax_history_len: int = 16
+    amax_compute_algo: str = "max"  # "max" | "most_recent"
+    margin: int = 0
+
+    def __post_init__(self):
+        if self.amax_compute_algo not in ("max", "most_recent"):
+            raise ValueError(f"amax_compute_algo must be max|most_recent, got {self.amax_compute_algo!r}")
+        if self.amax_history_len < 1:
+            raise ValueError(f"amax_history_len must be >= 1, got {self.amax_history_len}")
+
+
+@dataclass
+class TelemetryKwargs(KwargsHandler):
+    """The runtime telemetry's knobs, read by ``Accelerator.telemetry``
+    (:mod:`..telemetry`).
+
+    ``output_path=None`` writes ``{logging_dir}/telemetry.jsonl``
+    (``runs/telemetry.jsonl`` without a logging or project dir);
+    ``fence=False`` drops the per-step ``torch.cuda.synchronize`` (the
+    data-wait / dispatch / execute split then degrades);
+    ``forward_to_trackers_every=N`` pushes a rolling summary through
+    ``Accelerator.log`` every N steps (0: never); ``nonfinite_every=N``
+    probes the loss and the gradient norm for NaN/inf every N steps of
+    the train step (a host sync each; 0, the default, is off).
+
+    The request-tracing and flight-recorder fields (``trace_*``,
+    ``flight_*``) are kept with their defaults: the serving tracer and the
+    flight recorder are ROADMAP.md Queue 1 item 10, so any other value
+    raises."""
+
+    enabled: bool = True
+    output_path: Optional[str] = None
+    # 2, not 1, as in the JAX package: its second call may compile a second
+    # program variant; the port keeps the count so both warm up alike
+    warmup_steps: int = 2
+    fence: bool = True
+    recompile_watchdog: bool = True
+    hbm_sample_every: int = 10
+    forward_to_trackers_every: int = 10
+    nonfinite_every: int = 0
+    main_process_only: bool = True
+    trace_requests: bool = False
+    trace_max_traces: int = 4096
+    trace_drift_check: bool = True
+    flight_recorder: bool = True
+    flight_capacity: int = 256
+    flight_dump_dir: Optional[str] = None
+
+    def __post_init__(self):
+        if self.warmup_steps < 0:
+            raise ValueError(f"warmup_steps must be >= 0, got {self.warmup_steps}")
+        if self.hbm_sample_every < 0 or self.forward_to_trackers_every < 0:
+            raise ValueError("hbm_sample_every / forward_to_trackers_every must be >= 0")
+        if self.nonfinite_every < 0:
+            raise ValueError(f"nonfinite_every must be >= 0, got {self.nonfinite_every}")
+        changed = [
+            f.name for f in dataclasses.fields(self)
+            if f.name.startswith(("trace_", "flight_")) and getattr(self, f.name) != f.default
+        ]
+        if changed:
+            raise NotImplementedError(
+                f"TelemetryKwargs({', '.join(changed)}): request tracing and the flight recorder are not ported "
+                "to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 10)"
+            )
+
+    def trace_config(self):
+        """None: request tracing is off (the only setting the port takes)."""
+        return None
+
+
+@dataclass
 class GradientAccumulationPlugin(KwargsHandler):
     """``sync_with_dataloader`` forces a sync on the last batch of each
     dataloader pass."""
@@ -147,21 +250,16 @@ class MixedPrecisionPolicy(KwargsHandler):
     compute_dtype: str = "bfloat16"
     output_dtype: str = "float32"
     softmax_dtype: Optional[str] = None
+    # fp8: the blanket cast stays bf16 (raw e4m3 casts without per-tensor
+    # scales would destroy training); the dense products take the scaled
+    # e4m3 path of ops/fp8.py
     fp8: bool = False
-
-    def __post_init__(self):
-        if self.fp8:
-            raise NotImplementedError(
-                "fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
-            )
 
     @classmethod
     def from_mixed_precision(cls, mixed_precision: Optional[str]) -> "MixedPrecisionPolicy":
         mp = PrecisionType(mixed_precision or "no")
         if mp == PrecisionType.FP8:
-            raise NotImplementedError(
-                "fp8 mixed precision is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
-            )
+            return cls(compute_dtype="bfloat16", fp8=True)
         return cls(compute_dtype={"no": "float32", "bf16": "bfloat16", "fp16": "float16"}[mp.value])
 
     @staticmethod
@@ -229,10 +327,10 @@ class FaultToleranceKwargs(KwargsHandler):
     ``Accelerator(kwargs_handlers=[...])`` installs the SIGTERM/SIGINT
     preemption handler (``handle_preemption``). The atomic commit protocol
     is always on; the other knobs tune its IO retries, its GC and its
-    resume check. ``agree_preemption`` and ``tracker_retries`` are kept
-    for multi-process training and trackers (ROADMAP.md Queue 1 items 8
-    and 9): one process has no other rank to agree with and the port has
-    no tracker yet."""
+    resume check, and ``tracker_retries`` retries a failing tracker in
+    ``Accelerator.log``. ``agree_preemption`` is kept for multi-process
+    training (ROADMAP.md Queue 1 item 8): one process has no other rank to
+    agree with."""
 
     #: install a PreemptionHandler so SIGTERM/SIGINT surface as
     #: ``Accelerator.should_checkpoint`` / ``should_stop``

@@ -17,8 +17,11 @@ may apply the scales after the integer product.
 
 The JAX package guards its nf4 decode against a fault of the TPU runtime
 (``_nf4_guard``, active on the TPU backend only). The port has no such
-limit: nf4 tensors of any size decode. The fp8 helpers of the reference
-module are not ported yet (they come with ``ops/fp8.py``; ROADMAP.md).
+limit: nf4 tensors of any size decode.
+
+The fp8 half (:func:`fp8_quantize`, :func:`fp8_dot`) is the per-tensor
+dynamic scaling of the fp8 mixed precision mode; the products themselves
+live in :mod:`..ops.fp8`.
 """
 
 from __future__ import annotations
@@ -281,3 +284,35 @@ def load_and_quantize_model(model, config: Optional[QuantizationConfig] = None):
     return _DequantizingModel(
         skeleton, qparams, getattr(torch, config.compute_dtype), cfg_obj, getattr(model, "name", None)
     )
+
+
+# ---------------------------------------------------------------------------
+# fp8 (per-tensor dynamic scaling)
+# ---------------------------------------------------------------------------
+
+FP8_E4M3_MAX = 448.0
+FP8_E5M2_MAX = 57344.0
+
+
+def fp8_quantize(x: torch.Tensor, dtype: torch.dtype = torch.float8_e4m3fn):
+    """Scale ``x`` to the fp8 range: ``(codes, inv_scale)`` with ``x ~= codes
+    * inv_scale``. The JAX package's arithmetic: ``amax = max(max|x|,
+    1e-12)`` and ``scale = fmax / amax`` in f32, the codes ``x * scale`` in
+    f32 rounded to nearest-even, ``inv_scale = 1 / scale`` in f32. (``|x|``
+    and its max are exact in ``x``'s own dtype, so the max is taken there;
+    the two scalar divisions are taken in f64 and rounded once to f32,
+    which is the correctly rounded f32 quotient: torch's f32 division by a
+    0-dim CPU tensor is not always.)"""
+    fmax = FP8_E4M3_MAX if dtype == torch.float8_e4m3fn else FP8_E5M2_MAX
+    amax = torch.clamp_min(x.detach().abs().amax().float(), 1e-12)
+    scale = (fmax / amax.double()).float()
+    return (x.detach().float() * scale).to(dtype), (1.0 / scale.double()).float()
+
+
+def fp8_dot(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``a @ b`` (``b`` is ``[K, N]``) in fp8: e4m3 operands with dynamic
+    per-tensor scales, f32 accumulation, differentiable (gradients in
+    e5m2). Delegates to :func:`..ops.fp8.fp8_matmul`."""
+    from ..ops.fp8 import fp8_matmul
+
+    return fp8_matmul(a, b.t()).to(out_dtype)

@@ -84,8 +84,8 @@ it, all three equal. Then the slices:
   Gemma3) are served paged on the card and held to the CPU engine; Gemma2
   on the paged engine raises, naming the dense layout;
 * the paged engine's memory and scheduling (``--only sched``):
-  Mistral-7B-v0.1 at full width and depth (seeded random weights, bf16)
-  behind the engine, every decode step's attention through K4 in its
+  Mistral-7B-v0.1 at full width, 8 of its 32 layers (seeded random
+  weights, bf16) behind the engine, every decode step's attention through K4 in its
   4096-key band, held at that shape against its plain version (NaN in
   every expired entry): 12 prompts of 300-7,900 tokens on a pool sized
   by the band, blocks expiring mid-decode (``mistral_serve``, greedy
@@ -95,17 +95,30 @@ it, all three equal. Then the slices:
   recompute, against an unpreempted control, and a structured
   ``ShedError`` (``preempt_serve``);
 * the dense serving layout, speculative serving and beam search (``--only
-  dense``): Gemma-2-9B at full width and depth (seeded random weights,
-  bf16; its softcaps and its 4096-key band on alternate layers) served on
+  dense``): Gemma-2-9B at full width, 14 of its 42 layers (seeded random
+  weights, bf16; its softcaps and its 4096-key band on alternate layers) served on
   the dense layout (``gemma2_serve``: 12 prompts of 16-2,000 tokens and
   one of 3,000, 64 new, greedy tokens against the teacher-forced dense
-  reference, one tick traced), with a Gemma-2-2B draft
+  reference, one tick traced), with a Gemma-2-2B draft (8 of its 26 layers)
   (``gemma2_spec_serve``, tokens against the plain run's), as its own
   draft (``gemma2_self_spec``: acceptance at least 0.9, every rejection
   at a near tie), through ``speculative_generate`` and ``beam_search``,
   and 2-layer f32 cuts held card against CPU (``dense_consistency``). No
   kernel of the JAX package lies on these paths: the dense cache's
-  attention is an einsum in both packages.
+  attention is an einsum in both packages;
+* fp8 mixed precision and the run's telemetry (``--only fp8``): the
+  three products of every projection of the TinyLlama train step through
+  ``torch._scaled_mm`` held to their plain version, the codes bit-equal
+  to the CPU's, timed beside ``torch.matmul`` in bf16 (``fp8_matmul``);
+  the TinyLlama shape trained in fp8 under both recipes from the train
+  phase's weights and batches, K1-K3 and the fp8 products launched as
+  counted, losses within 0.1 of bf16's, one history entry a step, one
+  step traced (``fp8_train``, ``fp8_train_profile``); the BERT-base
+  fine-tune in fp8 (``fp8_bert``); a 4-layer fp8 step under
+  ``accelerator.telemetry`` with the JSONL tracker (``telemetry``); and
+  2-layer cuts of both models held card against CPU step by step
+  (``fp8_consistency``). The fp8 products are library GEMMs, as the JAX
+  package's are XLA dots: they add no row to the kernels line.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -139,7 +152,14 @@ TINYLLAMA = dict(
 )
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    script started, so each group's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1400,8 +1420,8 @@ def phase_families_consistency(torch):
 
 
 # ---------------------------------------------------------------------------
-# the paged engine's memory and scheduling: Mistral-7B-v0.1 at full width and
-# depth behind the engine (windowed block expiry, prefix caching, preemption
+# the paged engine's memory and scheduling: Mistral-7B-v0.1 at full width (8 of
+# its 32 layers) behind the engine (windowed block expiry, prefix caching, preemption
 # with resume by recompute, SLO shedding), K4 in its 4096-key band
 # ---------------------------------------------------------------------------
 
@@ -1410,6 +1430,9 @@ def phase_families_consistency(torch):
 MISTRAL_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), paged_block_size=16, tick_block=8, max_len=8192)
 # the windowed need: a request in its band holds at most 266 blocks at 128 new tokens
 MISTRAL_POOL = 8 * 266 + 1
+# Mistral-7B-v0.1's 32 layers cut to 8 (its widths, band and engine kept) since PR 15: the whole script must end
+# within its 1,200 s, and at full depth the three sched phases took 251 s of a 1,035 s run (PERF.md §4)
+SCHED_LAYERS = 8
 MISTRAL_LENGTHS = (300, 1200, 2500, 3968, 4000, 4090, 4500, 5000, 5600, 6100, 7000, 7900)
 
 
@@ -1621,7 +1644,7 @@ def phase_mistral_serve(torch, model):
     a pool of 8 x 266 + 1 blocks, the windowed need): 12 prompts of
     300-7,900 tokens, 128 new each. Eight requests decode in one tick; free
     blocks rise during decode before any request retires (expiry behind the
-    4096-key band); the pool drains; K4 launches == 32 x decode steps. The
+    4096-key band); the pool drains; K4 launches == layers x decode steps. The
     300-, 2,500-, 5,000- and 7,900-token requests' 128 greedy tokens are
     held to the dense reference fed the same tokens (dense_forced over the
     engine's 8,192 rows; over generate's 32,768 it follows generate's
@@ -1655,7 +1678,7 @@ def phase_mistral_serve(torch, model):
     launches = pa.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches == cfg.num_hidden_layers * eng.decode_steps > 0,
-          f"mistral serve: K4 launches {launches} == 32 x decode steps {eng.decode_steps}")
+          f"mistral serve: K4 launches {launches} == layers x decode steps {eng.decode_steps}")
     snap = eng.metrics.snapshot()
     check(snap["decode_slots_high_water"] == 8,
           f"mistral serve: eight requests decode in one tick ({snap['decode_slots_high_water']})")
@@ -1762,7 +1785,7 @@ def phase_prefix_serve(torch, model):
     wall = time.perf_counter() - t0
     launches = pa.launches
     check(launches == cfg.num_hidden_layers * eng.decode_steps > 0,
-          f"prefix serve: K4 launches {launches} == 32 x decode steps {eng.decode_steps}")
+          f"prefix serve: K4 launches {launches} == layers x decode steps {eng.decode_steps}")
     check(any(b < a for a, b in zip(refs, refs[1:])),
           "prefix serve: shared-block references dropped mid-decode, before any retirement")
     with_prefix = [(eng.poll(uids[(0, i)]), eng.logprobs(uids[(0, i)])) for i in range(len(suffixes))]
@@ -1787,7 +1810,7 @@ def phase_prefix_serve(torch, model):
     wall2 = time.perf_counter() - t0
     launches2 = pa.launches
     check(launches2 == cfg.num_hidden_layers * eng.decode_steps,
-          f"prefix serve (full prompts): K4 launches {launches2} == 32 x decode steps")
+          f"prefix serve (full prompts): K4 launches {launches2} == layers x decode steps")
     without = [(eng.poll(uids2[(0, i)]), eng.logprobs(uids2[(0, i)])) for i in range(len(suffixes))]
     snap2 = eng.metrics.snapshot()
     tokens_without, steps2 = eng.prefill_tokens, eng.decode_steps
@@ -1850,7 +1873,7 @@ def phase_preempt_serve(torch, model):
     same schedule without preemption: every request's tokens equal up to a
     near tie, logprobs within SERVE_LP_LIMIT over the tokens compared;
     decode_preemptions >= 1 and resumes == decode_preemptions; K4 launches
-    == 32 x decode steps in each run; TTFT of each class each way and the
+    == layers x decode steps in each run; TTFT of each class each way and the
     recomputed tokens. Then max_queue_depth=2 on one slot: a third
     priority-1 submission raises the structured ShedError, a priority-0 one
     is taken."""
@@ -1872,7 +1895,7 @@ def phase_preempt_serve(torch, model):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check(pa.launches == cfg.num_hidden_layers * eng.decode_steps,
-              f"preempt serve ({name}): K4 launches {pa.launches} == 32 x decode steps")
+              f"preempt serve ({name}): K4 launches {pa.launches} == layers x decode steps")
         check(eng.pool_free_blocks == eng._pcfg.num_blocks - 1, f"preempt serve ({name}): pool drained")
         outs[name] = {key: (uid, eng.poll(uid), eng.logprobs(uid)) for key, uid in uids.items()}
         snap = eng.metrics.snapshot()
@@ -1941,13 +1964,15 @@ def phase_preempt_serve(torch, model):
 
 
 def phase_sched(torch):
-    """Mistral-7B-v0.1 (seeded random weights, bf16, 7.24 B parameters)
-    built once and served by mistral_serve, prefix_serve and preempt_serve."""
+    """Mistral-7B-v0.1 at its widths, cut to SCHED_LAYERS layers (seeded
+    random weights, bf16), built once and served by mistral_serve,
+    prefix_serve and preempt_serve."""
     from accelerate_tpu_torch.models import MistralConfig, create_mistral_model
 
     free_memory(torch)
     t0 = time.perf_counter()
-    model = create_mistral_model(MistralConfig.mistral_7b_v1(), seed=0, dtype=torch.bfloat16)
+    model = create_mistral_model(MistralConfig.mistral_7b_v1(num_hidden_layers=SCHED_LAYERS), seed=0,
+                                 dtype=torch.bfloat16)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     free_memory(torch)
@@ -1961,7 +1986,7 @@ def phase_sched(torch):
 
 # ---------------------------------------------------------------------------
 # the dense serving layout, speculative serving and beam search: Gemma-2-9B at
-# full width and depth (its softcaps, its 4096-key band on alternate layers)
+# full width, 14 of 42 layers (its softcaps, its 4096-key band on alternate layers)
 # with a Gemma-2-2B draft; no kernel of the JAX package lies on these paths
 # (the dense cache's attention is an einsum there as here)
 # ---------------------------------------------------------------------------
@@ -1971,6 +1996,9 @@ def phase_sched(torch):
 # rest Gemma2Config's defaults, which are google/gemma-2-9b's config.json: Gemma2Config.gemma2_9b())
 GEMMA2_2B = dict(hidden_size=2304, intermediate_size=9216, num_hidden_layers=26, num_attention_heads=8,
                  num_key_value_heads=4, head_dim=256, query_pre_attn_scalar=256.0, sliding_window=4096)
+# Gemma-2-9B's 42 layers cut to 14 and the draft's 26 to 8 (widths, softcaps and the alternating band kept)
+# since PR 15, for the script's 1,200 s: the group's serving phases took 151 s of a 1,035 s run at full depth
+DENSE_TARGET_LAYERS, DENSE_DRAFT_LAYERS = 14, 8
 DENSE_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), tick_block=8, max_len=4096)
 DENSE_LENGTHS = (16, 128, 200, 333, 512, 700, 1000, 1234, 1500, 1750, 1900, 2000)
 DENSE_LONG = 3000  # past the largest bucket: chunked prefill, plain serving only (speculation takes bucket-sized)
@@ -2336,8 +2364,9 @@ def phase_dense_consistency(torch):
 
 
 def phase_dense(torch, seed: int):
-    """Gemma-2-9B (seeded random weights, bf16, 9.24 B parameters) and the
-    Gemma-2-2B draft built once, for gemma2_serve, gemma2_spec_serve,
+    """Gemma-2-9B and the Gemma-2-2B draft at their widths, cut to
+    DENSE_TARGET_LAYERS and DENSE_DRAFT_LAYERS layers (seeded random
+    weights, bf16), built once, for gemma2_serve, gemma2_spec_serve,
     gemma2_spec_generate, gemma2_self_spec and gemma2_beam on one prompt
     set made from ``seed``; then dense_consistency."""
     from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
@@ -2345,8 +2374,10 @@ def phase_dense(torch, seed: int):
     t_group = time.perf_counter()
     free_memory(torch)
     t0 = time.perf_counter()
-    target = create_gemma2_model(Gemma2Config.gemma2_9b(), seed=0, dtype=torch.bfloat16)
-    draft = create_gemma2_model(Gemma2Config(**GEMMA2_2B), seed=1, dtype=torch.bfloat16)
+    target = create_gemma2_model(Gemma2Config.gemma2_9b(num_hidden_layers=DENSE_TARGET_LAYERS), seed=0,
+                                 dtype=torch.bfloat16)
+    draft = create_gemma2_model(Gemma2Config(**{**GEMMA2_2B, "num_hidden_layers": DENSE_DRAFT_LAYERS}), seed=1,
+                                dtype=torch.bfloat16)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     free_memory(torch)
@@ -2421,10 +2452,12 @@ def bert_step_flops(module, tokens: int) -> float:
     return 6.0 * sum(p.numel() for name, p in module.named_parameters() if "embed" not in name) * tokens
 
 
-def phase_bert_finetune(torch):
+def phase_bert_finetune(torch, mixed_precision="bf16"):
     """examples/torch_nlp_example.py's loop on the card: BERT-base at full
     width and depth (seeded random weights), f32 masters and bf16 compute
-    with the softmax in bf16, AdamW(2e-5, weight decay 0.01) decaying
+    with the softmax in bf16 (``mixed_precision="fp8"``: the fp8 policy,
+    every encoder dense layer's product in fp8, the softmax in f32; phase
+    ``fp8_bert``), AdamW(2e-5, weight decay 0.01) decaying
     linearly, SyntheticMRPC(n=3668) at seq 128 through prepare_data_loader
     (batch 32, shuffled, seed 42): one epoch of 115 steps, the last batch
     20 real rows wrapped round to 32. Then the example's eval pass, whose
@@ -2433,11 +2466,12 @@ def phase_bert_finetune(torch):
     ``next``; three more steps on the epoch's last batches run under
     torch.profiler (``traced``) for the device's idle share."""
     from accelerate_tpu_torch import BertConfig, bert_classification_loss, create_bert_model, prepare_data_loader
+    from accelerate_tpu_torch.ops import fp8
 
     example = bert_example()
     seq, batch_size, n = 128, 32, 3668
     free_memory(torch)  # earlier phases' models sit in reference cycles: out of this phase's peak
-    acc = bert_accelerator(torch, "bf16")
+    acc = bert_accelerator(torch, mixed_precision)
     cfg = BertConfig.base()
     dataset = example.SyntheticMRPC(n=n, seq_len=seq, vocab_size=cfg.vocab_size)
     model = create_bert_model(cfg, seq_len=seq)
@@ -2450,6 +2484,7 @@ def phase_bert_finetune(torch):
     eval_step = acc.build_eval_step(lambda p, ids, mask: model.apply_fn(p, ids, mask))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fp8.launches = 0
 
     losses, fetch_ms, on_card, ends, last_batches = [], [], True, [], []
     t0 = time.perf_counter()
@@ -2470,6 +2505,7 @@ def phase_bert_finetune(torch):
     t0 = time.perf_counter()
     correct, total = example.evaluate(acc, eval_step, loader)
     eval_s = time.perf_counter() - t0
+    fp8_launches = fp8.launches
     events, wall_ms, attempts, lost = traced(torch, lambda: [step(batch) for batch in last_batches])
     busy, _ = device_time(events)
     first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
@@ -2479,9 +2515,14 @@ def phase_bert_finetune(torch):
           f"end_of_dataloader on the last of {n_steps} batches only")
     check(total == n, f"gather_for_metrics gave {total} predictions for {n} rows")
     check(on_card, "every batch arrived as CUDA tensors")
+    # fp8: 6 dense layers a layer, each product forward, dlhs and drhs a train step and forward an eval batch
+    want_fp8 = 6 * cfg.num_hidden_layers * (3 * n_steps + n_steps) if mixed_precision == "fp8" else 0
+    check(fp8_launches == want_fp8, f"fp8 products launched {fp8_launches} times, want {want_fp8}")
+    precision = "bf16 softmax" if mixed_precision == "bf16" else "fp8 dense products (dynamic recipe), f32 softmax"
     row = {
-        "phase": "bert_finetune", "config": "bert-base-uncased shape, seeded random weights, f32 masters + bf16 "
-        "compute, bf16 softmax", "params": model.num_parameters(), "batch": batch_size, "seq": seq, "rows": n,
+        "phase": "bert_finetune" if mixed_precision == "bf16" else f"{mixed_precision}_bert",
+        "config": f"bert-base-uncased shape, seeded random weights, f32 masters + bf16 compute, {precision}",
+        "fp8_launches": fp8_launches, "params": model.num_parameters(), "batch": batch_size, "seq": seq, "rows": n,
         "steps": n_steps, "samples_per_s": n_steps * batch_size / train_s, "train_s": train_s, "eval_s": eval_s,
         "accuracy": correct / total, "predictions": total, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         # the first fetch fills the window (three batches); the last finds the loader done
@@ -3966,6 +4007,405 @@ def phase_analysis(torch):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# fp8 mixed precision and the run's telemetry (``--only fp8``)
+# --------------------------------------------------------------------------- #
+
+FP8_PEAK_FLOPS = 1979e12  # H100 SXM dense fp8 tensor cores (datasheet, no sparsity)
+# the TinyLlama train step's projections: (K, N) of x [16384, K] @ w^T, w [N, K]
+FP8_SHAPES = {"q_o": (2048, 2048), "k_v": (2048, 256), "gate_up": (2048, 5632), "down": (5632, 2048)}
+# _scaled_mm (cuBLASLt, use_fast_accum=False) against its plain version (the same codes, an f32 matmul), per
+# element |got - want| <= t (|want| + RMS(want)). The products of the codes are exact in both; the tensor cores
+# sum them in an accumulator narrower than f32 and promote it to f32 only now and then (fast accumulation off):
+# the first H100 run read 4e-4 to 1.07e-3 over the twelve products, so t is three times the largest
+FP8_MM_TOL = 3e-3
+FP8_LOSS_BAR = 0.1  # tests/test_fp8.py::test_fp8_loss_parity_vs_bf16's bar, fp8 loss against bf16's
+
+
+def fp8_mm_err(torch, got, want) -> float:
+    """max |got - want| / (|want| + RMS(want)), in f32."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (want.abs() + want.square().mean().sqrt())).max())
+
+
+def fp8_bound(m, k, n, out_bytes) -> tuple:
+    """(bound ms, "bytes" | "operations") of one fp8 product: the codes read
+    once, the output written once, against the fp8 peak."""
+    by_bytes = (m * k + k * n + m * n * out_bytes) / HBM_BYTES_PER_S * 1e3
+    by_ops = 2.0 * m * k * n / FP8_PEAK_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_ops else (by_ops, "operations")
+
+
+def phase_fp8_matmul(torch):
+    """The three products of every projection of the TinyLlama train step
+    (M = 8 x 2048 tokens) through ``fp8_mm`` (``torch._scaled_mm``) against
+    its plain version on the same codes: the forward (e4m3 x e4m3), dlhs
+    (e5m2 gradient x e4m3 weight) and drhs (e5m2 gradient^T x e4m3 input,
+    contracting over the tokens). The codes made on the card are held bit
+    for bit to the CPU's. Each product's time beside ``torch.matmul`` in
+    bf16 at the same shape and its bound; the quantize pass (amax, then
+    scale and cast) timed on the largest activations."""
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.utils.quantization import fp8_quantize
+
+    m = 8 * 2048
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, errs = {}, {}
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 product in f32
+    try:
+        for name, (k, n) in FP8_SHAPES.items():
+            x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            w = (torch.randn(n, k, generator=gen, device="cuda") / k**0.5).to(torch.bfloat16)
+            g = (torch.randn(m, n, generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+            (x8, sx), (w8, sw), (g8, sg) = fp8_quantize(x), fp8_quantize(w), fp8_quantize(g, torch.float8_e5m2)
+            for t, (codes, inv), dtype in ((x, (x8, sx), torch.float8_e4m3fn), (w, (w8, sw), torch.float8_e4m3fn),
+                                           (g, (g8, sg), torch.float8_e5m2)):
+                cpu_codes, cpu_inv = fp8_quantize(t.cpu(), dtype)
+                check(torch.equal(codes.cpu().view(torch.uint8), cpu_codes.view(torch.uint8))
+                      and float(inv) == float(cpu_inv), f"fp8_matmul {name}: card codes and scale == the CPU's")
+            products = {
+                "fwd": (x8, w8.t(), sx * sw, (m, k, n), lambda: x @ w.t()),
+                "dlhs": (g8, w8, sg * sw, (m, n, k), lambda: g @ w),
+                "drhs": (g8.t(), x8, sx * sg, (n, m, k), lambda: g.t() @ x),
+            }
+            for kind, (a8, b8, scale, (pm, pk, pn), bf16) in products.items():
+                got = fp8.fp8_mm(a8, b8, scale, torch.float32)
+                want = fp8.fp8_mm_plain(a8, b8, scale, torch.float32)
+                err = fp8_mm_err(torch, got, want)
+                errs[f"{name}/{kind}"] = err
+                bound_ms, bound_by = fp8_bound(pm, pk, pn, 2)
+                ms = time_ms(torch, lambda: fp8.fp8_mm(a8, b8, scale, torch.bfloat16))
+                rows[f"{name}/{kind}"] = {
+                    "m": pm, "k": pk, "n": pn, "max_abs_err": float((got - want).abs().max()), "err_over_rms": err,
+                    "ms": ms, "plain_ms": time_ms(torch, lambda: fp8.fp8_mm_plain(a8, b8, scale, torch.bfloat16),
+                                                  reps=5, warmup=1),
+                    "bf16_matmul_ms": time_ms(torch, bf16), "bound_ms": bound_ms, "bound_by": bound_by,
+                    "tflops": 2.0 * pm * pk * pn / ms / 1e9,
+                }
+            del x, w, g, x8, w8, g8, products
+        big = torch.randn(m, 5632, generator=gen, device="cuda", dtype=torch.bfloat16)
+        quantize_ms = {"16384x5632": time_ms(torch, lambda: fp8_quantize(big)),
+                       "16384x2048": time_ms(torch, lambda: fp8_quantize(big[:, :2048].contiguous()))}
+        # a pass reads the bf16 tensor twice (amax, then scale and cast) and writes the codes once
+        quantize_bound_ms = {"16384x5632": m * 5632 * (2 + 2 + 1) / HBM_BYTES_PER_S * 1e3,
+                             "16384x2048": m * 2048 * (2 + 2 + 1) / HBM_BYTES_PER_S * 1e3}
+        # the padding route: a shape off the 16 grid
+        x8, sx = fp8_quantize(torch.randn(40, 72, generator=gen, device="cuda"))
+        w8, sw = fp8_quantize(torch.randn(24, 72, generator=gen, device="cuda"))
+        odd_err = fp8_mm_err(torch, fp8.fp8_mm(x8, w8.t(), sx * sw, torch.float32),
+                             fp8.fp8_mm_plain(x8, w8.t(), sx * sw, torch.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    row = {"phase": "fp8_matmul", "m": m, "tol": FP8_MM_TOL, "products": rows, "quantize_ms": quantize_ms,
+           "quantize_bound_ms": quantize_bound_ms, "odd_shape_err_over_rms": odd_err}
+    emit(row)
+    for what, err in {**errs, "40x72x24": odd_err}.items():
+        check(err <= FP8_MM_TOL, f"fp8_matmul {what}: _scaled_mm vs plain err {err} <= {FP8_MM_TOL}")
+    free_memory(torch)
+    return row
+
+
+def fp8_trainer(torch, cfg, recipe, seed=0, lr=3e-4, project_dir=None, telemetry=None, log_with=None):
+    """A fresh Accelerator for ``recipe`` ("bf16", "dynamic" or "delayed"),
+    the Llama built after it (the delayed recipe's projections are
+    FP8Dense), AdamW and the train step (has_state under the delayed
+    recipe, whose histories are the model's state)."""
+    from accelerate_tpu_torch import (
+        Accelerator, Fp8RecipeKwargs, ProjectConfiguration, causal_lm_loss, causal_lm_loss_state, create_llama_model,
+    )
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    handlers = [h for h in (Fp8RecipeKwargs() if recipe == "delayed" else None, telemetry) if h is not None]
+    project = ProjectConfiguration(project_dir=project_dir, automatic_checkpoint_naming=True) if project_dir else None
+    acc = Accelerator(mixed_precision="bf16" if recipe == "bf16" else "fp8", kwargs_handlers=handlers,
+                      project_config=project, log_with=log_with)
+    model = acc.prepare_model(create_llama_model(cfg, seed=seed, dtype=torch.float32))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=lr, weight_decay=0.01))
+    if recipe == "delayed":
+        step = acc.build_train_step(lambda p, s, b: causal_lm_loss_state(p, s, b, model.apply_fn), has_state=True)
+    else:
+        step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
+    return acc, model, step
+
+
+def history_entries(model) -> set:
+    """The distinct counts of filled entries over the model's amax histories."""
+    return {int(b.count_nonzero()) for name, b in model.module.named_buffers() if "amax_history" in name}
+
+
+def phase_fp8_train(torch, bf16=None):
+    """The train phase's shape (TinyLlama-1.1B, 22 layers, f32 masters,
+    remat, batch 8 x 2048, AdamW 3e-4) for 2 + 10 steps in bf16 and in fp8
+    under each recipe, from the same weights on the same batches (the
+    bf16 run is the train phase's row, ``bf16``, when that phase ran in
+    this process; else it runs here). Every
+    fp8 loss within FP8_LOSS_BAR of bf16's; K1-K3 launched as in the train
+    phase; the fp8 products 7 x 22 x 4 a step (forward, recompute, dlhs,
+    drhs of each projection); under the delayed recipe one new history
+    entry a step. Tokens/s, step ms, MFU over the bf16 peak (the JAX
+    package's default) and peak memory for each."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8
+
+    b, s, warmup, timed = 8, 2048, 2, 10
+    n = warmup + timed
+    cfg = LlamaConfig(**TINYLLAMA, remat=True)
+    layers = cfg.num_hidden_layers
+    runs = {}
+    if bf16 is not None:
+        runs["bf16"] = {key: bf16[key] for key in ("losses", "tokens_per_s", "step_ms_median", "step_ms_p90",
+                                                   "peak_memory_gb")}
+        runs["bf16"].update(mfu_bf16_peak=bf16["mfu"], launches={**bf16["launches"], "fp8": 0},
+                            history_entries=[], from_phase="train")
+    for recipe in ("dynamic", "delayed") if bf16 is not None else ("bf16", "dynamic", "delayed"):
+        free_memory(torch)
+        acc, model, step = fp8_trainer(torch, cfg, recipe)
+        batches = token_batches(torch, n, b, s, cfg.vocab_size, seed=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        fp8.launches = 0
+        losses, times = [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            loss = step({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv, "fp8": fp8.launches}
+        entries = sorted(history_entries(model))
+        step_ms = sorted(times[warmup:])
+        med = statistics.median(step_ms)
+        flops = llama_step_flops(model.module, cfg, b * s, s)
+        params = model.num_parameters()
+        if recipe == "dynamic":  # where the fp8 step's time goes, beside train_profile's bf16 step
+            phase_train_profile(torch, step, batches, phase="fp8_train_profile",
+                                what="one fp8 train step (dynamic recipe), TinyLlama shape, batch 8 x 2048, remat")
+        runs[recipe] = {
+            "losses": losses, "tokens_per_s": b * s / (med / 1e3), "step_ms_median": med,
+            "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1],
+            "mfu_bf16_peak": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "history_entries": entries,
+        }
+        del acc, model, step, batches
+    row = {"phase": "fp8_train", "config": "TinyLlama-1.1B shape, 22 layers, f32 masters, remat, batch 8 x 2048",
+           "params": params, "step_flops": flops, "warmup_steps": warmup, "timed_steps": timed, **runs}
+    emit(row)
+    base = runs["bf16"]["losses"]
+    for recipe in ("dynamic", "delayed"):
+        r = runs[recipe]
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0], f"fp8 {recipe}: losses fall")
+        gap = max(abs(a - c) for a, c in zip(r["losses"], base))
+        check(gap < FP8_LOSS_BAR, f"fp8 {recipe}: losses within {FP8_LOSS_BAR} of bf16's (max gap {gap})")
+        check(r["launches"] == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n, "fp8": 7 * layers * 4 * n},
+              f"fp8 {recipe}: launches {r['launches']}")
+    check(runs["delayed"]["history_entries"] == [n], f"delayed: every history holds {n} entries, one a step")
+    return row
+
+
+def phase_telemetry(torch):
+    """The fp8 train step (dynamic recipe, TinyLlama widths at 4 layers so
+    that the save stays small, batch 8 x 2048) wrapped by
+    ``accelerator.telemetry.wrap``, with ``log_with="jsonl"`` and
+    ``TelemetryKwargs(nonfinite_every=5, forward_to_trackers_every=5)``:
+    one step record a call in the JSONL event log, the telemetry's median
+    step and MFU within 10% of the phase's own host timing, a forced input
+    shape change firing the recompile watchdog exactly once, ``save_state``
+    writing ``ckpt_commit``, and the tracker file holding the forwarded
+    summaries."""
+    from accelerate_tpu_torch import LlamaConfig, TelemetryKwargs
+    from accelerate_tpu_torch.telemetry import read_events
+
+    b, s, warmup, timed = 8, 2048, 2, 10
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 4}, remat=True)
+    workdir = ckpt_workdir()
+    try:
+        free_memory(torch)
+        handler = TelemetryKwargs(nonfinite_every=5, forward_to_trackers_every=5, warmup_steps=warmup)
+        acc, model, step = fp8_trainer(torch, cfg, "dynamic", project_dir=str(workdir), telemetry=handler,
+                                       log_with="jsonl")
+        acc.init_trackers("fp8_telemetry", config={"recipe": "dynamic", "layers": 4})
+        flops = llama_step_flops(model.module, cfg, b * s, s)
+        tel = acc.telemetry
+        tel.steps.flops_per_step, tel.steps.peak_flops_per_device = flops, PEAK_FLOPS["bfloat16"]
+        wrapped = tel.wrap(step)
+        batches = token_batches(torch, warmup + timed, b, s, cfg.vocab_size, seed=3)
+        times = []
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            wrapped({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        summary = tel.summary()
+        before = tel.recompiles
+        for _ in range(2):  # a new shape, then the same again: one event
+            wrapped({"input_ids": batches[0][: b // 2]})
+        recompiles = tel.recompiles - before
+        acc.save_state()
+        acc.end_training()
+        tel.flush()
+        events = read_events(tel.path)
+        metrics = [json.loads(line) for line in (workdir / "fp8_telemetry" / "metrics.jsonl").read_text().splitlines()]
+        med = statistics.median(times[warmup:])
+        phase_mfu = flops / (med / 1e3) / PEAK_FLOPS["bfloat16"]
+        spans = [e for e in events if e["kind"] == "span" and e["name"] == "step"]
+        forwarded = [r for r in metrics if "telemetry/step_ms" in r]
+        row = {
+            "phase": "telemetry", "config": "TinyLlama widths, 4 layers, fp8 dynamic, batch 8 x 2048",
+            "step_ms_median_phase": med, "p50_step_ms_telemetry": summary["p50_step_ms"],
+            "mfu_phase": phase_mfu, "mfu_telemetry": summary.get("mfu"), "goodput": summary.get("goodput"),
+            "mean_dispatch_ms": summary.get("mean_dispatch_ms"), "mean_execute_ms": summary.get("mean_execute_ms"),
+            "step_records": len(spans), "recompile_events": recompiles,
+            "ckpt_commits": sum(e["name"] == "ckpt_commit" for e in events),
+            "nonfinite_probes": tel.nonfinite.probes, "forwarded_rows": len(forwarded),
+            "observed_peak_hbm_bytes": tel.hbm.observed_peak_bytes, "event_names": sorted({e["name"] for e in events}),
+        }
+        emit(row)
+        check(len(spans) == warmup + timed + 2, f"telemetry: {len(spans)} step records for {warmup + timed + 2} calls")
+        check(abs(summary["p50_step_ms"] - med) <= 0.1 * med, f"telemetry p50 {summary['p50_step_ms']} vs phase {med}")
+        check(summary.get("mfu") is not None and abs(summary["mfu"] - phase_mfu) <= 0.1 * phase_mfu,
+              f"telemetry MFU {summary.get('mfu')} vs phase {phase_mfu}")
+        check(recompiles == 1, f"telemetry: the shape change fired {recompiles} recompile events, want 1")
+        check(row["ckpt_commits"] == 1, "telemetry: save_state wrote ckpt_commit")
+        check(tel.nonfinite.probes >= 2 and tel.nonfinite.nonfinite_event is None, "telemetry: finite probes")
+        check(len(forwarded) == 2 and all(r["telemetry/recompiles"] == 0 for r in forwarded),
+              f"telemetry: the tracker holds the forwarded summaries ({forwarded})")
+        del acc, model, step, wrapped, batches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    free_memory(torch)
+    return row
+
+
+def fp8_consistency_run(torch, build, batches, starts=None):
+    """Run ``build()``'s step over ``batches``. Without ``starts`` it
+    trains freely and returns the losses and the state before and after
+    every step (on the host); with ``starts`` every step first loads
+    ``starts[i]`` (weights and fp8 histories), so each step is held alone."""
+    model, step = build()
+    losses, states = [], [{k: v.detach().cpu().clone() for k, v in model.state_dict().items()}]
+    for i, batch in enumerate(batches):
+        if starts is not None:
+            model.load_state_dict(starts[i])
+        losses.append(float(step(batch)))
+        states.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+    return losses, states
+
+
+def fp8_step_errs(before: dict, card: dict, cpu: dict) -> tuple:
+    """(the update's error: ||card update - CPU update|| / ||CPU update||
+    over the weights, the worst tensor's name, the largest relative
+    difference of a filled amax-history entry)."""
+    num = den = hist = 0.0
+    worst, worst_err = None, -1.0
+    for name, v in cpu.items():
+        if "amax_history" in name:
+            filled = v != 0
+            if filled.any():
+                hist = max(hist, float(((card[name] - v).abs()[filled] / v.abs()[filled]).max()))
+            continue
+        d, u = float((card[name] - v).pow(2).sum()), float((v - before[name]).pow(2).sum())
+        num, den = num + d, den + u
+        if u > 0 and d / u > worst_err:
+            worst, worst_err = name, d / u
+    return (num / den) ** 0.5 if den else 0.0, worst, hist
+
+
+# card against CPU, each fp8 step from the same state (bf16 compute in both): the tensor cores' narrow
+# accumulator (FP8_MM_TOL) and the two devices' bf16 kernels differ by about 1e-3 of a product, and the
+# codes' 3 (e4m3) and 2 (e5m2) mantissa bits turn that into code flips, which a weight gradient summed over
+# the tokens with cancellation feels most. The first H100 run read loss 3.9e-3, update 0.151 (a q_proj
+# weight), history 0.038; the bars are about twice those. A wrong operand or scale reads 1 or more.
+FP8_CONSISTENCY_TOL = {"loss_rel": 1e-2, "update_rel": 0.3, "history_rel": 0.1}
+
+
+def phase_fp8_consistency(torch):
+    """2-layer cuts of both models, three SGD steps on the card (the fp8
+    products through _scaled_mm) and each step again on the CPU (the plain
+    version) from the card's weights and histories before it: each step's
+    loss, the weights' update and the new amax-history entries against the
+    card's, to FP8_CONSISTENCY_TOL. The Llama at TinyLlama widths (batch 1
+    x 256) in both recipes; BERT at BERT-base widths (batch 8 x 128), whose
+    dense layers take the dynamic product under either recipe, as the JAX
+    package's do."""
+    from accelerate_tpu_torch import (
+        Accelerator, BertConfig, Fp8RecipeKwargs, LlamaConfig, bert_classification_loss, causal_lm_loss,
+        causal_lm_loss_state, create_bert_model, create_llama_model,
+    )
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    llama_cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": 2}, remat=True)
+    bert_cfg = BertConfig(**{**BERT_BASE, "num_hidden_layers": 2})
+    rng = np.random.default_rng(9)
+    token_ids = [rng.integers(0, llama_cfg.vocab_size, size=(1, 256)) for _ in range(3)]
+    bert_rows = [{"input_ids": rng.integers(5, bert_cfg.vocab_size, size=(8, 128)),
+                  "attention_mask": np.ones((8, 128), np.bool_), "labels": rng.integers(0, 2, size=(8,))}
+                 for _ in range(3)]
+
+    def builder(kind, recipe, device):
+        def build():
+            for cls in (AcceleratorState, GradientState, PartialState):
+                cls._reset_state()
+            handlers = [Fp8RecipeKwargs()] if recipe == "delayed" else None
+            acc = Accelerator(mixed_precision="fp8", kwargs_handlers=handlers, cpu=device == "cpu")
+            if kind == "llama":
+                model = create_llama_model(llama_cfg, seed=5, device="cpu")
+            else:
+                model = create_bert_model(bert_cfg, seed=5, device="cpu")
+            model, _ = acc.prepare(model, torch.optim.SGD(model.module.parameters(), lr=1e-2))
+            if kind == "llama" and recipe == "delayed":
+                return model, acc.build_train_step(lambda p, s, b: causal_lm_loss_state(p, s, b, model.apply_fn),
+                                                   has_state=True)
+            loss = causal_lm_loss if kind == "llama" else bert_classification_loss
+            return model, acc.build_train_step(lambda p, b: loss(p, b, model.apply_fn))
+        return build
+
+    def batches_on(kind, device):
+        if kind == "llama":
+            return [{"input_ids": torch.as_tensor(ids, device=device)} for ids in token_ids]
+        return [{k: torch.as_tensor(v, device=device) for k, v in row.items()} for row in bert_rows]
+
+    cases = {}
+    for kind, recipe in (("llama", "dynamic"), ("llama", "delayed"), ("bert", "dynamic")):
+        card_losses, card_states = fp8_consistency_run(torch, builder(kind, recipe, "cuda"), batches_on(kind, "cuda"))
+        cpu_losses, cpu_states = fp8_consistency_run(torch, builder(kind, recipe, "cpu"), batches_on(kind, "cpu"),
+                                                     starts=card_states[:-1])
+        errs = [fp8_step_errs(before, card, cpu)
+                for before, card, cpu in zip(card_states[:-1], card_states[1:], cpu_states[1:])]
+        cases[f"{kind}-{recipe}"] = {
+            "losses_cuda": card_losses, "losses_cpu": cpu_losses,
+            "loss_rel_err": max(abs(a - c) / abs(c) for a, c in zip(card_losses, cpu_losses)),
+            "update_rel_err": max(e[0] for e in errs), "worst_tensor": max(errs)[1],
+            "history_rel_err": max(e[2] for e in errs),
+        }
+        free_memory(torch)
+    row = {"phase": "fp8_consistency", "config": "TinyLlama widths 2 layers batch 1 x 256, bert-base widths 2 layers "
+           "batch 8 x 128, mixed_precision=fp8, SGD 1e-2, each step from the card's state",
+           "tol": FP8_CONSISTENCY_TOL, **cases}
+    emit(row)
+    for name, c in cases.items():
+        for key, tol in FP8_CONSISTENCY_TOL.items():
+            check(c[f"{key}_err"] <= tol, f"fp8_consistency {name}: {key} err {c[f'{key}_err']} <= {tol}")
+    return row
+
+
+def phase_fp8(torch, bf16_train=None):
+    """The fp8 group: the products, the train step in both recipes (beside
+    ``bf16_train``, the train phase's row, when it ran), the BERT-base
+    fine-tune, the telemetry, then card against CPU."""
+    matmul = phase_fp8_matmul(torch)
+    train = phase_fp8_train(torch, bf16_train)
+    bert = phase_bert_finetune(torch, "fp8")
+    telemetry = phase_telemetry(torch)
+    consistency = phase_fp8_consistency(torch)
+    return {"matmul": matmul, "train": train, "bert": bert, "telemetry": telemetry, "consistency": consistency}
+
+
 def main() -> int:
     try:
         import torch
@@ -3989,13 +4429,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,resnet,families,sched,dense`
+    # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
+    # dense`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else set()
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
 
+    train = None  # the train phase's row, when it runs: the fp8 group's bf16 baseline
     phase_build()
     print(smi, flush=True)
     if not only or "paged" in only:
@@ -4049,6 +4491,8 @@ def main() -> int:
         phase_train_resume(torch)
     if not only or "imperative" in only:
         phase_imperative(torch)
+    if not only or "fp8" in only:
+        fp8_group = phase_fp8(torch, train)
     if not only or "resnet" in only:
         phase_resnet_train(torch)
         phase_resnet_consistency(torch)
@@ -4090,8 +4534,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
-            # the training paths: TinyLlama's (D 64), Gemma-2B's and Gemma3-1B's (D 256)
-            "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind],
+            # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
+            # Gemma3-1B's (D 256)
+            "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
+            + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed")),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv

@@ -64,7 +64,8 @@ def test_importing_every_module_loads_no_jax():
                  "utils.operations", "models.bert", "models.convert", "checkpointing", "ft", "ft.manifest",
                  "ft.manager", "ft.topology", "ft.preemption", "ft.crashpoints", "utils.retry",
                  "utils.safetensors_io", "test_utils.fault_injection", "models.resnet", "utils.memory",
-                 "test_utils.training", "test_utils.testing"):
+                 "test_utils.training", "test_utils.testing", "ops.fp8", "logging", "utils.imports", "tracking",
+                 "telemetry", "telemetry.eventlog", "telemetry.step", "telemetry.mfu", "telemetry.nonfinite"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -73,7 +74,11 @@ def test_no_source_imports_jax():
     (chip_smoke.py), nor its example imports jax or the JAX package."""
     examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
                                                       "torch_cv_example.py", "torch_gradient_accumulation.py")]
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]:
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]
+    checked = {p.relative_to(PKG).as_posix() for p in sources if PKG in p.parents}
+    assert {"ops/fp8.py", "logging.py", "tracking.py", "utils/imports.py", "telemetry/__init__.py",
+            "telemetry/eventlog.py", "telemetry/step.py", "telemetry/mfu.py", "telemetry/nonfinite.py"} <= checked
+    for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -82,6 +87,40 @@ def test_no_source_imports_jax():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), f"{path}: imports {names}"
+
+
+# refusals the JAX package makes too (ROADMAP.md: "as the reference does"), and the tracker base class's
+# contract; every other NotImplementedError in the port names the Queue 1 item that clears it
+REFERENCE_REFUSALS = (
+    ("accelerator.py", "L2 global norm"),
+    ("ops/kv_cache.py", "softcap"),
+    ("serving.py", "softcap"),
+    ("serving.py", "speculative"),
+    ("serving.py", "preemption does not compose with speculative"),
+    ("models/llama.py", "rope_scaling type"),
+    ("models/llama.py", "FP8Dense (delayed scaling) has no bias"),
+    ("tracking.py", ""),
+)
+
+
+def _message(node) -> str:
+    """The string constants of a raise's arguments, f-strings included."""
+    return "".join(n.value for n in ast.walk(node) if isinstance(n, ast.Constant) and isinstance(n.value, str))
+
+
+def test_every_refusal_names_its_queue_1_item():
+    unnamed = []
+    for path in PKG.rglob("*.py"):
+        rel = path.relative_to(PKG).as_posix()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+                continue
+            msg = _message(node.exc)
+            if "Queue 1 item" in msg or any(rel == f and s in msg for f, s in REFERENCE_REFUSALS):
+                continue
+            unnamed.append(f"{rel}:{node.lineno}: {msg[:80]!r}")
+    assert not unnamed, unnamed
 
 
 def test_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
