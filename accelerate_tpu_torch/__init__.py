@@ -52,7 +52,11 @@ package imports nothing of it (nor of jax). Its slices so far:
   ``init_trackers`` / ``log`` (:mod:`.tracking`), and
   ``accelerator.telemetry`` (:mod:`.telemetry`: the JSONL event log, the
   step timeline, the recompile watchdog, MFU, device memory, the
-  non-finite watchdog; ``TelemetryKwargs``).
+  non-finite watchdog; ``TelemetryKwargs``);
+* the MoE and GPT decoder families (:mod:`.models`: Mixtral and
+  Qwen3-MoE over :mod:`.ops.moe`'s top-k routing with a fixed expert
+  capacity, trained with ``mixtral_lm_loss``'s router aux term; GPT-2 and
+  GPT-NeoX, served by the same ``ServingEngine`` and ``generate``).
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).

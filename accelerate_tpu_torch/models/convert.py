@@ -18,6 +18,14 @@ A JAX model built under the delayed fp8 recipe carries its amax
 histories in an ``fp8`` collection (``model.state``, scanned ``[L, H]``
 leaves or unrolled ``[H]`` ones): pass it as ``state`` and they cross
 into the ``FP8Dense`` buffers of the same names.
+``mixtral_params_from_jax`` carries a Mixtral or Qwen3-MoE tree
+(unrolled ``layer_<i>``): attention and norms as the llama's, and the
+``moe`` dict, whose keys are slashed names inside it (``router/kernel``
+``[d, E]`` becomes ``moe.router.weight [E, d]``; ``experts/gate_proj``,
+``experts/up_proj`` ``[E, d, ff]`` and ``experts/down_proj`` ``[E, ff, d]``
+cross as they are). ``gpt2_params_from_jax`` and
+``gptneox_params_from_jax`` carry the GPT decoders: biased Dense layers,
+LayerNorm ``scale``/``bias``, the position table, a tied or untied head.
 ``bert_params_from_jax`` does the same for
 :func:`accelerate_tpu.models.bert.create_bert_model`'s tree (unrolled
 ``layer_<i>``; ``Embed`` tables cross as they are), and
@@ -186,3 +194,72 @@ def resnet_params_from_jax(params: dict, batch_stats: dict) -> dict:
     walk(params, "")
     walk(batch_stats, "")
     return sd
+
+
+def mixtral_params_from_jax(params: dict, config) -> dict:
+    """The port's Mixtral / Qwen3-MoE state dict (f32 tensors) from a JAX
+    Mixtral param tree (nested dicts of numpy arrays)."""
+    sd = {
+        "embed_tokens.weight": _tensor(_get(params, ("embed_tokens", "embedding")), False),
+        "final_norm.weight": _tensor(_get(params, ("final_norm", "scale")), False),
+        "lm_head.weight": _tensor(_get(params, ("lm_head", "kernel")), True),
+    }
+    norms = [(path, name) for path, name in _LAYER_NORMS if path[-2] in ("input_norm", "post_attn_norm")
+             or (config.qk_norm and path[-2] in ("q_norm", "k_norm"))]
+    for i in range(config.num_hidden_layers):
+        layer, port = params[f"layer_{i}"], f"layers.{i}"
+        for path, name in norms:
+            sd[f"{port}.{name}"] = _tensor(_get(layer, path), False)
+        for path, name in _LAYER_PROJS[:4]:
+            sd[f"{port}.{name}.weight"] = _tensor(_get(layer, (*path, "kernel")), True)
+        moe = layer["moe"]
+        sd[f"{port}.moe.router.weight"] = _tensor(_get(moe, ("router/kernel",)), True)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            sd[f"{port}.moe.experts.{proj}"] = _tensor(_get(moe, (f"experts/{proj}",)), False)
+    return sd
+
+
+def _gpt_params(params: dict, config, names: dict) -> dict:
+    """The GPT decoders' common walk; ``names`` maps the port's module
+    names to the JAX tree's (``embed``, ``ln1``, ``ln2``, ``final``,
+    ``head``)."""
+    sd = {f"{names['embed']}.weight": _tensor(_get(params, (names["embed"], "embedding")), False)}
+
+    def dense(port: str, tree: dict):
+        sd[f"{port}.weight"] = _tensor(_get(tree, ("kernel",)), True)
+        sd[f"{port}.bias"] = _tensor(_get(tree, ("bias",)), False)
+
+    def norm(port: str, tree: dict):
+        sd[f"{port}.weight"] = _tensor(_get(tree, ("scale",)), False)
+        sd[f"{port}.bias"] = _tensor(_get(tree, ("bias",)), False)
+
+    for i in range(config.num_hidden_layers):
+        layer, port = params[f"layer_{i}"], f"layers.{i}"
+        norm(f"{port}.{names['ln1']}", layer[names["ln1"]])
+        norm(f"{port}.{names['ln2']}", layer[names["ln2"]])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            dense(f"{port}.attn.{proj}", layer["attn"][proj])
+        for fc in ("fc_in", "fc_out"):
+            dense(f"{port}.mlp.{fc}", layer["mlp"][fc])
+    norm(names["final"], params[names["final"]])
+    if names["head"] is not None:
+        sd[f"{names['head']}.weight"] = _tensor(_get(params, (names["head"], "kernel")), True)
+    return sd
+
+
+def gpt2_params_from_jax(params: dict, config) -> dict:
+    """The port's GPT-2 state dict (f32 tensors) from a JAX GPT-2 param tree
+    (``wte``, ``wpe``, ``layer_<i>/{ln_1,attn,ln_2,mlp}``, ``ln_f`` and, when
+    untied, ``lm_head``)."""
+    head = None if config.tie_word_embeddings else "lm_head"
+    sd = _gpt_params(params, config, {"embed": "wte", "ln1": "ln_1", "ln2": "ln_2", "final": "ln_f", "head": head})
+    sd["wpe.weight"] = _tensor(_get(params, ("wpe", "embedding")), False)
+    return sd
+
+
+def gptneox_params_from_jax(params: dict, config) -> dict:
+    """The port's GPT-NeoX state dict (f32 tensors) from a JAX GPT-NeoX param
+    tree (``embed_in``, ``layer_<i>/{input_norm,attn,post_attn_norm,mlp}``,
+    ``final_norm``, ``embed_out``)."""
+    return _gpt_params(params, config, {"embed": "embed_in", "ln1": "input_norm", "ln2": "post_attn_norm",
+                                        "final": "final_norm", "head": "embed_out"})

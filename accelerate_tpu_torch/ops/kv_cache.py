@@ -22,6 +22,15 @@ from typing import Optional, Union
 import torch
 
 
+def kv_layout(config) -> tuple[int, int]:
+    """``(KV heads, head dim)`` of a decoder config: its
+    ``num_key_value_heads`` and ``head_dim`` where it has them (the Llama
+    families), else multi-head attention over ``hidden_size //
+    num_attention_heads`` (GPT-2, GPT-NeoX)."""
+    head_dim = getattr(config, "head_dim", None) or config.hidden_size // config.num_attention_heads
+    return getattr(config, "num_key_value_heads", None) or config.num_attention_heads, head_dim
+
+
 @dataclasses.dataclass
 class KVCache:
     """Dense cache: ``key``/``value`` ``[L, B, max_len, H_kv, D]`` and
@@ -36,8 +45,8 @@ class KVCache:
     @classmethod
     def empty(cls, config, batch: int, max_len: int, dtype: torch.dtype, device, per_row: bool = False) -> "KVCache":
         """Zeroed buffers; ``per_row`` gives a ``[batch]`` index of zeros."""
-        head_dim = config.head_dim or config.hidden_size // config.num_attention_heads
-        shape = (config.num_hidden_layers, batch, max_len, config.num_key_value_heads, head_dim)
+        kv_heads, head_dim = kv_layout(config)
+        shape = (config.num_hidden_layers, batch, max_len, kv_heads, head_dim)
         index = torch.zeros(batch, dtype=torch.int64, device=device) if per_row else 0
         return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device),
                    index)

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from .kv_cache import kv_layout
 from .paged_attention import paged_decode_attention
 
 
@@ -51,8 +52,8 @@ class PagedKVCache:
     def empty(cls, config, pcfg: PagedConfig, batch: int, dtype: torch.dtype, device) -> "PagedKVCache":
         """An all-zero cache whose table width follows the model's horizon
         (``ceil(max_position_embeddings / block_size)`` entries a row)."""
-        head_dim = config.head_dim or config.hidden_size // config.num_attention_heads
-        shape = (config.num_hidden_layers, pcfg.num_blocks, pcfg.block_size, config.num_key_value_heads, head_dim)
+        kv_heads, head_dim = kv_layout(config)
+        shape = (config.num_hidden_layers, pcfg.num_blocks, pcfg.block_size, kv_heads, head_dim)
         mb = -(-config.max_position_embeddings // pcfg.block_size)
         return cls(
             torch.zeros(shape, dtype=dtype, device=device),

@@ -118,7 +118,28 @@ it, all three equal. Then the slices:
   ``accelerator.telemetry`` with the JSONL tracker (``telemetry``); and
   2-layer cuts of both models held card against CPU step by step
   (``fp8_consistency``). The fp8 products are library GEMMs, as the JAX
-  package's are XLA dots: they add no row to the kernels line.
+  package's are XLA dots: they add no row to the kernels line;
+* the MoE families (``--only moe``): K1-K3 at Qwen3-30B-A3B's attention
+  (B 1, S 2048, H 32/4, D 128) against their plain versions
+  (``moe_flash``); Qwen3-30B-A3B at full width, 4 of its 48 layers
+  (seeded random weights, f32 masters and bf16 compute), trained 2 + 10
+  steps at 1 x 2048 through ``build_train_step`` and
+  ``qwen3_moe_lm_loss`` with its router aux loss, every layer's attention
+  through K1-K3 (launches == layers x steps), the aux loss and the share
+  of routed assignments dropped at capacity reported, one step traced by
+  operator kind (``qwen3_moe_train``); 2-layer f32 cuts of Mixtral and
+  Qwen3-MoE held card against CPU, their routing asserted clear of ties
+  (``moe_consistency``). The routing is index tensors and library GEMMs,
+  as the JAX package's is one-hot einsums: no kernel of its own;
+* the GPT decoders (``--only gpt``): K4 at GPT-NeoX-20B's and GPT-2's
+  decode shapes (``gpt_kernel``); GPT-NeoX-20B at full width (12 of its 44
+  layers in the full script, all 44 under ``--only gpt``; bf16) served on
+  the paged engine with the serving traffic, K4 at D 96 in every decode
+  step, greedy tokens against a no-cache loop, one tick traced
+  (``neox_serve``); GPT-2 small served on the paged and the dense layout
+  (``gpt2_serve``) and trained at 8 x 1024 on the einsum attention
+  (``gpt2_train``); 2-layer f32 cuts of both held card against CPU:
+  logits, greedy generate, the paged engine (``gpt_consistency``).
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -251,8 +272,18 @@ def kernel_bound(q, kp, table, cur, window):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel(torch):
-    """The kernel against its plain version at the serving slice's shapes."""
+# K4's cases at the serving slice's shapes: name, dtype, heads, kv_heads, dim, window, atol
+KERNEL_CASES = [
+    ("f32", "float32", 32, 4, 64, None, 1e-4),
+    ("bf16", "bfloat16", 32, 4, 64, None, 2e-2),
+    ("bf16-window256", "bfloat16", 32, 4, 64, 256, 2e-2),
+    ("bf16-d128", "bfloat16", 32, 4, 128, None, 2e-2),
+]
+
+
+def phase_kernel(torch, cases=KERNEL_CASES, phase="kernel"):
+    """The kernel against its plain version at the shapes of ``cases`` (B 8,
+    128 blocks of 16 rows a table)."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import paged_attention as pa
@@ -260,17 +291,11 @@ def phase_kernel(torch):
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
-    cases = [
-        # name, dtype, heads, kv_heads, dim, window, atol
-        ("f32", torch.float32, 32, 4, 64, None, 1e-4),
-        ("bf16", torch.bfloat16, 32, 4, 64, None, 2e-2),
-        ("bf16-window256", torch.bfloat16, 32, 4, 64, 256, 2e-2),
-        ("bf16-d128", torch.bfloat16, 32, 4, 128, None, 2e-2),
-    ]
     b, bs, mb = 8, 16, 128
     one = torch.zeros(1, device="cuda")
     results = {}
-    for name, dtype, heads, kv_heads, dim, window, atol in cases:
+    for name, dtype_name_, heads, kv_heads, dim, window, atol in cases:
+        dtype = getattr(torch, dtype_name_)
         q, kp, vp, table, cur = paged_inputs(torch, gen, b, heads, kv_heads, dim, bs, mb, dtype, rng)
 
         def kernel():
@@ -302,7 +327,7 @@ def phase_kernel(torch):
         lib_err = (library()[:, :, 0].float() - want.float()).abs().max().item()
         bound_ms, bound_by = kernel_bound(q, kp, table, cur, window)
         row = {
-            "phase": "kernel", "case": name, "shape": [b, heads, kv_heads, dim, bs, mb], "window": window,
+            "phase": phase, "case": name, "shape": [b, heads, kv_heads, dim, bs, mb], "window": window,
             "max_abs_err": err, "atol": atol, "library_max_abs_err": lib_err,
             "ms": time_ms(torch, kernel, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
             "library_ms": time_ms(torch, library, flush=flush), "bound_ms": bound_ms, "bound_by": bound_by,
@@ -348,16 +373,18 @@ def serve_engine(model):
     return ServingEngine(model, num_slots=8, prompt_buckets=(64, 256), paged_block_size=16, tick_block=8)
 
 
-def serve_run(torch, model, phase, config):
+def serve_run(torch, model, phase, config, engine=None):
     """The serving configuration on ``model``: 12 prompts of 5-400 tokens,
-    64 new tokens each, greedy. Every decode step's attention must be K4,
+    64 new tokens each, greedy. Every decode step's attention must be K4
+    (on the paged engine; the dense one, ``engine=dense_engine``, runs none),
     and for a quantized model every projection of every forward K5."""
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.ops import qmatmul
 
     cfg = model.config
+    engine = engine or serve_engine
     # warm-up outside the measured run (library handles, allocator)
-    serve_engine(model).generate_many(
+    engine(model).generate_many(
         [np.arange(1, 9, dtype=np.int32), np.arange(1, 300, dtype=np.int32)], max_new_tokens=9
     )
 
@@ -366,7 +393,7 @@ def serve_run(torch, model, phase, config):
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
     max_new = 64
     free_memory(torch)  # the warm-up engine's pools, and whatever an earlier phase dropped
-    eng = serve_engine(model)
+    eng = engine(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.launches = qmatmul.launches = 0
@@ -381,10 +408,10 @@ def serve_run(torch, model, phase, config):
         out, lps = eng.poll(uid), eng.logprobs(uid)
         check(out is not None and len(out) == len(p) + max_new, f"request {uid} completed with its length")
         check(len(lps) == max_new and bool(np.isfinite(lps).all()), f"request {uid} logprobs finite")
-    want = cfg.num_hidden_layers * eng.decode_steps
-    check(launches == want, f"kernel launches {launches} == layers x decode steps {want}")
+    want = cfg.num_hidden_layers * eng.decode_steps if eng.paged else 0
+    check(launches == want, f"kernel launches {launches} == layers x decode steps {want} (paged: {eng.paged})")
     forwards = eng.prefill_forwards + eng.decode_steps
-    want_int4 = 7 * cfg.num_hidden_layers * forwards if cfg.quant_method == "int4" else 0
+    want_int4 = 7 * cfg.num_hidden_layers * forwards if getattr(cfg, "quant_method", None) == "int4" else 0
     check(int4_launches == want_int4, f"int4 launches {int4_launches} == 7 x layers x forwards {want_int4}")
     snap = eng.metrics.snapshot()
     return {
@@ -415,7 +442,7 @@ def phase_serve(torch):
     return row, model
 
 
-def traced(torch, run, leads=(256, 2048, 8192)):
+def traced(torch, run, leads=(256, 2048, 8192), record_shapes=False, on_trace=None):
     """``run()`` under torch.profiler: ``(its device events, wall ms of run,
     attempts, lead markers lost)``, the events without user annotations
     or markers. The profiler loses the first few device events of a
@@ -426,12 +453,13 @@ def traced(torch, run, leads=(256, 2048, 8192)):
     take that loss, and one more follows ``run``. Where a lead marker and
     the last one are traced, so is everything between them. Otherwise
     ``run`` is traced again behind a longer lead; the phase fails if none
-    does."""
+    does. ``record_shapes`` records the operators' input shapes, and
+    ``on_trace(prof)`` is handed the profile that was kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for attempt, lead in enumerate(leads, 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=record_shapes) as prof:
             for _ in range(lead):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
@@ -448,6 +476,8 @@ def traced(torch, run, leads=(256, 2048, 8192)):
         first, last = min(ev.time_range.start for ev in kept), max(ev.time_range.start for ev in kept)
         led = sum(t < first for t in spins)
         if led and sum(t > last for t in spins) == 1:
+            if on_trace is not None:
+                on_trace(prof)
             return kept, wall_ms, attempt, lead - led
     check(False, f"torch.profiler traced a lead marker and the last one around the run (leads up to {leads[-1]})")
 
@@ -712,7 +742,7 @@ FLASH_CASES = [
 ]
 
 
-def phase_flash_kernel(torch, cases=FLASH_CASES):
+def phase_flash_kernel(torch, cases=FLASH_CASES, phase="flash_kernel"):
     """K1-K3 against their plain versions at the training slice's attention
     shape (B 8, H 32, H_kv 4, D 64, S 2048, causal, bf16), again in fp16 and
     f32 and at D 128, and at the families' head dims: D 96 (Phi-3-mini, H
@@ -757,7 +787,7 @@ def phase_flash_kernel(torch, cases=FLASH_CASES):
             "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw),
             "bwd": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
         }
-        row = {"phase": "flash_kernel", "case": name, "shape": [b, s, h, h_kv, d], "causal": True, "window": window,
+        row = {"phase": phase, "case": name, "shape": [b, s, h, h_kv, d], "causal": True, "window": window,
                "library_max_abs_err_fwd": lib_err}
         for kind in kernels:
             bound_ms, bound_by = flash_bound(kind, q, k, True, window)
@@ -1271,18 +1301,21 @@ def attention_op_errors(torch, b, s, h, hkv, d, window) -> dict:
 BANDED_SERVE = {"mistral": (5, 300), "phi3": (5, 2100), "gemma3": (5, 600)}
 
 
-def banded_serve_card_vs_cpu(torch, cpu, card, family) -> dict:
+def banded_serve_card_vs_cpu(torch, cpu, card, family, lengths=None) -> dict:
     """``family``'s 2-layer cut served by the paged engine on the card and on
     the CPU (2 slots, blocks of 16, 20 new tokens, greedy, f32): K4 launches
     == layers x decode steps, the pool drained, and the card's tokens equal
     the CPU engine's, a request's comparison ending only at a top-2 logit
-    gap under 1e-3 of the CPU's forward on the shared context."""
+    gap under 1e-3 of the CPU's forward on the shared context. ``lengths``
+    (default: ``BANDED_SERVE[family]``) are the prompts' lengths."""
     from accelerate_tpu_torch import ServingEngine
     from accelerate_tpu_torch.ops import paged_attention as pa
 
+    lengths = lengths or BANDED_SERVE[family]
     rng = np.random.default_rng(14)
-    prompts = [rng.integers(1, cpu.config.vocab_size, size=n).astype(np.int32) for n in BANDED_SERVE[family]]
-    kw = dict(num_slots=2, prompt_buckets=(64, 512), paged_block_size=16, tick_block=4, max_len=4096)
+    prompts = [rng.integers(1, cpu.config.vocab_size, size=n).astype(np.int32) for n in lengths]
+    kw = dict(num_slots=2, prompt_buckets=(64, 512), paged_block_size=16, tick_block=4,
+              max_len=min(4096, cpu.config.max_position_embeddings))
     want = ServingEngine(cpu, device="cpu", **kw).generate_many(prompts, 20)
     eng = ServingEngine(card, **kw)
     pa.launches = 0
@@ -1309,7 +1342,8 @@ def banded_serve_card_vs_cpu(torch, cpu, card, family) -> dict:
             gap = float(top2[0] - top2[1])
             check(gap < 1e-3, f"{family} paged: card token {upto - len(p)} differs from the CPU's with gap {gap}")
             near += 1
-    return {"prompts": list(BANDED_SERVE[family]), "window": card.config.sliding_window, "kernel_launches": launches,
+    return {"prompts": list(lengths), "window": getattr(card.config, "sliding_window", None),
+            "kernel_launches": launches,
             "decode_steps": eng.decode_steps, "blocks_expired_mid_decode": freed, "tokens_compared": compared,
             "stopped_at_near_tie": near}
 
@@ -4406,6 +4440,547 @@ def phase_fp8(torch, bf16_train=None):
     return {"matmul": matmul, "train": train, "bert": bert, "telemetry": telemetry, "consistency": consistency}
 
 
+# ---------------------------------------------------------------------------
+# the MoE and GPT decoder families: Qwen3-30B-A3B trained at full width
+# (``--only moe``), GPT-NeoX-20B and GPT-2 served and GPT-2 trained (``--only gpt``)
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen3-30B-A3B config.json: Qwen3MoeConfig.qwen3_30b_a3b()'s defaults (vocab 151,936, hidden 2048, 48
+# layers, 32/4 heads, head dim 128, 128 experts, top-8, expert width 768, qk-norm, norm_topk_prob). Cut to 4 of
+# its 48 layers: a layer holds 623.1 M parameters (604 M of them experts), the embedding and the head 311.2 M
+# each, so 4 layers are 3.11 B parameters, whose f32 masters, gradients, AdamW moments and bf16 copies peaked at
+# 52.4 GB on the H100
+MOE_LAYERS = 4
+# K1-K3 at the MoE step's attention: [B, S, H, H_kv, D] = Qwen3-30B-A3B's at batch 1 x 2048
+MOE_FLASH_CASES = [("bf16-d128-qwen3moe", "bfloat16", [1, 2048, 32, 4, 128], None, 30)]
+# the card-vs-CPU cuts: Mixtral's tiny() widths, and Qwen3-MoE's structure (qk-norm, head dim 128, norm_topk) at
+# hidden 512 with 16 experts, top-4: widths at which no top-k choice of the checked batch lies within
+# MOE_TIE_MARGIN of a tie (asserted), so both devices route alike
+MOE_TIE_MARGIN = 1e-6
+# one SGD step's update, card against CPU (f32), over the tensor's largest CPU update: weights whose gradient is a
+# sum over tokens with cancellation read up to 6.9e-4 on the H100 (the Qwen3-MoE cut's post_attn_norm; Mixtral's
+# expert gate_proj 1.45e-4), about a third of the limit
+MOE_UPDATE_TOL = 2e-3
+# EleutherAI/gpt-neox-20b config.json: GPTNeoXConfig.neox_20b()'s defaults (vocab 50,432, hidden 6144, 44 layers,
+# 64 heads of 96, rotary on 24 dims, parallel residual). Served at full depth under --only gpt; the full script
+# cuts it to NEOX_LAYERS to end inside its 1,200 s
+NEOX_LAYERS = 12
+# K4 at the GPT serves' decode shapes: GPT-NeoX-20B's 64 heads of 96 and GPT-2's 12 heads of 64, MHA
+GPT_KERNEL_CASES = [
+    ("bf16-neox20b", "bfloat16", 64, 64, 96, None, 2e-2),
+    ("bf16-gpt2", "bfloat16", 12, 12, 64, None, 2e-2),
+]
+
+
+def moe_active_params(module, cfg) -> float:
+    """The parameters a token uses: every non-embedding one (the head
+    included), but only ``num_experts_per_tok`` of the ``num_local_experts``
+    experts."""
+    share = cfg.num_experts_per_tok / cfg.num_local_experts
+    return sum(p.numel() * (share if ".experts." in name else 1.0)
+               for name, p in module.named_parameters() if "embed" not in name)
+
+
+def moe_step_flops(module, cfg, tokens: int, seq_len: int) -> float:
+    """The model's FLOPs for one training step: 6 x the active parameters
+    (moe_active_params) x tokens, plus the attention scores (12 x batch x
+    heads x head dim x the causal S^2 / 2 a layer). The dispatch and combine
+    are not counted: they are routing, not the model's arithmetic."""
+    active = moe_active_params(module, cfg)
+    width = cfg.num_attention_heads * (cfg.head_dim or cfg.hidden_size // cfg.num_attention_heads)
+    attn = 12.0 * (tokens // seq_len) * width * 0.5 * seq_len**2 * cfg.num_hidden_layers
+    return 6.0 * active * tokens + attn
+
+
+@contextlib.contextmanager
+def routing_spy(moe_ops):
+    """Keep each routing call's kept and total assignments and its aux loss
+    (device tensors, read once the block is done)."""
+    real, seen = moe_ops.route, []
+
+    def spy(*args, **kwargs):
+        r = real(*args, **kwargs)
+        seen.append((r.keep.sum(), r.keep.numel(), r.aux.detach()))
+        return r
+
+    moe_ops.route = spy
+    try:
+        yield seen
+    finally:
+        moe_ops.route = real
+
+
+def moe_op_kind(key: str, shapes, t: int, e: int, k: int, vocab: int) -> str:
+    """The kind of an operator of the MoE step (``t`` tokens, ``e`` experts,
+    top-``k``), from its name and input shapes."""
+    dims = [list(s) for s in shapes if isinstance(s, (list, tuple))]
+    first = dims[0] if dims else []
+    gemm = key in ("aten::mm", "aten::addmm", "aten::matmul", "aten::linear")
+    if key in ("aten::bmm", "aten::baddbmm"):
+        return "expert products" if first[:1] == [e] else "combine contraction" if first[:1] == [t] else "other"
+    if key.startswith("aten::index") or key in ("aten::_index_put_impl_", "aten::sort", "aten::nonzero"):
+        return "dispatch/combine gather-scatter"
+    if (gemm and any(vocab in s for s in dims)) or any(s[-1:] == [vocab] and s[0] in (1, t) for s in dims if s):
+        return "f32 head and loss"
+    if gemm:
+        return "dense projections"
+    if len(first) == 3 and first[0] == e:
+        return "expert elementwise and casts"
+    if any(s in ([t, e], [e], [k, t]) for s in dims):
+        return "routing loop"
+    return "other"
+
+
+def moe_step_kinds(prof, t: int, e: int, k: int, vocab: int, time_attr="self_device_time_total") -> tuple:
+    """``({kind: device ms}, top operators)`` of a traced MoE step: each
+    host event's own device time, given to the nearest ``aten::`` operator
+    at or above it (a launch the runtime held, "Command Buffer Full",
+    belongs to the operator that launched it) and sorted by moe_op_kind;
+    the optimizer's and the flash attention's (forward and backward) go by
+    their enclosing event."""
+    from torch.autograd import DeviceType
+
+    by_kind, by_op = {}, {}
+    for ev in prof.events():
+        ms = getattr(ev, time_attr, 0.0) / 1e3
+        if ms <= 0 or ev.device_type != DeviceType.CPU:
+            continue
+        chain, parent = [ev], ev.cpu_parent
+        while parent is not None:
+            chain.append(parent)
+            parent = parent.cpu_parent
+        op = next((node for node in chain if node.name.startswith("aten::")), ev)
+        if any(node.name.startswith("Optimizer.") for node in chain):
+            kind = "optimizer"
+        elif any("FlashAttention" in node.name for node in chain):
+            kind = "flash K1-K3"
+        else:
+            kind = moe_op_kind(op.name, op.input_shapes or [], t, e, k, vocab)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        key = (op.name, str(op.input_shapes)[:70], kind)
+        by_op[key] = by_op.get(key, 0.0) + ms
+    top = sorted(([*key, ms] for key, ms in by_op.items()), key=lambda r: -r[-1])[:15]
+    return by_kind, top
+
+
+def phase_moe_flash(torch):
+    """K1-K3 at Qwen3-30B-A3B's attention (B 1, S 2048, H 32/4, D 128, causal,
+    bf16) against their plain versions, FLASH_TOL unchanged, timed beside
+    the bound and scaled_dot_product_attention (phase_flash_kernel)."""
+    return phase_flash_kernel(torch, MOE_FLASH_CASES, phase="moe_flash")[MOE_FLASH_CASES[0][0]]
+
+
+def phase_qwen3_moe_train(torch):
+    """Qwen3-30B-A3B at full width, MOE_LAYERS of its 48 layers, f32 masters
+    and bf16 compute, AdamW(3e-4, weight decay 0.01; ``foreach=False``: the
+    foreach kernels' temporaries would copy every moment at once), batch 1 x
+    2048 through ``Accelerator(mixed_precision="bf16")`` -> ``prepare_model``
+    / ``prepare_optimizer`` -> ``build_train_step(lambda p, b:
+    qwen3_moe_lm_loss(p, b, module=model.module))``: 2 warm-up and 10 timed
+    steps. Losses finite and falling; every layer's attention through the
+    flash kernels, K1 = K2 = K3 = layers x steps (no remat); the aux loss
+    and the share of routed assignments dropped at capacity reported. One
+    more step traced: device ms by operator kind (the dispatch and combine
+    gather-scatter, the expert products, the routing loop, the f32 head,
+    K1-K3)."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import Qwen3MoeConfig, create_qwen3_moe_model, qwen3_moe_lm_loss
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import moe as moe_ops
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    b, s, warmup, timed = 1, 2048, 2, 10
+    cfg = Qwen3MoeConfig.qwen3_30b_a3b(num_hidden_layers=MOE_LAYERS)
+    free_memory(torch)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    t0 = time.perf_counter()
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare_model(create_qwen3_moe_model(cfg, seed=0))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=3e-4, weight_decay=0.01, foreach=False))
+    step = acc.build_train_step(lambda p, batch: qwen3_moe_lm_loss(p, batch, module=model.module))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = token_batches(torch, warmup + timed, b, s, cfg.vocab_size, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    losses, times = [], []
+    with routing_spy(moe_ops) as routed:
+        for i in range(warmup + timed):
+            t1 = time.perf_counter()
+            loss = step({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n, layers = warmup + timed, cfg.num_hidden_layers
+    check(all(np.isfinite(losses)), f"qwen3_moe_train: losses finite: {losses}")
+    check(losses[-1] < losses[0], f"qwen3_moe_train: loss falls over {n} steps: {losses[0]} -> {losses[-1]}")
+    check(launches == {"fwd": layers * n, "dq": layers * n, "dkv": layers * n},
+          f"qwen3_moe_train: flash launches {launches} == K1, K2, K3 {layers} x {n}")
+    check(len(routed) == layers * n, f"qwen3_moe_train: {len(routed)} routing calls == layers x steps")
+    kept = [float(k) / total for k, total, _ in routed]
+    aux = [float(a) for _, _, a in routed]
+    aux_by_step = [float(np.mean(aux[i * layers:(i + 1) * layers])) for i in range(n)]
+    check(all(np.isfinite(aux_by_step)), f"qwen3_moe_train: aux losses finite: {aux_by_step}")
+    step_ms = sorted(times[warmup:])
+    med = statistics.median(step_ms)
+    flops = moe_step_flops(model.module, cfg, b * s, s)
+
+    # one more step traced: device time by kernel and by operator kind
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step({"input_ids": batches[0]})
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t1) * 1e3
+    profs = []
+    events, wall_ms, attempts, lost = traced(torch, lambda: step({"input_ids": batches[1]}), record_shapes=True,
+                                             on_trace=profs.append)
+    busy, by_name = device_time(events)
+    flash_names = ("flash_fwd", "flash_dq", "flash_dkv")
+    flash_ms = sum(ms for name, (ms, _) in by_name.items() if any(f in name for f in flash_names))
+    by_kind, top_ops = moe_step_kinds(profs[0], b * s, cfg.num_local_experts, cfg.num_experts_per_tok,
+                                      cfg.vocab_size)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    row = {
+        "phase": "qwen3_moe_train",
+        "config": f"Qwen3-30B-A3B widths, {layers} of 48 layers, f32 masters + bf16 compute, seeded",
+        "reduced": {"num_hidden_layers": [layers, 48]}, "params": model.num_parameters(),
+        "active_params_per_token": int(moe_active_params(model.module, cfg)),
+        "batch": b, "seq": s, "warmup_steps": warmup, "timed_steps": timed, "model_build_s": build_s,
+        "tokens_per_s": b * s / (med / 1e3), "step_ms_median": med,
+        "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1], "step_flops": flops,
+        "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak,
+        "memory_total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9, "losses": losses,
+        "aux_loss_by_step": aux_by_step, "dropped_share": 1.0 - float(np.mean(kept)),
+        "dropped_share_max_layer": 1.0 - min(kept), "launches": launches,
+        "profile": {
+            "step_wall_ms": wall_ms, "step_wall_ms_unprofiled": plain_wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if busy else None, "flash_ms_by_kernel_name": flash_ms,
+            "device_ms_by_kind": by_kind, "device_ms_by_kind_sum": sum(by_kind.values()),
+            "kernels_traced": sum(c for _, c in by_name.values()),
+            "trace_attempts": attempts, "trace_lead_lost": lost,
+            "top_kernels": [[name[:90], ms, c] for name, (ms, c) in top], "top_ops": top_ops,
+        },
+    }
+    emit(row)
+    del acc, model, step, batches, profs
+    free_memory(torch)
+    return row
+
+
+def routing_margin(torch, model, ids) -> float:
+    """The smallest gap, over the layers and tokens of one forward of
+    ``model`` on ``ids``, between consecutive router probabilities among
+    each token's top k + 1 (the last choice and the first not chosen
+    included): how far the routing is from a tie."""
+    from accelerate_tpu_torch.ops import moe as moe_ops
+
+    real, gaps = moe_ops.route, []
+
+    def spy(logits, k, capacity, norm_topk=True):
+        p = torch.softmax(logits.float(), -1).sort(-1, descending=True).values[:, : k + 1]
+        gaps.append(float((p[:, :-1] - p[:, 1:]).min()))
+        return real(logits, k, capacity, norm_topk)
+
+    moe_ops.route = spy
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        moe_ops.route = real
+    return min(gaps)
+
+
+def moe_step_on(torch, cpu_model, device, batch, lr):
+    """One SGD(lr) step of ``mixtral_lm_loss`` through an Accelerator on
+    ``device`` (f32, TF32 off), from a copy of ``cpu_model``'s weights:
+    ``(loss, {name: update on the CPU})``."""
+    import copy
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import mixtral_lm_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    model = Model(copy.deepcopy(cpu_model.module), cpu_model.config, name=cpu_model.name)
+    acc = Accelerator(cpu=device == "cpu", mixed_precision="no")
+    model = acc.prepare_model(model)
+    acc.prepare_optimizer(torch.optim.SGD(model.module.parameters(), lr=lr))
+    step = acc.build_train_step(lambda p, b: mixtral_lm_loss(p, b, module=model.module))
+    before = {n: p.detach().cpu().clone() for n, p in model.module.named_parameters()}
+    loss = float(step({"input_ids": batch.to(device)}))
+    return loss, {n: p.detach().cpu() - before[n] for n, p in model.module.named_parameters()}
+
+
+def phase_moe_consistency(torch):
+    """2-layer f32 cuts of Mixtral (``tiny()`` widths) and Qwen3-MoE (its
+    structure at hidden 512, 16 experts, top-4), built on the CPU and copied
+    to the card, on a batch of 2 x 64 whose routing lies at least
+    MOE_TIE_MARGIN from a tie (asserted on the CPU): the card's logits within
+    1e-4 of the CPU's RMS, its per-layer aux losses within 1e-5, one SGD
+    step's loss within 1e-5 relative and every parameter's update within
+    MOE_UPDATE_TOL of that tensor's largest CPU update."""
+    import copy
+
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import MixtralConfig, Qwen3MoeConfig, create_mixtral_model
+
+    cuts = {
+        "mixtral": MixtralConfig.tiny(),
+        "qwen3_moe": Qwen3MoeConfig.qwen3_30b_a3b(num_hidden_layers=2, vocab_size=4096, hidden_size=512,
+                                                  num_attention_heads=4, num_key_value_heads=2,
+                                                  num_local_experts=16, num_experts_per_tok=4,
+                                                  moe_intermediate_size=256),
+    }
+    rows = []
+    for family, cfg in cuts.items():
+        cpu = create_mixtral_model(cfg, seed=5, device="cpu")
+        card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+        ids = torch.as_tensor(np.random.default_rng(15).integers(1, cfg.vocab_size, size=(2, 64)))
+        margin = routing_margin(torch, cpu, ids)
+        check(margin > MOE_TIE_MARGIN, f"{family}: routing {margin} from a tie > {MOE_TIE_MARGIN}")
+        with torch.no_grad():
+            want, want_aux = cpu(ids, with_aux=True)
+            got, got_aux = card(ids.cuda(), with_aux=True)
+        got = got.cpu()
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((got - want).abs().max())
+        aux_err = max(abs(float(g) - float(w)) for g, w in zip(got_aux, want_aux))
+        check(bool(torch.isfinite(got).all()) and err <= 1e-4 * rms,
+              f"{family}: card logits within 1e-4 of the CPU's RMS: {err} vs {rms}")
+        check(aux_err <= 1e-5, f"{family}: card aux losses within 1e-5 of the CPU's: {aux_err}")
+        lr = 1e-2
+        cpu_loss, cpu_upd = moe_step_on(torch, cpu, "cpu", ids, lr)
+        card_loss, card_upd = moe_step_on(torch, cpu, "cuda", ids, lr)
+        loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        upd_errs = {n: float((card_upd[n] - u).abs().max() / u.abs().max().clamp_min(1e-30))
+                    for n, u in cpu_upd.items()}
+        worst = max(upd_errs, key=upd_errs.get)
+        check(loss_err <= 1e-5, f"{family}: card step loss within 1e-5 of the CPU's: {loss_err}")
+        check(upd_errs[worst] <= MOE_UPDATE_TOL,
+              f"{family}: card updates within {MOE_UPDATE_TOL} of the CPU's largest: {worst} {upd_errs[worst]}")
+        rows.append({"family": family, "params": cpu.num_parameters(), "routing_margin": margin,
+                     "logits_max_abs_err": err, "logits_rms": rms, "aux_max_abs_err": aux_err,
+                     "step_loss_rel_err": loss_err, "update_err_over_max": upd_errs[worst], "worst_tensor": worst})
+        del cpu, card
+        free_memory(torch)
+    row = {"phase": "moe_consistency", "cuts": rows}
+    emit(row)
+    return row
+
+
+def dense_engine(model):
+    from accelerate_tpu_torch import ServingEngine
+
+    return ServingEngine(model, num_slots=8, prompt_buckets=(64, 256), tick_block=8)
+
+
+def served_against_reference(torch, model, engine, seed, lengths=(5, 130, 400), new=32):
+    """``engine(model)`` serves prompts of ``lengths`` (greedy), each held to
+    the no-cache loop over the full forward under serve's gap rule
+    (greedy_against_reference, SERVE_BF16_GAP): ``(tokens compared,
+    requests stopped at a near tie, max logprob error)``."""
+    eng, rng = engine(model), np.random.default_rng(seed)
+    prompts = [rng.integers(1, model.config.vocab_size, size=n).astype(np.int32) for n in lengths]
+    uids = [eng.submit(p, new) for p in prompts]
+    eng.run()
+    served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+    del eng
+    free_memory(torch)
+    compared, near, lp_err = greedy_against_reference(torch, model, served, gap_limit=SERVE_BF16_GAP)
+    check(compared > 0, "tokens compared against the no-cache loop")
+    return compared, near, lp_err
+
+
+def phase_neox_serve(torch, layers):
+    """GPT-NeoX-20B at full width (hidden 6144, 64 heads of 96, rotary on 24
+    dims, parallel residual, vocab 50,432), ``layers`` of its 44, bf16 on
+    seeded random weights, served by the paged engine with serve's traffic
+    (8 slots, 12 prompts of 5-400 tokens, 64 new, greedy): every decode
+    step's attention through K4 at D 96, MHA (launches == layers x decode
+    steps); three requests' greedy tokens held to a no-cache loop over the
+    full forward under serve's gap rule; one decode tick traced for its
+    idle share."""
+    from accelerate_tpu_torch.models import GPTNeoXConfig, create_gptneox_model
+
+    cfg = GPTNeoXConfig.neox_20b(num_hidden_layers=layers)
+    free_memory(torch)
+    t0 = time.perf_counter()
+    model = create_gptneox_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    what = f"GPT-NeoX-20B widths, {layers} of 44 layers, bf16, seeded random weights"
+    row = serve_run(torch, model, "neox_serve", what)
+    compared, near, lp_err = served_against_reference(torch, model, serve_engine, seed=8)
+    profile = phase_profile(torch, model, phase="neox_profile", what=what)
+    row.update(model_build_s=build_s, head_dim=cfg.hidden_size // cfg.num_attention_heads,
+               heads=[cfg.num_attention_heads, cfg.num_attention_heads], tokens_compared=compared,
+               stopped_at_near_tie=near, max_logprob_err=lp_err, tick_idle_share=profile["idle_share"],
+               tick_wall_ms=profile["tick_wall_ms"], tick_device_busy_ms=profile["device_busy_ms"])
+    if layers < 44:
+        row["reduced"] = {"num_hidden_layers": [layers, 44]}
+    emit(row)
+    del model
+    free_memory(torch)
+    return row
+
+
+def phase_gpt2_serve(torch):
+    """GPT-2 small (openai-community/gpt2's config.json: 768, 12 x 12 heads,
+    1,024 positions, tied head) at full width and depth, bf16, seeded:
+    serve's traffic on the paged engine (K4 at D 64, MHA; launches == 12 x
+    decode steps) and on the dense one (no K4), and on each layout three
+    requests held to the no-cache loop under serve's gap rule."""
+    from accelerate_tpu_torch.models import GPT2Config, create_gpt2_model
+
+    free_memory(torch)
+    model = create_gpt2_model(GPT2Config.small(), seed=0, dtype=torch.bfloat16)
+    rows = {}
+    for layout, engine in (("paged", serve_engine), ("dense", dense_engine)):
+        row = serve_run(torch, model, "gpt2_serve", f"GPT-2 small, bf16, seeded random weights, {layout} layout",
+                        engine=engine)
+        compared, near, lp_err = served_against_reference(torch, model, engine, seed=9)
+        row.update(layout=layout, tokens_compared=compared, stopped_at_near_tie=near, max_logprob_err=lp_err)
+        emit(row)
+        rows[layout] = row
+    del model
+    free_memory(torch)
+    return rows
+
+
+def phase_gpt2_train(torch):
+    """GPT-2 small at full width and depth, f32 masters, bf16 compute,
+    AdamW(3e-4, weight decay 0.01), batch 8 x 1024 through
+    ``build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))``:
+    2 warm-up and 10 timed steps, losses finite and falling. S 1024 is under
+    FLASH_MIN_SEQ, so the attention is the einsum path, as in the JAX
+    package: no K1 launch."""
+    from accelerate_tpu_torch import Accelerator, causal_lm_loss
+    from accelerate_tpu_torch.models import GPT2Config, create_gpt2_model
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    b, s, warmup, timed = 8, 1024, 2, 10
+    cfg = GPT2Config.small()
+    free_memory(torch)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare_model(create_gpt2_model(cfg, seed=0))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=3e-4, weight_decay=0.01))
+    step = acc.build_train_step(lambda p, batch: causal_lm_loss(p, batch, model.apply_fn))
+    batches = token_batches(torch, warmup + timed, b, s, cfg.vocab_size, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = 0
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(float(step({"input_ids": batches[i]})))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"gpt2_train: losses finite: {losses}")
+    check(losses[-1] < losses[0], f"gpt2_train: loss falls: {losses[0]} -> {losses[-1]}")
+    check(fa.launches_fwd == 0, f"gpt2_train: S {s} < FLASH_MIN_SEQ runs the einsum path ({fa.launches_fwd} K1)")
+    step_ms = sorted(times[warmup:])
+    med = statistics.median(step_ms)
+    body = sum(p.numel() for name, p in model.module.named_parameters() if name.startswith("layers."))
+    flops = 6.0 * (body + cfg.hidden_size * cfg.vocab_size) * b * s + 12.0 * b * cfg.hidden_size * 0.5 * s * s \
+        * cfg.num_hidden_layers
+    row = {
+        "phase": "gpt2_train", "config": "GPT-2 small, 12 layers, f32 masters + bf16 compute, seeded",
+        "params": model.num_parameters(), "batch": b, "seq": s, "warmup_steps": warmup, "timed_steps": timed,
+        "tokens_per_s": b * s / (med / 1e3), "step_ms_median": med,
+        "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1], "step_flops": flops,
+        "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses, "k1_launches": 0,
+    }
+    emit(row)
+    del acc, model, step, batches
+    free_memory(torch)
+    return row
+
+
+def phase_gpt_consistency(torch):
+    """GPT-2 and GPT-NeoX-20B at their published widths cut to 2 layers, f32,
+    built on the CPU and copied to the card: the card's logits (batch 2 x 64)
+    within 1e-4 of the CPU's RMS; greedy generate of 8 tokens after 16 equal
+    to the CPU's (a token differing only where the CPU's top-2 gap is under
+    1e-3, which ends that row); the paged engine on the card against the
+    CPU's (banded_serve_card_vs_cpu: prompts of 5 and 40 tokens, K4
+    launches == layers x decode steps)."""
+    import copy
+
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import GPT2Config, GPTNeoXConfig, create_gpt2_model, create_gptneox_model
+
+    rows = []
+    rng = np.random.default_rng(16)
+    for family, cfg, create in (("gpt2", GPT2Config.small(num_hidden_layers=2), create_gpt2_model),
+                                ("gptneox", GPTNeoXConfig.neox_20b(num_hidden_layers=2), create_gptneox_model)):
+        t0 = time.perf_counter()
+        cpu = create(cfg, seed=5, device="cpu")
+        card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+        ids = rng.integers(1, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+        with torch.no_grad():
+            want = cpu(torch.as_tensor(ids))
+            got = card(torch.as_tensor(ids, device="cuda")).cpu()
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= 1e-4 * rms,
+              f"{family}: card logits within 1e-4 of the CPU's RMS: {err} vs {rms}")
+        prompt = ids[:, :16]
+        want_tok = generate(cpu, prompt, max_new_tokens=8).numpy()
+        got_tok = generate(card, prompt, max_new_tokens=8).cpu().numpy()
+        compared = near = 0
+        for r in range(2):
+            diff = np.nonzero(want_tok[r, 16:] != got_tok[r, 16:])[0]
+            upto = int(diff[0]) if len(diff) else 8
+            compared += upto
+            if len(diff):
+                with torch.no_grad():
+                    top2 = torch.topk(cpu(torch.as_tensor(want_tok[r:r + 1, :16 + upto]))[0, -1], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap < 1e-3, f"{family}: generated token {upto} differs with top-2 gap {gap}")
+                near += 1
+        serve = banded_serve_card_vs_cpu(torch, cpu, card, family, lengths=(5, 40))
+        rows.append({"family": family, "params": cpu.num_parameters(), "logits_max_abs_err": err, "logits_rms": rms,
+                     "tokens_compared": compared, "stopped_at_near_tie": near, "paged_serve": serve,
+                     "seconds": time.perf_counter() - t0})
+        del cpu, card
+        free_memory(torch)
+    row = {"phase": "gpt_consistency", "families": rows}
+    emit(row)
+    return row
+
+
+def phase_moe(torch) -> dict:
+    """The MoE group: K1-K3 at Qwen3-30B-A3B's attention, its training step,
+    the 2-layer cuts card against CPU."""
+    flash = phase_moe_flash(torch)
+    train = phase_qwen3_moe_train(torch)
+    phase_moe_consistency(torch)
+    return {"flash": flash, "train": train}
+
+
+def phase_gpt(torch, neox_layers: int) -> dict:
+    """The GPT group: K4 at the GPT serves' shapes, GPT-NeoX-20B and GPT-2
+    served, GPT-2 trained, the 2-layer cuts card against CPU."""
+    kernel = phase_kernel(torch, GPT_KERNEL_CASES, phase="gpt_kernel")
+    neox = phase_neox_serve(torch, neox_layers)
+    gpt2 = phase_gpt2_serve(torch)
+    phase_gpt2_train(torch)
+    consistency = phase_gpt_consistency(torch)
+    k4 = neox["kernel_launches"] + gpt2["paged"]["kernel_launches"] + sum(
+        r["paged_serve"]["kernel_launches"] for r in consistency["families"])
+    return {"kernel": kernel, "k4_launches": k4}
+
+
 def main() -> int:
     try:
         import torch
@@ -4430,7 +5005,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense`
+    # dense,moe,gpt`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -4508,6 +5083,10 @@ def main() -> int:
         sched = phase_sched(torch)
     if not only or "dense" in only:
         phase_dense(torch, seed)
+    if not only or "moe" in only:
+        moe = phase_moe(torch)
+    if not only or "gpt" in only:
+        gpt = phase_gpt(torch, 44 if only else NEOX_LAYERS)  # the group alone serves GPT-NeoX-20B at full depth
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -4518,11 +5097,12 @@ def main() -> int:
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
         # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
-        # Gemma-2B's (head dim 256), the banded families' 2-layer cuts and Mistral-7B-v0.1's three phases
+        # Gemma-2B's (head dim 256), the banded families' 2-layer cuts, Mistral-7B-v0.1's three phases,
+        # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
         + gemma_serve["kernel_launches"]
         + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
-        + sum(r["kernel_launches"] for r in sched.values()),
+        + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
@@ -4535,9 +5115,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
             # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
-            # Gemma3-1B's (D 256)
+            # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128)
             "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
-            + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed")),
+            + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed"))
+            + moe["train"]["launches"][kind],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv

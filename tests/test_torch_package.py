@@ -65,7 +65,8 @@ def test_importing_every_module_loads_no_jax():
                  "ft.manager", "ft.topology", "ft.preemption", "ft.crashpoints", "utils.retry",
                  "utils.safetensors_io", "test_utils.fault_injection", "models.resnet", "utils.memory",
                  "test_utils.training", "test_utils.testing", "ops.fp8", "logging", "utils.imports", "tracking",
-                 "telemetry", "telemetry.eventlog", "telemetry.step", "telemetry.mfu", "telemetry.nonfinite"):
+                 "telemetry", "telemetry.eventlog", "telemetry.step", "telemetry.mfu", "telemetry.nonfinite",
+                 "ops.moe", "models.mixtral", "models.qwen3_moe", "models.gpt2", "models.gptneox"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
