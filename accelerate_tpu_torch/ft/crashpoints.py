@@ -35,13 +35,13 @@ lands on it again). The restore labels, in restore order:
 
 The serving labels keep the JAX package's names. ``ServingEngine.step``
 calls the first three at the tick's phase boundaries, where the engine's
-host state is consistent; ``pre_handoff`` waits for the fleet's
-disaggregated dispatch (ROADMAP.md Queue 1 item 10):
+host state is consistent; the fleet router's disaggregated dispatch calls
+``pre_handoff``. Each passes ``replica=<name>``:
 
 * ``pre_tick``    -- the start of a tick, before shedding and admissions
 * ``mid_prefill`` -- before each prefilling slot's next window or bucket
 * ``mid_decode``  -- before the decode tick runs
-* ``pre_handoff`` -- the fleet router's dispatch (not reached yet).
+* ``pre_handoff`` -- before a prefill replica runs a detached prefill.
 """
 
 from __future__ import annotations

@@ -24,6 +24,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..utils.environment import kernel_build_dir
+from .launch import count_launch
+
+# libraries nvcc built in this process (a library found built counts none):
+# what a fleet's spin-up reports as its compiles
+nvcc_builds = 0
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
@@ -130,6 +135,7 @@ def _finish(name: str, proc, tmp: Path, lib: Path) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent builder sees a whole library or none
+    count_launch(globals(), "nvcc_builds")
     return log
 
 

@@ -28,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .launch import LaunchSite, TileSpec, record
+from .launch import LaunchSite, TileSpec, count_launch, record
 
 THREADS = 256  # threads a block of csrc/kernel_fixtures.cu
 MAX_BLOCKS = 8  # blocks a launch's table of tile origins holds: kMaxBlocks of csrc/kernel_fixtures.cu
@@ -124,7 +124,7 @@ def tile_copy(x, *, tile, grid, in_map, out_map, out=None) -> torch.Tensor:
     def launch(origins, out):
         from .build import load
 
-        global launches_copy, last_copy_smem_request
+        global last_copy_smem_request
         lib = load("kernel_fixtures")
         request = ctypes.c_longlong(0)
         err = lib.tile_copy(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
@@ -133,7 +133,7 @@ def tile_copy(x, *, tile, grid, in_map, out_map, out=None) -> torch.Tensor:
         )
         last_copy_smem_request = request.value
         if err == 0:
-            launches_copy += 1
+            count_launch(globals(), "launches_copy")
         return err
 
     return _run(site, out, launch)
@@ -158,14 +158,13 @@ def tile_add(a, d, *, tile, grid, a_map, d_map, out_map, alias: bool = False, ou
     def launch(origins, out):
         from .build import load
 
-        global launches_add
         lib = load("kernel_fixtures")
         err = lib.tile_add(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
             a.data_ptr(), d.data_ptr(), out.data_ptr(), origins, site.blocks, a.shape[0], a.shape[1],
             *tile, _stream(a),
         )
         if err == 0:
-            launches_add += 1
+            count_launch(globals(), "launches_add")
         return err
 
     return _run(site, out, launch)
@@ -184,13 +183,12 @@ def tile_scale(x, *, tile, grid, in_map, out_map, out=None) -> torch.Tensor:
     def launch(origins, out):
         from .build import load
 
-        global launches_scale
         lib = load("kernel_fixtures")
         err = lib.tile_scale(  # tpu-lint: disable=TPU1005 (a seeded-defect fixture: no contract)
             x.data_ptr(), out.data_ptr(), origins, site.blocks, x.shape[0], x.shape[1], *tile, _stream(x),
         )
         if err == 0:
-            launches_scale += 1
+            count_launch(globals(), "launches_scale")
         return err
 
     return _run(site, out, launch)

@@ -28,6 +28,7 @@ import contextvars
 import itertools
 import math
 import sys
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Optional
@@ -35,6 +36,10 @@ from typing import Any, Callable, Optional
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
+# one lock for every wrapper's launch counter: a fleet's replicas tick on
+# threads of their own, and ``count += 1`` on a module global is a read,
+# an add and a store that two threads can interleave
+_COUNT_LOCK = threading.Lock()
 # frames inside these are the wrappers' own; a launch is located at the first frame outside them
 _WRAPPER_DIRS = (str(_PKG / "kernels") + "/", str(_PKG / "ops") + "/", str(Path(torch.__file__).parent) + "/")
 # reaching the analyzer's own frame means the traced function was a wrapper itself: no user location
@@ -176,3 +181,13 @@ def runs_on_card(t: torch.Tensor) -> bool:
     """Whether the card's path takes ``t``: a CUDA tensor, or a ``meta``
     tensor under a recorder (a trace stands for the card)."""
     return t.device.type == "cuda" or (t.device.type == "meta" and _CURRENT.get() is not None)
+
+
+def count_launch(namespace: dict, name: str = "launches") -> None:
+    """Add one to the counter ``name`` of a kernel module (``namespace`` is
+    its ``globals()``), exactly under concurrent calls: a wrapper's launch
+    count, where its kernel launched and nowhere else (and ``build.py``'s
+    count of ``nvcc`` builds). A counter is still read, and reset to 0, as
+    a plain module attribute."""
+    with _COUNT_LOCK:
+        namespace[name] += 1

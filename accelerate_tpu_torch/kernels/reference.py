@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .contracts import kernel_cost
-from .launch import LaunchSite, TileSpec, record
+from .launch import LaunchSite, TileSpec, count_launch, record
 from .tickets import tickets
 
 #: rows of the tiled operand a block owns
@@ -236,8 +236,7 @@ def block_matmul_softmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"block_matmul_softmax kernel launch failed: cudaError {err}")
-    global launches_matmul_softmax
-    launches_matmul_softmax += 1
+    count_launch(globals(), "launches_matmul_softmax")
     return out
 
 
@@ -310,6 +309,5 @@ def block_accumulate(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"block_accumulate kernel launch failed: cudaError {err}")
-    global launches_accumulate
-    launches_accumulate += 1
+    count_launch(globals(), "launches_accumulate")
     return acc

@@ -10,23 +10,29 @@ the buffer is made, and every launch leaves them at 0.
 A buffer is kept for each (device, stream): launches on one stream run one
 after another and can share counters; two streams never do. A buffer only
 grows, by replacing it with a larger zeroed one; the old one returns to the
-caching allocator behind the launches already queued on that stream.
+caching allocator behind the launches already queued on that stream. A
+lock keeps the table whole when a fleet's replicas launch from threads of
+their own (on one stream their launches still run one after another).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 _MIN_COUNTERS = 1024
 _BUFFERS: dict = {}
+_LOCK = threading.Lock()
 
 
 def tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
     """At least ``count`` zeroed int32 counters for launches on ``stream``
     (a raw ``cudaStream_t`` handle) of ``device``."""
     key = (device.index, stream)
-    buf = _BUFFERS.get(key)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, _MIN_COUNTERS), dtype=torch.int32, device=device)
-        _BUFFERS[key] = buf
+    with _LOCK:
+        buf = _BUFFERS.get(key)
+        if buf is None or buf.numel() < count:
+            buf = torch.zeros(max(count, _MIN_COUNTERS), dtype=torch.int32, device=device)
+            _BUFFERS[key] = buf
     return buf

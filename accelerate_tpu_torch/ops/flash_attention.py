@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.launch import LaunchSite, record
+from ..kernels.launch import LaunchSite, count_launch, record
 
 # Kernel launches since import (or since a caller reset them to 0).
 launches_fwd = 0
@@ -374,8 +374,7 @@ def flash_fwd_kernel(q, k, v, causal, scale, window):
     else:
         lib = load("flash_attention")
         _raise_on(lib.flash_attention_fwd(*ptrs, *dims, *tail), "flash_attention_fwd")
-    global launches_fwd
-    launches_fwd += 1
+    count_launch(globals(), "launches_fwd")
     return out, lse
 
 
@@ -407,8 +406,7 @@ def flash_dq_kernel(q, k, v, dout, lse, delta, causal, scale, window):
     else:
         lib = load("flash_attention")
         _raise_on(lib.flash_attention_dq(*ptrs, *dims, *tail), "flash_attention_dq")
-    global launches_dq
-    launches_dq += 1
+    count_launch(globals(), "launches_dq")
     return dq
 
 
@@ -433,8 +431,7 @@ def flash_dkv_kernel(q, k, v, dout, lse, delta, causal, scale, window):
     else:
         lib = load("flash_attention")
         _raise_on(lib.flash_attention_dkv(*ptrs, *dims, *tail), "flash_attention_dkv")
-    global launches_dkv
-    launches_dkv += 1
+    count_launch(globals(), "launches_dkv")
     return dk, dv
 
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.launch import count_launch
 from ..state import AcceleratorState
 from ..utils.quantization import FP8_E4M3_MAX as E4M3_MAX
 from ..utils.quantization import fp8_quantize
@@ -77,7 +78,6 @@ def fp8_mm(a8: torch.Tensor, b8: torch.Tensor, scale: torch.Tensor, out_dtype: t
     e5m2 x e4m3). Dims that are not multiples of 16 are zero-padded (the
     padding adds nothing to the product). On a CPU (or meta) tensor it is
     :func:`fp8_mm_plain`; any other device raises."""
-    global launches
     if a8.device.type in ("cpu", "meta"):
         return fp8_mm_plain(a8, b8, scale, out_dtype, divide)
     if a8.device.type != "cuda":
@@ -92,7 +92,7 @@ def fp8_mm(a8: torch.Tensor, b8: torch.Tensor, scale: torch.Tensor, out_dtype: t
     scale_a = (1.0 / scale if divide else scale).float().reshape(())
     one = torch.ones((), dtype=torch.float32, device=a8.device)
     out = torch._scaled_mm(a, b, scale_a=scale_a, scale_b=one, out_dtype=out_dtype, use_fast_accum=False)
-    launches += 1
+    count_launch(globals())
     return out[:m, :n] if (mp, np_) != (m, n) else out
 
 

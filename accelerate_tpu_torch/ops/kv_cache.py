@@ -77,6 +77,27 @@ class KVCache:
         index = self.index.repeat_interleave(k) if isinstance(self.index, torch.Tensor) else self.index
         return KVCache(self.key.repeat_interleave(k, dim=1), self.value.repeat_interleave(k, dim=1), index)
 
+    def host_rows(self, n: int) -> dict:
+        """The first ``n`` positions of a batch-1 cache on the host: ``key``
+        / ``value`` ``[L, 1, n, H_kv, D]`` (fresh host tensors, never a view
+        of the buffers) and each layer's write index (int32 ``[L]``, all
+        ``n``), as the JAX package's row cache carries one a layer. A
+        serving fleet's KV handoff payload: rows past ``n`` never ship."""
+        rows = {}
+        for name, buf in (("key", self.key), ("value", self.value)):
+            part = buf[:, :, :n]
+            rows[name] = torch.empty(part.shape, dtype=part.dtype).copy_(part)
+        rows["index"] = torch.full((self.key.shape[0],), n, dtype=torch.int32)
+        return rows
+
+    @classmethod
+    def from_host_rows(cls, rows: dict, device) -> "KVCache":
+        """:meth:`host_rows`' payload back on ``device``: a batch-1 cache
+        holding just those rows, its index their count (a paste or a dense
+        insert takes as many rows as it holds)."""
+        key = rows["key"].to(device, copy=True)
+        return cls(key, rows["value"].to(device, copy=True), key.shape[2])
+
     def gather_rows(self, rows: torch.Tensor) -> "KVCache":
         """The rows ``rows`` (int64 ``[B']``) along the batch axis: a new cache."""
         index = self.index[rows] if isinstance(self.index, torch.Tensor) else self.index

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.launch import LaunchSite, record
+from ..kernels.launch import LaunchSite, count_launch, record
 from ..kernels.tickets import tickets
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -112,8 +112,7 @@ def paged_decode_attention(
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    count_launch(globals())
     return out
 
 

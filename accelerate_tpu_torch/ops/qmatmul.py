@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.launch import LaunchSite, record, runs_on_card
+from ..kernels.launch import LaunchSite, count_launch, record, runs_on_card
 from ..kernels.tickets import tickets
 
 # Kernel launches since import (or since a caller reset it to 0): one per
@@ -176,8 +176,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *, g
     )
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    count_launch(globals())
     return out
 
 

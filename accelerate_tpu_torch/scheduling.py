@@ -1,9 +1,10 @@
 """Scheduling policy for the continuous-batching serving engine.
 
 A copy of :mod:`accelerate_tpu.scheduling` (host-only policy, no jax),
-kept here so the port imports nothing of the JAX package; the fleet
-routing policy stays behind with the fleet (ROADMAP.md Queue 1 item 10).
-:mod:`accelerate_tpu_torch.serving` consults every decision below.
+kept here so the port imports nothing of the JAX package.
+:mod:`accelerate_tpu_torch.serving` consults the engine's decisions below,
+and :mod:`accelerate_tpu_torch.serving_fleet` the fleet's routing ones
+(:class:`RoutingConfig`, :class:`FleetRoutingPolicy`).
 
 The serving engine owns the *mechanism* (slots, caches, the prefill
 and decode programs); this module owns the *policy* — the
@@ -50,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 
 class ShedError(RuntimeError):
@@ -146,6 +147,87 @@ class SchedulerConfig:
             raise ValueError(f"shed_action must be reject|deprioritize, got {self.shed_action!r}")
         if self.speculative_priorities is not None:
             self.speculative_priorities = tuple(int(p) for p in self.speculative_priorities)
+
+
+@dataclasses.dataclass
+class RoutingConfig:
+    """Fleet-level routing policy knobs
+    (:class:`~accelerate_tpu_torch.serving_fleet.FleetRouter`).
+
+    ``policy``: how a request without prefix affinity picks a replica —
+    ``"least_loaded"`` (min queued + active, ties to the lowest index)
+    or ``"round_robin"``. Prefix affinity (a replica already holds the
+    request's shared preamble in its radix cache) always wins over the
+    policy: re-prefilling a cached preamble on a colder replica costs
+    more than any load imbalance the policy could fix.
+
+    ``max_fleet_queue_depth``: fleet-wide SLO admission gate — the sum
+    of every replica's queue depth, checked at ``FleetRouter.submit``
+    with the SAME priority-class semantics as the per-engine scheduler
+    (only ``priority >= shed_priority_floor`` is sheddable, rejection is
+    a structured :class:`ShedError`). Per-replica depth/wait SLOs keep
+    riding each engine's own :class:`SchedulerConfig` unchanged.
+    """
+
+    policy: str = "least_loaded"
+    max_fleet_queue_depth: Optional[int] = None
+    shed_priority_floor: int = 1
+
+    def __post_init__(self):
+        if self.policy not in ("least_loaded", "round_robin"):
+            raise ValueError(f"policy must be least_loaded|round_robin, got {self.policy!r}")
+        if self.max_fleet_queue_depth is not None and self.max_fleet_queue_depth < 1:
+            raise ValueError(
+                f"max_fleet_queue_depth must be >= 1, got {self.max_fleet_queue_depth}"
+            )
+
+
+class FleetRoutingPolicy:
+    """Replica-selection + fleet-admission decisions for a
+    :class:`~accelerate_tpu_torch.serving_fleet.FleetRouter` — the same
+    policy/mechanism split as :class:`Scheduler`: all replica state stays
+    in the router, this object only decides."""
+
+    def __init__(self, config: Optional[RoutingConfig] = None):
+        self.config = config or RoutingConfig()
+        self._rr = 0
+
+    def shed_on_submit(self, priority: int, fleet_queue_depth: int) -> Optional[str]:
+        """Reason string if a new request must be rejected at the fleet
+        edge (aggregate queue-depth SLO; priority classes below the shed
+        floor are never rejected)."""
+        cfg = self.config
+        if cfg.max_fleet_queue_depth is None or priority < cfg.shed_priority_floor:
+            return None
+        if fleet_queue_depth >= cfg.max_fleet_queue_depth:
+            return (
+                f"fleet queue depth {fleet_queue_depth} >= "
+                f"max_fleet_queue_depth {cfg.max_fleet_queue_depth}"
+            )
+        return None
+
+    def shed_on_capacity(self, n_routable: int) -> Optional[str]:
+        """Reason string if the fleet has NO routable capacity left (every
+        replica quarantined/dead/draining) — the circuit-breaker edge: a
+        submission that cannot be served anywhere is rejected with a
+        structured :class:`ShedError` instead of queueing into a black
+        hole. Unlike depth shedding this ignores the priority floor: no
+        class is servable when nothing is serving."""
+        if n_routable <= 0:
+            return "no serving replicas (fleet capacity lost)"
+        return None
+
+    def pick_replica(self, loads: Sequence[float], eligible: Sequence[int]) -> int:
+        """Index (into ``loads``) of the replica a request should route
+        to, among ``eligible`` indices. ``loads`` is queued + active per
+        replica."""
+        if not eligible:
+            raise ValueError("no eligible replicas")
+        if self.config.policy == "round_robin":
+            pick = sorted(eligible)[self._rr % len(eligible)]
+            self._rr += 1
+            return pick
+        return min(eligible, key=lambda i: (loads[i], i))
 
 
 class Scheduler:

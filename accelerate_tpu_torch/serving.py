@@ -68,12 +68,26 @@ tokens before the host reads the tokens back.
 * sampling is greedy at ``temperature=0``, else temperature/top-k from a
   ``torch.Generator`` per request, seeded from ``(seed, uid)``; every
   generated token carries its f32 log-probability under the full
-  distribution.
+  distribution;
+* **KV handoff and failover** (:mod:`.serving_fleet`):
+  :meth:`prefill_detached` runs one request's prefill and returns its
+  rows on the host with its first token and its generator's state;
+  :meth:`submit_prefilled` admits such a handoff on another engine,
+  pasting the rows (zero prefill compute there). :meth:`export_inflight`
+  snapshots every in-flight request (the dense, non-speculative layout
+  adds each decoding slot's rows), :meth:`import_inflight` continues it on
+  a survivor, by the pasted rows or by recompute, its ``torch.Generator``
+  state carried so a sampled stream goes on as it would have;
+* **telemetry**: ``telemetry_log`` (an :class:`~.telemetry.eventlog.EventLog`)
+  receives the engine's events (admit, shed, preemption, resume,
+  failover import) and :meth:`ServingMetrics.emit` snapshots; ``tracer``
+  (a :class:`~.telemetry.trace.Tracer`, usually the fleet's) records a
+  request's segments: queue wait, admission, each prefill window, the
+  handoff paste, decode windows, preemption and resume.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): ``perf_check`` / ``numerics_check`` (item 11), telemetry
-logs, program caches and auto-bucketing (item 9), request tracing, KV
-handoff and failover export/import (item 10).
+Queue 1 item): ``perf_check`` / ``numerics_check`` (item 11), program
+caches and auto-bucketing (item 9).
 """
 
 from __future__ import annotations
@@ -88,7 +102,7 @@ import torch
 
 from .ft.crashpoints import crash_point
 from .generation import _make_sampler
-from .ops.kv_cache import KVCache, reset_cache_index
+from .ops.kv_cache import KVCache, kv_layout, reset_cache_index
 from .ops.paged_kv import (
     BlockAllocator,
     PagedConfig,
@@ -100,6 +114,7 @@ from .ops.paged_kv import (
 )
 from .scheduling import Scheduler, SchedulerConfig, ShedError
 from .speculative import build_spec_step
+from .telemetry.eventlog import EventLog
 from .telemetry.serving_metrics import ServingMetrics
 from .utils.environment import resolve_device
 
@@ -129,6 +144,12 @@ class _Request:
     deprioritized: bool = False
     ttft_done: bool = False
     resume_gen: Optional[torch.Generator] = None
+    # a request whose prefill ran on another replica carries the handed-off
+    # rows (submit_prefilled), or a failover import its exported rows;
+    # consumed once at admission
+    handoff: Optional[dict] = None
+    # the request's trace id (telemetry.trace), carried across replicas
+    trace: Optional[int] = None
 
 
 class ServingEngine:
@@ -151,8 +172,10 @@ class ServingEngine:
     prompts, no prefix caching, no preemption).
     ``scheduler``: a :class:`~.scheduling.SchedulerConfig`, a
     :class:`~.scheduling.Scheduler`, or anything with
-    ``to_scheduler_config()``. ``device``: where the engine runs (``cuda``
-    unless ``"cpu"`` is asked for); the model must already live there.
+    ``to_scheduler_config()``. ``telemetry_log``: an event log for the
+    engine's events and metric snapshots; ``tracer``: a request tracer.
+    ``device``: where the engine runs (``cuda`` unless ``"cpu"`` is asked
+    for); the model must already live there.
     """
 
     def __init__(
@@ -181,10 +204,8 @@ class ServingEngine:
         for m in (model, draft_model):
             if m is not None and m.device.type != self.device.type:
                 raise ValueError(f"model is on {m.device}, engine device is {self.device}; move one of them")
-        for what, val, item in (("telemetry_log", telemetry_log, 9), ("program_cache", program_cache, 9),
-                                ("tracer", tracer, 10)):
-            if val is not None:
-                raise _not_ported(what, item)
+        if program_cache is not None:
+            raise _not_ported("program_cache", 9)
         if auto_bucketing:
             raise _not_ported("auto_bucketing", 9)
         self.paged = paged_block_size is not None
@@ -205,7 +226,11 @@ class ServingEngine:
                 "(resume recomputes only the target cache)"
             )
 
-        self.metrics = ServingMetrics(self)
+        self.metrics = ServingMetrics(self, log=telemetry_log)
+        # the engine's own events go to the same log (a disabled one without
+        # it, which still feeds taps such as a fleet's flight recorder)
+        self._log = telemetry_log if telemetry_log is not None else EventLog(None)
+        self.tracer = tracer
         self.model = model
         self.num_slots = num_slots
         self.prompt_buckets = tuple(sorted(prompt_buckets))
@@ -330,11 +355,13 @@ class ServingEngine:
         """An empty dense row cache of ``max_len`` rows for one prefill."""
         return KVCache.empty(self.model.config, 1, self.max_len, self.model.dtype, self.device)
 
-    def _prefill_bucket(self, prompt: np.ndarray, b: int, gen, slot: int):
+    def _prefill_bucket(self, prompt: np.ndarray, b: int, gen, slot: int, trace=None):
         """Pad ``prompt`` to bucket ``b`` and run one cached forward;
         returns ``(first token, its logprob, row cache)``. On the dense
         layout the forward writes straight into the slot's rows (and the
-        draft's, with a draft model) and the row cache is None."""
+        draft's, with a draft model) and the row cache is None. With a
+        trace id the forward records one ``prefill`` span."""
+        t0 = time.perf_counter()
         ids = np.zeros((1, b), np.int32)
         ids[0, : len(prompt)] = prompt
         ids = torch.as_tensor(ids, device=self.device)
@@ -346,7 +373,15 @@ class ServingEngine:
         self.prefill_forwards += 1
         self.prefill_tokens += b
         tok, lp = self._sample_row(logits[0, len(prompt) - 1], gen)
+        self._trace_prefill(trace, b, t0)
         return tok, lp, (cache if self.paged else None)
+
+    def _trace_prefill(self, trace, tokens: int, t0: float) -> None:
+        """One ``prefill`` span: its frontier-contiguous wall time, and the
+        forward's own in ``compute_ms`` (from ``t0``, on the host clock)."""
+        if self.tracer is not None and trace is not None:
+            self.tracer.seg(trace, "prefill", tokens=int(tokens),
+                            compute_ms=round((time.perf_counter() - t0) * 1000.0, 3))
 
     def _next_window(self, t: int, s: int):
         """Plan the next end-aligned prefill window over ``full[s:t]``:
@@ -357,11 +392,13 @@ class ServingEngine:
         e = min(s + w, t)
         return w, max(0, e - w), e
 
-    def _run_window(self, full_tokens: np.ndarray, s: int, row_cache):
+    def _run_window(self, full_tokens: np.ndarray, s: int, row_cache, trace=None):
         """Run ONE prefill window starting at new-token offset ``s``;
         returns ``(logits, cache, s_adj, e)``. The overlapped head of an
         end-aligned window recomputes the K/V of the true tokens at their
-        absolute positions."""
+        absolute positions. With a trace id the window records one
+        ``prefill`` span."""
+        t0 = time.perf_counter()
         t = len(full_tokens)
         w, s_adj, e = self._next_window(t, s)
         window = np.zeros((1, w), np.int32)
@@ -373,6 +410,7 @@ class ServingEngine:
         logits, row_cache = self.model(ids, positions=positions, decode=True, cache=row_cache)
         self.prefill_forwards += 1
         self.prefill_tokens += w
+        self._trace_prefill(trace, w, t0)
         return logits, row_cache, s_adj, e
 
     def _prefix_row_cache(self, pre: dict) -> KVCache:
@@ -520,9 +558,8 @@ class ServingEngine:
         admission class — lower admits sooner. When the queue-depth SLO is
         blown, a sheddable submission raises a structured
         :class:`~.scheduling.ShedError` (or is demoted, with
-        ``shed_action="deprioritize"``)."""
-        if trace is not None:
-            raise _not_ported("request tracing (trace)", 10)
+        ``shed_action="deprioritize"``). ``trace``: a trace id minted by a
+        fleet router (a tracing engine mints its own without one)."""
         prompt = np.asarray(prompt_ids, np.int32).ravel()
         if len(prompt) == 0:
             raise ValueError("empty prompt" + (" suffix" if prefix_id is not None else ""))
@@ -561,28 +598,39 @@ class ServingEngine:
                     f"request needs {need} pool blocks but the pool has "
                     f"{self._pcfg.num_blocks - 1}; raise pool_blocks or paged_block_size"
                 )
-        priority = self._admission_shed_check(int(priority))
+        priority = self._admission_shed_check(int(priority), trace=trace)
         uid = self._uid
         self._uid += 1
+        if self.tracer is not None:
+            if trace is None:
+                trace = self.tracer.start()
+            self.tracer.attach(trace, uid=uid, prompt_tokens=len(prompt))
         req = _Request(uid, prompt, max_new_tokens, [], prefix_id, stops, priority=priority,
-                       submit_ts=time.monotonic())
+                       submit_ts=time.monotonic(), trace=trace)
         self._queue_push(req)
         self._index[uid] = ("queued", req)
         self.metrics.on_submit(uid)
         return uid
 
-    def _admission_shed_check(self, priority: int) -> int:
-        """The submit-time SLO gate: the priority, possibly demoted, or the
-        structured :class:`ShedError` rejection."""
+    def _admission_shed_check(self, priority: int, trace: Optional[int] = None) -> int:
+        """The submit-time SLO gate (:meth:`submit`, :meth:`submit_prefilled`):
+        the priority, possibly demoted, or the structured :class:`ShedError`
+        rejection, which closes the request's trace (status ``shed``)."""
         reason = self._sched.shed_on_submit(priority, len(self.queue))
         if reason is None:
             return priority
         cfg = self._sched.config
         if cfg.shed_action == "deprioritize":
             self.metrics.on_deprioritize(None)
+            self._log.event("shed", action="deprioritize", priority=priority, queue_depth=len(self.queue),
+                            reason=reason, trace=trace)
             return max(priority, cfg.deprioritize_to)
         self.metrics.on_shed(None)
-        raise ShedError(reason, priority=priority, queue_depth=len(self.queue))
+        self._log.event("shed", action="reject", priority=priority, queue_depth=len(self.queue), reason=reason,
+                        trace=trace)
+        if self.tracer is not None and trace is not None:
+            self.tracer.finish(trace, status="shed", reason=reason)
+        raise ShedError(reason, priority=priority, queue_depth=len(self.queue), trace_id=trace)
 
     def _queue_push(self, req: _Request) -> None:
         """Insert by the scheduler's order key (priority class, then
@@ -643,6 +691,8 @@ class ServingEngine:
             raise KeyError(f"unknown request id {uid}")
         del self._index[uid]
         self.metrics.on_cancel(uid)
+        if self.tracer is not None:
+            self.tracer.finish(req.trace, status="cancelled")
         return out
 
     @property
@@ -661,7 +711,7 @@ class ServingEngine:
         is attached and the scheduler lets every decoding class
         speculate), and the expiry of blocks the band left behind. Returns
         the number of occupied slots."""
-        crash_point("pre_tick")
+        crash_point("pre_tick", replica=self.metrics.replica)
         self._pool_blocked = False
         self._shed_pass(time.monotonic())
         n_dec = sum(1 for ph in self.slot_phase if ph == "decode")
@@ -724,22 +774,269 @@ class ServingEngine:
         """Free blocks in the paged pool (None on the dense layout)."""
         return self._alloc.free_count if self.paged else None
 
-    # ---- not ported yet --------------------------------------------------
+    # ---- disaggregated prefill and KV handoff (serving_fleet) -------------
 
     def kv_handoff_dims(self) -> tuple:
-        raise _not_ported("disaggregated prefill (kv_handoff_dims)", 10)
+        """``(bytes_per_token, fixed_bytes)`` of a handoff payload, what
+        :func:`~.analysis.costmodel.price_kv_handoff` prices BEFORE the
+        prefill runs: every layer's K and V row for one position, and one
+        int32 write index a layer (the JAX package's row cache carries one
+        a layer). A payload's ``wire_bytes`` equal
+        ``bytes_per_token x rows + fixed_bytes`` exactly."""
+        if self.draft_model is not None:
+            raise NotImplementedError("disaggregated prefill does not compose with speculative serving")
+        cfg = self.model.config
+        kv_heads, head_dim = kv_layout(cfg)
+        itemsize = torch.empty((), dtype=self.model.dtype).element_size()
+        return 2 * cfg.num_hidden_layers * kv_heads * head_dim * itemsize, 4 * cfg.num_hidden_layers
 
-    def prefill_detached(self, *args, **kwargs) -> dict:
-        raise _not_ported("disaggregated prefill (prefill_detached)", 10)
+    def _rows_to_device(self, rows: dict) -> KVCache:
+        """A handoff payload's rows on this engine's device
+        (:meth:`~.ops.kv_cache.KVCache.from_host_rows`)."""
+        if rows["key"].dtype != self.model.dtype:
+            raise ValueError(f"handoff rows are {rows['key'].dtype}; this engine serves {self.model.dtype}")
+        return KVCache.from_host_rows(rows, self.device)
 
-    def submit_prefilled(self, *args, **kwargs) -> int:
-        raise _not_ported("disaggregated prefill (submit_prefilled)", 10)
+    @staticmethod
+    def _gen_state(gen) -> np.ndarray:
+        """A sampling generator's state as bytes (empty when greedy)."""
+        return np.zeros((0,), np.uint8) if gen is None else gen.get_state().numpy().copy()
 
-    def export_inflight(self, *args, **kwargs) -> list:
-        raise _not_ported("fleet failover (export_inflight)", 10)
+    def _generator_from_state(self, state) -> Optional[torch.Generator]:
+        """A generator on this engine's device continuing ``state`` (None
+        when greedy or when no state was carried)."""
+        if self._greedy or state is None or len(state) == 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.set_state(torch.as_tensor(np.asarray(state, np.uint8)))
+        return gen
 
-    def import_inflight(self, *args, **kwargs) -> int:
-        raise _not_ported("fleet failover (import_inflight)", 10)
+    @torch.no_grad()
+    def prefill_detached(
+        self,
+        prompt_ids,
+        max_new_tokens: int = 32,
+        *,
+        uid_key: int = 0,
+        prefix_id: Optional[int] = None,
+        trace: Optional[int] = None,
+    ) -> dict:
+        """Run ONE request's prefill on this engine and return a handoff
+        instead of admitting it: the prefill half of disaggregated serving.
+        The handoff carries the full prompt, its rows on the host
+        (``cache``, :meth:`~.ops.kv_cache.KVCache.host_rows`), the sampled first token and its
+        logprob, and the state of the request's generator after that
+        sample, so :meth:`submit_prefilled` on another engine continues
+        token- and logprob-exactly where a local prefill would have.
+        ``wire_bytes`` is the payload a router accounts after the move; it
+        equals ``price_kv_handoff``'s prediction exactly.
+
+        ``uid_key`` seeds the request's generator (the fleet uid: the
+        stream is then fixed by ``(seed, uid_key)``). With ``prefix_id``,
+        ``prompt_ids`` is still the FULL prompt; its head must equal the
+        registered prefix, whose rows seed the windows."""
+        if self.draft_model is not None:
+            raise NotImplementedError("disaggregated prefill does not compose with speculative serving")
+        prompt = np.asarray(prompt_ids, np.int32).ravel()
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        plen, pre = 0, None
+        if prefix_id is not None:
+            if prefix_id not in self._prefixes:
+                raise ValueError(f"unknown prefix_id {prefix_id}; call register_prefix first")
+            pre = self._prefixes[prefix_id]
+            plen = pre["len"]
+            if len(prompt) < plen + 1 or not np.array_equal(prompt[:plen], pre["tokens"]):
+                raise ValueError("prompt does not start with the registered prefix tokens")
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) exceeds the slot cache ({self.max_len})"
+            )
+        gen = self._request_generator(int(uid_key))
+        cache = None if pre is None else self._prefix_row_cache(pre)
+        total, s, s_last, logits = len(prompt), plen, 0, None
+        while s < total:
+            logits, cache, s_last, s = self._run_window(prompt, s, cache, trace=trace)
+        tok, lp = self._sample_row(logits[0, total - 1 - s_last], gen)
+        if pre is not None:
+            self.metrics.on_prefix_hit(plen)
+        rows = cache.host_rows(total)
+        return {
+            "prompt": prompt,
+            "total": total,
+            "max_new_tokens": int(max_new_tokens),
+            "next_tok": int(tok),
+            "lp": float(lp),
+            "gen_state": self._gen_state(gen),
+            "cache": rows,
+            "wire_bytes": int(sum(x.numel() * x.element_size() for x in rows.values())),
+            "reused_prefix_tokens": int(plen),
+            "trace": trace,
+        }
+
+    def submit_prefilled(self, handoff: dict, stop_sequences=None, priority: int = 0) -> int:
+        """Queue a request whose prefill ran on another engine
+        (:meth:`prefill_detached`): its admission pastes the handed-off rows
+        and emits the carried first token, with zero prefill compute and
+        zero tick budget here. The same shed and priority rules as
+        :meth:`submit`; tokens and logprobs equal a local prefill's. A later
+        preemption resumes by recompute (the payload is consumed at the
+        first admission)."""
+        if self.draft_model is not None:
+            raise NotImplementedError("disaggregated prefill does not compose with speculative serving")
+        prompt = np.asarray(handoff["prompt"], np.int32).ravel()
+        total, max_new = int(handoff["total"]), int(handoff["max_new_tokens"])
+        if total != len(prompt):
+            raise ValueError(f"handoff total {total} != prompt length {len(prompt)}")
+        stops = tuple(tuple(int(t) for t in s) for s in (stop_sequences or ()))
+        if any(len(s) == 0 for s in stops):
+            raise ValueError("empty stop sequence")
+        if total + max_new > self.max_len:
+            raise ValueError(f"prompt ({total}) + max_new_tokens ({max_new}) exceeds the slot cache ({self.max_len})")
+        if self.paged:
+            need = self._new_blocks_for(0, total, max_new)
+            if need > self._pcfg.num_blocks - 1:
+                raise ValueError(
+                    f"request needs {need} pool blocks but the pool has "
+                    f"{self._pcfg.num_blocks - 1}; raise pool_blocks or paged_block_size"
+                )
+        trace = handoff.get("trace")
+        priority = self._admission_shed_check(int(priority), trace=trace)
+        uid = self._uid
+        self._uid += 1
+        if self.tracer is not None and trace is not None:
+            self.tracer.attach(trace, decode_uid=uid)
+        req = _Request(uid, prompt, max_new, [], None, stops, priority=priority, submit_ts=time.monotonic(),
+                       handoff=dict(handoff), trace=trace)
+        self._queue_push(req)
+        self._index[uid] = ("queued", req)
+        self.metrics.on_submit(uid)
+        return uid
+
+    # ---- fleet failover: in-flight export and import (serving_fleet) -------
+
+    def _snapshot_request(self, req: _Request) -> dict:
+        """One request, portable: the FULL prompt (a registered prefix
+        inlined: the survivor may not hold it), the tokens and logprobs so
+        far and the admission metadata. The caller adds ``gen_state``."""
+        prompt = req.prompt
+        if req.prefix_id is not None:
+            prompt = np.concatenate([np.asarray(self._prefixes[req.prefix_id]["tokens"], np.int32), prompt])
+        return {
+            "uid": int(req.uid),
+            "prompt": np.asarray(prompt, np.int32),
+            "max_new_tokens": int(req.max_new_tokens),
+            "out_tokens": [int(t) for t in req.out_tokens],
+            "out_lps": [float(v) for v in req.out_lps],
+            "stop_sequences": req.stop_sequences,
+            "priority": int(req.priority),
+            "trace": req.trace,
+        }
+
+    def export_inflight(self, include_kv: bool = True) -> list:
+        """Snapshot EVERY in-flight request (queued and active) for
+        migration to another engine, leaving this one as it was. Each
+        snapshot carries its generator's state (``gen_state``), so
+        :meth:`import_inflight` on a survivor continues token- and
+        logprob-exactly; a decoding slot adds its rows on the host
+        (``cache`` and ``rows``) when ``include_kv`` and the layout allows
+        it (dense, non-speculative: paged and speculative slots fail over
+        by recompute). Safe at every serving crash point: each fires where
+        the host bookkeeping is consistent."""
+        kv_ok = include_kv and not self.paged and self.draft_model is None
+        snaps = []
+
+        def handoff_snap(req, h):
+            # an unconsumed payload: its first token joins the stream, and
+            # the importer feeds it again at the pasted (or recomputed) frontier
+            snap = self._snapshot_request(req)
+            if h["next_tok"] is not None:
+                snap["out_tokens"] = snap["out_tokens"] + [int(h["next_tok"])]
+                snap["out_lps"] = snap["out_lps"] + [float(h["lp"])]
+            snap["gen_state"] = np.asarray(h["gen_state"])
+            if kv_ok and h.get("cache") is not None:
+                snap["cache"], snap["rows"] = h["cache"], int(h["total"])
+            return snap
+
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            if self.slot_phase[slot] == "decode":
+                snap = self._snapshot_request(req)
+                snap["gen_state"] = self._gen_state(self._slot_gens[slot])
+                if kv_ok:
+                    rows = int(self.slot_pos[slot])
+                    snap["cache"], snap["rows"] = self.slot_caches.row(slot).host_rows(rows), rows
+                snaps.append(snap)
+                continue
+            st = self._prefill_state[slot]
+            if st is not None and st.get("handoff") is not None:
+                snaps.append(handoff_snap(req, st["handoff"]))
+                continue
+            snap = self._snapshot_request(req)
+            snap["gen_state"] = self._gen_state(st["gen"] if st is not None else self._request_generator(req.uid))
+            snaps.append(snap)
+        for req in self.queue:
+            if req.handoff is not None:
+                snaps.append(handoff_snap(req, req.handoff))
+                continue
+            snap = self._snapshot_request(req)
+            gen = req.resume_gen if req.resume_gen is not None else self._request_generator(req.uid)
+            snap["gen_state"] = self._gen_state(gen)
+            snaps.append(snap)
+        return snaps
+
+    def import_inflight(self, snap: dict) -> int:
+        """Admit a request another engine's :meth:`export_inflight`
+        snapshotted, continuing its stream token- and logprob-exactly: its
+        generator continues from ``gen_state``, and the resume feeds its
+        last generated token again at the recomputed frontier, or at the
+        pasted one when ``cache`` shipped. Bypasses the submit-time shed
+        gate (the request passed admission once; shedding it now would lose
+        it). Returns this engine's uid for it."""
+        if self.draft_model is not None:
+            raise NotImplementedError("failover import does not compose with speculative serving")
+        prompt = np.asarray(snap["prompt"], np.int32).ravel()
+        out = [int(t) for t in snap.get("out_tokens") or []]
+        lps = [float(v) for v in snap.get("out_lps") or []]
+        max_new = int(snap["max_new_tokens"])
+        if len(prompt) == 0:
+            raise ValueError("empty prompt in failover snapshot")
+        if len(lps) != len(out):
+            raise ValueError(f"snapshot logprobs ({len(lps)}) misaligned with tokens ({len(out)})")
+        if len(out) > max_new:
+            raise ValueError(f"snapshot carries {len(out)} tokens > max_new_tokens {max_new}")
+        if len(prompt) + max_new > self.max_len:
+            raise ValueError(f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) exceeds the slot cache ({self.max_len})")
+        cache, rows = snap.get("cache"), int(snap.get("rows") or 0)
+        if cache is not None:
+            if not out:
+                raise ValueError("KV failover import needs a generated token to re-feed")
+            if rows != len(prompt) + len(out) - 1:
+                raise ValueError(
+                    f"KV rows ({rows}) != prompt ({len(prompt)}) + generated ({len(out)}) - 1: "
+                    "not a consistent decode frontier"
+                )
+        stops = tuple(tuple(int(t) for t in s) for s in (snap.get("stop_sequences") or ()))
+        uid = self._uid
+        self._uid += 1
+        req = _Request(uid, prompt, max_new, out, None, stops, out_lps=lps, priority=int(snap.get("priority", 0)),
+                       submit_ts=time.monotonic(), preempted=bool(out), ttft_done=bool(out),
+                       resume_gen=self._generator_from_state(snap.get("gen_state")), trace=snap.get("trace"))
+        if cache is not None:
+            req.handoff = {"cache": cache, "total": rows, "next_tok": None, "lp": None,
+                           "gen_state": np.asarray(snap.get("gen_state", np.zeros((0,), np.uint8)))}
+        self._queue_push(req)
+        self._index[uid] = ("queued", req)
+        self.metrics.on_submit(uid)
+        self.metrics.on_failover_in()
+        self._log.event("failover_in", uid=uid, source_uid=int(snap.get("uid", -1)), generated=len(out),
+                        kv_rows=rows if cache is not None else 0, trace=snap.get("trace"))
+        return uid
+
+    # ---- not ported yet --------------------------------------------------
 
     def perf_check(self, *args, **kwargs) -> dict:
         raise _not_ported("perf_check", 11)
@@ -778,14 +1075,20 @@ class ServingEngine:
                 req.priority = cfg.deprioritize_to
                 self._queue_push(req)
                 self.metrics.on_deprioritize(req.uid)
+                self._log.event("shed", action="deprioritize", uid=req.uid, priority=req.priority,
+                                queue_wait_ms=round(wait_s * 1000.0, 3), reason=reason)
             else:
                 self.queue.remove(req)
                 self._shed[req.uid] = ShedError(
                     reason, uid=req.uid, priority=req.priority, queue_depth=len(self.queue),
-                    queue_wait_ms=wait_s * 1000.0,
+                    queue_wait_ms=wait_s * 1000.0, trace_id=req.trace,
                 )
                 self._index.pop(req.uid, None)
                 self.metrics.on_shed(req.uid)
+                self._log.event("shed", action="reject", uid=req.uid, priority=req.priority,
+                                queue_wait_ms=round(wait_s * 1000.0, 3), reason=reason, trace=req.trace)
+                if self.tracer is not None:
+                    self.tracer.finish(req.trace, status="shed", reason=reason)
 
     def _preempt(self, slot: int) -> None:
         """Evict a decoding slot: requeue its request with the tokens it
@@ -798,6 +1101,9 @@ class ServingEngine:
         self._queue_push(req)
         self._index[req.uid] = ("queued", req)
         self.metrics.on_preempt_decode(req.uid)
+        self._log.event("preempt_decode", uid=req.uid, priority=req.priority, generated=len(req.out_tokens))
+        if self.tracer is not None:
+            self.tracer.seg(req.trace, "preempt", generated=len(req.out_tokens))
 
     # ---- slots and the pool ----------------------------------------------
 
@@ -890,15 +1196,23 @@ class ServingEngine:
                 return False
         self.queue.pop(0)
         resume = req.preempted and len(req.out_tokens) > 0
-        # a resumed request carries its generator, so its stream continues
-        gen = req.resume_gen if resume else self._request_generator(req.uid)
+        # a resumed or migrated request carries its generator, so its stream continues
+        gen = req.resume_gen if req.resume_gen is not None else self._request_generator(req.uid)
         st: dict = {"req": req, "resume": resume, "gen": gen, "bucket": None}
         if self.paged:
             owned, shared_entries, st["table"], st["write_row"] = plan
             self._slot_blocks[slot], self._slot_shared[slot] = owned, shared_entries
             self._slot_table[slot] = st["table"]
         b = next((b for b in self.prompt_buckets if b >= len(req.prompt)), None)
-        if not resume and req.prefix_id is None and b is not None:
+        if req.handoff is not None:
+            # the rows, the first token and the generator arrived with the
+            # request (a handoff, or a failover import with its rows): no
+            # prefill runs here. Consumed once: a later preemption recomputes.
+            st["handoff"] = req.handoff
+            carried = self._generator_from_state(req.handoff["gen_state"])
+            st["gen"] = gen if carried is None else carried
+            req.handoff = None
+        elif not resume and req.prefix_id is None and b is not None:
             st["bucket"] = b  # a short prompt: one bucketed forward
         else:
             # prefix-seeded, long or resumed: chunk windows. A resumed
@@ -919,8 +1233,15 @@ class ServingEngine:
         self._prefill_state[slot] = st
         self._prefill_order.append(slot)
         self._index[req.uid] = ("active", req)
-        self.metrics.on_admit(req.uid, priority=req.priority,
-                              queue_wait_ms=(time.monotonic() - req.submit_ts) * 1e3)
+        wait_ms = (time.monotonic() - req.submit_ts) * 1e3
+        self.metrics.on_admit(req.uid, priority=req.priority, queue_wait_ms=wait_ms)
+        if not resume:
+            self._log.event("admit", uid=req.uid, priority=req.priority, queue_wait_ms=round(wait_ms, 3))
+        if self.tracer is not None:
+            # queue_wait covers everything since the trace's frontier;
+            # accounted_ms is the scheduler's own number, which critpath checks it against
+            self.tracer.seg(req.trace, "queue_wait", accounted_ms=round(wait_ms, 3))
+            self.tracer.seg(req.trace, "admit", resume=resume)
         return True
 
     def _advance_prefill(self, slot: int, budget: float, force: bool = False) -> float:
@@ -930,13 +1251,24 @@ class ServingEngine:
         st = self._prefill_state[slot]
         if st is None:
             return budget
-        crash_point("mid_prefill")
-        prompt = st["req"].prompt
+        crash_point("mid_prefill", replica=self.metrics.replica)
+        req = st["req"]
+        prompt = req.prompt
+        if st.get("handoff") is not None:
+            # the prefill ran elsewhere: paste the rows, spending no budget
+            h = st.pop("handoff")
+            cache = self._rows_to_device(h["cache"])
+            if self.tracer is not None:
+                # the paste half of the handoff (the router records the priced move)
+                self.tracer.seg(req.trace, "kv_handoff", phase="paste", rows=int(h["total"]))
+            st["pasted"] = True
+            self._finalize_prefill(slot, cache, h["total"], h["next_tok"], h["lp"])
+            return budget
         if st["bucket"] is not None:
             b = st["bucket"]
             if budget < b and not force:
                 return budget
-            tok, lp, row_cache = self._prefill_bucket(prompt, b, st["gen"], slot)
+            tok, lp, row_cache = self._prefill_bucket(prompt, b, st["gen"], slot, trace=req.trace)
             self._finalize_prefill(slot, row_cache, len(prompt), tok, lp)
             return budget - b
         full = st["full"]
@@ -945,7 +1277,8 @@ class ServingEngine:
             w, _, _ = self._next_window(t, st["done"])
             if budget < w and not force:
                 return budget
-            st["logits"], st["cache"], st["s_last"], st["done"] = self._run_window(full, st["done"], st["cache"])
+            st["logits"], st["cache"], st["s_last"], st["done"] = self._run_window(full, st["done"], st["cache"],
+                                                                                  trace=req.trace)
             budget -= w
             force = False
         cache = reset_cache_index(st["cache"], t)
@@ -981,8 +1314,13 @@ class ServingEngine:
             # the streamed tokens and logprobs stay as they were
             self.slot_tok[slot] = int(req.out_tokens[-1])
             self.slot_pos[slot] = total
-            self.recomputed_tokens += total
+            if not st.get("pasted"):
+                self.recomputed_tokens += total
             self.metrics.on_resume(req.uid)
+            self._log.event("resume", uid=req.uid, priority=req.priority, recomputed_tokens=int(total),
+                            generated=len(req.out_tokens))
+            if self.tracer is not None:
+                self.tracer.seg(req.trace, "resume", recomputed_tokens=int(total))
             return
         req.out_tokens.append(tok)
         req.out_lps.append(lp)
@@ -1004,7 +1342,7 @@ class ServingEngine:
         (overshoot past a finish is discarded). ``spec_stats`` counts only
         the tokens kept: an iteration's correction or bonus token comes
         from the target, not the draft."""
-        crash_point("mid_decode")
+        crash_point("mid_decode", replica=self.metrics.replica)
         self.metrics.on_decode_tick(sum(ph == "decode" for ph in self.slot_phase))
         if speculative:
             emits_k, lps_k, n_k = self._spec_tick()
@@ -1036,6 +1374,8 @@ class ServingEngine:
                 if retired:
                     break
             self.metrics.on_tick_tokens(req.uid, n_new)
+            if n_new and self.tracer is not None:
+                self.tracer.window(req.trace, "decode", tokens=n_new)
             if retired:
                 self._retire(slot)
 
@@ -1083,6 +1423,8 @@ class ServingEngine:
         self._release(slot)
         self._index[req.uid] = ("done", None)
         self.metrics.on_complete(req.uid)
+        if self.tracer is not None:
+            self.tracer.finish(req.trace, status="ok", tokens=len(req.out_tokens))
 
     def _release(self, slot: int) -> None:
         """Free a slot's resources without publishing a result (retirement,

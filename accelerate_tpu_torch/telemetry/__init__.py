@@ -1,6 +1,8 @@
 """Runtime observability: the step timeline, the recompile watchdog,
-MFU and goodput, device-memory sampling, the non-finite watchdog and the
-serving metrics, on one JSONL event stream.
+MFU and goodput, device-memory sampling, the non-finite watchdog, the
+serving metrics, request tracing, the flight recorder and the
+critical-path monitor, on one JSONL event stream, and the offline
+``summarize`` over it.
 
 Counterpart of :mod:`accelerate_tpu.telemetry`, with the same schema and
 line format. Quick start::
@@ -19,10 +21,9 @@ or, through the Accelerator (the usual path)::
     step = accelerator.telemetry.wrap(accelerator.build_train_step(loss_fn))
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-Queue 1 item: ``summarize`` / ``summarize_file`` / ``render_text`` and the
-wire-byte counters (item 9); request tracing (``Tracer``,
-``TraceConfig``), the flight recorder, the critical-path monitor and the
-HTTP endpoint (item 10).
+Queue 1 item: the wire-byte counters (``hlo_wire_bytes``,
+``Telemetry.record_wire_bytes``: item 9) and the HTTP endpoint
+(``TelemetryHTTPD``: item 10's process half).
 """
 
 from __future__ import annotations
@@ -41,9 +42,13 @@ from .mfu import (
     mfu,
     peak_flops,
 )
+from .critpath import CritPathMonitor, decompose, render_critpath
+from .flightrec import FlightRecorder, read_dump, render_dump
 from .nonfinite import NonFiniteWatchdog
-from .serving_metrics import ServingMetrics
+from .serving_metrics import ServingMetrics, fleet_prometheus_text
 from .step import StepTelemetry, diff_signatures, signature_of, suggest_buckets
+from .summarize import render_text, summarize, summarize_file
+from .trace import Span, Trace, TraceConfig, Tracer, chrome_trace, traces_from_events
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -57,6 +62,22 @@ __all__ = [
     "HBMSampler",
     "NonFiniteWatchdog",
     "ServingMetrics",
+    "fleet_prometheus_text",
+    "summarize",
+    "summarize_file",
+    "render_text",
+    "Span",
+    "Trace",
+    "Tracer",
+    "TraceConfig",
+    "traces_from_events",
+    "chrome_trace",
+    "FlightRecorder",
+    "read_dump",
+    "render_dump",
+    "CritPathMonitor",
+    "decompose",
+    "render_critpath",
     "Telemetry",
     "default_path",
     "PEAK_FLOPS_TABLE",
@@ -79,14 +100,7 @@ def _not_ported(name: str, module: str, item: int):
     return refuse
 
 
-summarize = _not_ported("summarize", "summarize", 9)
-summarize_file = _not_ported("summarize_file", "summarize", 9)
-render_text = _not_ported("render_text", "summarize", 9)
 hlo_wire_bytes = _not_ported("hlo_wire_bytes", "wire", 9)
-Tracer = _not_ported("Tracer", "trace", 10)
-TraceConfig = _not_ported("TraceConfig", "trace", 10)
-FlightRecorder = _not_ported("FlightRecorder", "flightrec", 10)
-CritPathMonitor = _not_ported("CritPathMonitor", "critpath", 10)
 TelemetryHTTPD = _not_ported("TelemetryHTTPD", "httpd", 10)
 
 

@@ -26,6 +26,7 @@ import atexit
 import itertools
 import json
 import os
+import threading
 import time
 from typing import Optional
 
@@ -74,6 +75,8 @@ class EventLog:
         self._buffer_lines = max(1, int(buffer_lines))
         self.enabled = path is not None and not (main_process_only and self.rank != 0)
         self._buf: list[str] = []
+        # a fleet's replicas share one log and tick on threads of their own
+        self._lock = threading.Lock()
         self._taps: list = []
         self._closed = False
         self._atexit_registered = False
@@ -105,8 +108,11 @@ class EventLog:
         }
         rec.update(fields)
         if self.enabled and not self._closed:
-            self._buf.append(json.dumps(rec, default=_json_default))
-            if len(self._buf) >= self._buffer_lines:
+            line = json.dumps(rec, default=_json_default)
+            with self._lock:
+                self._buf.append(line)
+                full = len(self._buf) >= self._buffer_lines
+            if full:
                 self.flush()
         # taps see every record, even on a disabled (path=None) log
         for tap in self._taps:
@@ -140,11 +146,12 @@ class EventLog:
     # ------------------------------------------------------------------ #
 
     def flush(self):
-        if not self._buf:
-            return
-        lines, self._buf = self._buf, []
-        with open(self.path, "a") as f:
-            f.write("\n".join(lines) + "\n")
+        with self._lock:
+            if not self._buf:
+                return
+            lines, self._buf = self._buf, []
+            with open(self.path, "a") as f:
+                f.write("\n".join(lines) + "\n")
 
     def close(self):
         if self._closed:

@@ -1,7 +1,7 @@
 """Test helpers of the port: regression fixtures, skip decorators and test
-cases, fault injection for the checkpoint paths."""
+cases, fault injection for the checkpoint paths and the serving fleet."""
 
-from .fault_injection import CrashPoint, SimulatedCrash, corrupt_file
+from .fault_injection import CrashPoint, ReplicaChaos, SimulatedCrash, corrupt_file
 from .testing import (
     AccelerateTestCase,
     TempDirTestCase,
@@ -19,6 +19,7 @@ __all__ = [
     "CrashPoint",
     "RegressionDataset",
     "RegressionModel",
+    "ReplicaChaos",
     "SimulatedCrash",
     "TempDirTestCase",
     "corrupt_file",

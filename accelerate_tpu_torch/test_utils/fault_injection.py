@@ -1,7 +1,9 @@
-"""Crash-point fault injection for the checkpoint save and restore paths.
+"""Crash-point fault injection for the checkpoint save and restore paths
+and the serving fleet.
 
 Copies of :class:`accelerate_tpu.test_utils.fault_injection.SimulatedCrash`,
-``CrashPoint`` and ``corrupt_file``. The save protocol
+``CrashPoint``, ``ReplicaChaos`` (its in-process actions) and
+``corrupt_file``. The save protocol
 (``checkpointing.save_accelerator_state``) and the restore path call
 :func:`accelerate_tpu_torch.ft.crashpoints.crash_point` at every state
 transition; :class:`CrashPoint` installs a hook that kills them there,
@@ -17,23 +19,34 @@ auto-resume always lands on a valid checkpoint::
 ``CrashPoint(..., action="kill")`` hard-kills the process with
 ``os._exit`` (no atexit, no finally blocks). :func:`corrupt_file`
 truncates, garbles or deletes committed files to exercise the manifest's
-size/crc32 detection. The serving fleet's ``ReplicaChaos`` waits for the
-fleet (ROADMAP.md Queue 1 item 10).
+size/crc32 detection. :class:`ReplicaChaos` faults one replica of a
+:class:`~accelerate_tpu_torch.serving_fleet.FleetRouter` at a serving
+crash point. Its process-level actions (``sigkill``, ``sigstop``) wait for
+the multi-process fleet (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from pathlib import Path
 
-from ..ft.crashpoints import ALL_CRASH_POINTS, CRASH_POINTS, RESTORE_CRASH_POINTS, set_crash_hook
+from ..ft.crashpoints import (
+    ALL_CRASH_POINTS,
+    CRASH_POINTS,
+    RESTORE_CRASH_POINTS,
+    SERVING_CRASH_POINTS,
+    set_crash_hook,
+)
 
 __all__ = [
     "SimulatedCrash",
     "CrashPoint",
+    "ReplicaChaos",
     "corrupt_file",
     "CRASH_POINTS",
     "RESTORE_CRASH_POINTS",
+    "SERVING_CRASH_POINTS",
     "ALL_CRASH_POINTS",
 ]
 
@@ -79,6 +92,92 @@ class CrashPoint:
         if self.action == "kill":
             os._exit(self.EXIT_CODE)
         raise SimulatedCrash(f"simulated crash at checkpoint save point {self.label!r}")
+
+    def __enter__(self):
+        set_crash_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        set_crash_hook(None)
+        return False
+
+
+class ReplicaChaos:
+    """Chaos controller for the serving fleet, the serving twin of
+    :class:`CrashPoint`: it drives the crash-at-every-point failover
+    matrix of ``tests/test_torch_fleet.py``.
+
+    Targets one labeled serving point
+    (:data:`~accelerate_tpu_torch.ft.crashpoints.SERVING_CRASH_POINTS`:
+    ``pre_tick`` / ``mid_prefill`` / ``mid_decode`` inside
+    ``ServingEngine.step`` and ``pre_handoff`` in the router's
+    disaggregated dispatch), on ONE named replica of a fleet (the serving
+    crash points pass ``replica=<name>``; ``replica=None`` matches any).
+    ``action``:
+
+    * ``"crash"``   -- raise :class:`SimulatedCrash` (the replica died; its
+      rows may still be exportable);
+    * ``"poison"``  -- raise ``serving_fleet.NonFinitePoison`` (numerics are
+      suspect: the router quarantines the replica and fails over by
+      recompute only, never trusting its rows);
+    * ``"hang"``    -- sleep ``hang_s`` (drives tick-timeout degradation);
+    * ``"latency"`` -- sleep ``latency_s`` (slow-replica jitter).
+
+    ``hits`` delays firing to the Nth matching visit; with ``repeat`` the
+    hook fires on every later visit too (a persistently sick replica),
+    else once. ``fired`` / ``count`` record what happened. Both raising
+    actions use exception types that are not ``OSError``: the failover
+    handoff leg's retry wrapper must never absorb a simulated death."""
+
+    def __init__(
+        self,
+        label: str,
+        replica: str = None,
+        action: str = "crash",
+        hits: int = 1,
+        repeat: bool = False,
+        latency_s: float = 0.005,
+        hang_s: float = 0.05,
+    ):
+        if label not in SERVING_CRASH_POINTS:
+            raise ValueError(f"unknown serving crash point {label!r}; choose from {SERVING_CRASH_POINTS}")
+        if action in ("sigkill", "sigstop"):
+            raise NotImplementedError(
+                f"ReplicaChaos(action={action!r}) faults a replica process: the multi-process fleet is not "
+                "ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 10)"
+            )
+        if action not in ("crash", "poison", "hang", "latency"):
+            raise ValueError(f"action must be crash|poison|hang|latency, got {action!r}")
+        self.label = label
+        self.replica = replica
+        self.action = action
+        self.hits = max(1, int(hits))
+        self.repeat = bool(repeat)
+        self.latency_s = float(latency_s)
+        self.hang_s = float(hang_s)
+        self.fired = False
+        self.count = 0
+        self._seen = 0
+
+    def _hook(self, label: str, **ctx):
+        if label != self.label:
+            return
+        if self.replica is not None and ctx.get("replica") != self.replica:
+            return
+        self._seen += 1
+        if self._seen < self.hits or (self.fired and not self.repeat):
+            return
+        self.fired = True
+        self.count += 1
+        if self.action in ("hang", "latency"):
+            time.sleep(self.hang_s if self.action == "hang" else self.latency_s)
+            return
+        where = f"{self.label!r}" + (f" on replica {self.replica!r}" if self.replica else "")
+        if self.action == "poison":
+            from ..serving_fleet import NonFinitePoison
+
+            raise NonFinitePoison(f"simulated non-finite poison at {where}")
+        raise SimulatedCrash(f"simulated replica crash at {where}")
 
     def __enter__(self):
         set_crash_hook(self._hook)

@@ -178,10 +178,10 @@ class TelemetryKwargs(KwargsHandler):
     probes the loss and the gradient norm for NaN/inf every N steps of
     the train step (a host sync each; 0, the default, is off).
 
-    The request-tracing and flight-recorder fields (``trace_*``,
-    ``flight_*``) are kept with their defaults: the serving tracer and the
-    flight recorder are ROADMAP.md Queue 1 item 10, so any other value
-    raises."""
+    ``trace_requests=True`` turns :meth:`trace_config` into a
+    :class:`~..telemetry.trace.TraceConfig` for ``FleetRouter(trace=...)``:
+    request spans, a crash flight recorder a replica (``flight_*``) and
+    the critical-path drift checks (``trace_drift_check``)."""
 
     enabled: bool = True
     output_path: Optional[str] = None
@@ -208,19 +208,26 @@ class TelemetryKwargs(KwargsHandler):
             raise ValueError("hbm_sample_every / forward_to_trackers_every must be >= 0")
         if self.nonfinite_every < 0:
             raise ValueError(f"nonfinite_every must be >= 0, got {self.nonfinite_every}")
-        changed = [
-            f.name for f in dataclasses.fields(self)
-            if f.name.startswith(("trace_", "flight_")) and getattr(self, f.name) != f.default
-        ]
-        if changed:
-            raise NotImplementedError(
-                f"TelemetryKwargs({', '.join(changed)}): request tracing and the flight recorder are not ported "
-                "to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 10)"
-            )
+        if self.trace_max_traces < 1:
+            raise ValueError(f"trace_max_traces must be >= 1, got {self.trace_max_traces}")
+        if self.flight_capacity < 8:
+            raise ValueError(f"flight_capacity must be >= 8, got {self.flight_capacity}")
 
     def trace_config(self):
-        """None: request tracing is off (the only setting the port takes)."""
-        return None
+        """The serving-trace half of these knobs as a ``TraceConfig`` (None
+        while ``trace_requests`` is off): pass it as
+        ``FleetRouter(trace=...)``."""
+        if not self.trace_requests:
+            return None
+        from ..telemetry.trace import TraceConfig
+
+        return TraceConfig(
+            max_traces=self.trace_max_traces,
+            drift_check=self.trace_drift_check,
+            flight_recorder=self.flight_recorder,
+            flight_capacity=self.flight_capacity,
+            flight_dump_dir=self.flight_dump_dir,
+        )
 
 
 @dataclass

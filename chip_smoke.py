@@ -139,7 +139,17 @@ it, all three equal. Then the slices:
   (``neox_serve``); GPT-2 small served on the paged and the dense layout
   (``gpt2_serve``) and trained at 8 x 1024 on the einsum attention
   (``gpt2_train``); 2-layer f32 cuts of both held card against CPU:
-  logits, greedy generate, the paged engine (``gpt_consistency``).
+  logits, greedy generate, the paged engine (``gpt_consistency``);
+* the in-process serving fleet (``--only fleet``): TinyLlama-1.1B at all
+  22 layers behind ``FleetRouter``; 48 requests on one engine and on 2
+  paged replicas with prefix reuse on and off (K4 == layers x each
+  replica's decode steps; one tick traced, ``fleet_serve``);
+  prefill, decode, decode with the handoff forced and ``"auto"``, moved
+  bytes == predicted (``fleet_disagg``); a crash with 24 requests in
+  flight failing over by recompute and by KV, greedy and sampled, and a
+  poison, zero lost (``fleet_chaos``); the event log through
+  ``summarize_file`` against the router's accounting, a trace a request,
+  ``spin_up`` with 0 ``nvcc`` builds (``fleet_telemetry``).
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -156,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -4981,6 +4992,451 @@ def phase_gpt(torch, neox_layers: int) -> dict:
     return {"kernel": kernel, "k4_launches": k4}
 
 
+# --------------------------------------------------------------------- #
+# the in-process serving fleet and its telemetry (--only fleet)
+# --------------------------------------------------------------------- #
+
+# TinyLlama at full depth behind every replica: paged with block 16 (K4 in
+# every decode tick) or, for the KV failover legs, the dense layout
+FLEET_ENGINE = dict(num_slots=8, prompt_buckets=(64, 256, 1024), paged_block_size=16, tick_block=8, max_len=1536)
+FLEET_DENSE = {k: v for k, v in FLEET_ENGINE.items() if k != "paged_block_size"}
+FLEET_PREAMBLE = 1024
+FLEET_NEW = 64
+FLEET_CHAOS = 24  # requests in flight when a replica fails
+FLEET_CHAOS_NEW = 32  # their new tokens (the chaos and telemetry legs: the group's share of the 1,200 s)
+
+
+def fleet_prompts(vocab: int, seed: int = 17) -> list:
+    """48 prompts in a seeded order: 36 share a 1,024-token system preamble
+    followed by a suffix of 32-256 tokens, 12 are unique prompts of
+    64-1,024 tokens."""
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(1, vocab, size=FLEET_PREAMBLE).astype(np.int32)
+    shared = [np.concatenate([pre, rng.integers(1, vocab, size=int(n))]).astype(np.int32)
+              for n in rng.integers(32, 257, size=36)]
+    unique = [rng.integers(1, vocab, size=int(n)).astype(np.int32) for n in rng.integers(64, 1025, size=12)]
+    prompts = shared + unique
+    return [prompts[i] for i in rng.permutation(len(prompts))]
+
+
+def fleet_k4(fr) -> int:
+    """K4 launches the fleet's paged replicas owe: layers x each one's decode steps."""
+    return sum(r.engine.model.config.num_hidden_layers * r.engine.decode_steps for r in fr.replicas if r.engine.paged)
+
+
+def fleet_outputs(fr, fuids) -> list:
+    out = []
+    for f in fuids:
+        got = fr.poll(f)
+        check(got is not None, f"fleet request {f} completed")
+        out.append((got, fr.logprobs(f)))
+    return out
+
+
+def fleet_against(torch, model, prompts, got, want, what, exact=False, new=FLEET_NEW) -> dict:
+    """Each request's generated tokens in a fleet run against another run
+    of the same prompts: equal, but where they part the top-2 gap on the
+    shared context must be under SERVE_BF16_GAP (against_run), and
+    logprobs within SERVE_LP_LIMIT over the tokens compared; ``exact``:
+    tokens and logprobs bit-equal."""
+    compared = parted = 0
+    lp_diff = 0.0
+    for p, (g, g_lp), (w, w_lp) in zip(prompts, got, want):
+        check(len(g) == len(p) + new and np.array_equal(g[: len(p)], p), f"{what}: the prompt and {new} new")
+        if exact:
+            check(np.array_equal(g, w) and np.array_equal(g_lp, w_lp), f"{what}: tokens and logprobs bit-equal")
+            compared += new
+            continue
+        # the control generated FLEET_NEW: its first `new` tokens are this run's reference
+        w, w_lp = w[: len(p) + new], w_lp[:new]
+        n, part, d = against_run(torch, model, p, g[len(p):], g_lp, w[len(p):], w_lp, rows=FLEET_ENGINE["max_len"])
+        compared, parted, lp_diff = compared + n, parted + part, max(lp_diff, d)
+    check(lp_diff <= SERVE_LP_LIMIT, f"{what}: logprobs within {SERVE_LP_LIMIT} ({lp_diff})")
+    return {"tokens_compared": compared, "parted_at_near_tie": parted, "max_logprob_diff": lp_diff}
+
+
+def fleet_run(torch, fr, prompts) -> dict:
+    """Submit every prompt, drain the fleet with ``run()`` (``step()`` until
+    idle), and check K4's launches: the wrapper's count equals layers x
+    decode steps summed over the paged replicas."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    torch.cuda.synchronize()
+    pa.launches = 0
+    t0 = time.perf_counter()
+    fuids = [fr.submit(p, FLEET_NEW) for p in prompts]
+    fr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4 = pa.launches
+    check(k4 == fleet_k4(fr), f"fleet: K4 launches {k4} == layers x decode steps summed over replicas {fleet_k4(fr)}")
+    snap = fr.metrics_merged().snapshot()
+    return {"fuids": fuids, "outputs": fleet_outputs(fr, fuids), "wall_s": wall, "kernel_launches": k4,
+            "tokens_per_s": snap["tokens_generated"] / wall, "ttft_ms_p50": snap["ttft_ms_p50"],
+            "ttft_ms_p95": snap["ttft_ms_p95"], "itl_ms_p50": snap["itl_ms_p50"],
+            "decode_steps": {r.name: r.engine.decode_steps for r in fr.replicas},
+            "requests": {r.name: r.engine.metrics.requests_completed for r in fr.replicas}}
+
+
+def fleet_tick_idle(torch, fr) -> dict:
+    """One tick of the drained 2-replica fleet ``fr`` (prefix reuse off),
+    both replicas decoding 8 slots (prompts of 200 tokens): its wall time
+    without the profiler, and the device's busy time in the next tick under
+    torch.profiler (``traced``)."""
+    rng = np.random.default_rng(5)
+    vocab = fr.replicas[0].engine.model.config.vocab_size
+    for _ in range(16):
+        fr.submit(rng.integers(1, vocab, size=200).astype(np.int32), FLEET_NEW)
+    fr.step()
+    fr.step()
+    check(all(ph == "decode" for r in fr.replicas for ph in r.engine.slot_phase), "fleet tick: 16 slots decoding")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events, _, attempts, _ = traced(torch, fr.step)
+    busy, _ = device_time(events)
+    return {"tick_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "trace_attempts": attempts}
+
+
+def phase_fleet_serve(torch, model, prompts) -> dict:
+    """The 48 requests served by one engine (the control), then by
+    ``FleetRouter.from_model(model, num_replicas=2, paged_block_size=16)``
+    driven by ``step()`` with prefix reuse on and off. Greedy tokens equal
+    the control's up to a near tie; the radix cache promotes the preamble
+    and its hits show in ``radix_stats``; K4's count equals layers x each
+    replica's decode steps, summed."""
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving_fleet import FleetConfig, FleetRouter
+
+    ServingEngine(model, **FLEET_ENGINE).generate_many([prompts[0][:300]], max_new_tokens=9)  # warm-up
+    eng = ServingEngine(model, **FLEET_ENGINE)
+    torch.cuda.synchronize()
+    pa.launches = 0
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, FLEET_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(pa.launches == model.config.num_hidden_layers * eng.decode_steps, "fleet control: K4 launches")
+    control_out = [(eng.poll(u), eng.logprobs(u)) for u in uids]
+    snap = eng.metrics.snapshot()
+    control = {"wall_s": wall, "tokens_per_s": snap["tokens_generated"] / wall, "ttft_ms_p50": snap["ttft_ms_p50"],
+               "ttft_ms_p95": snap["ttft_ms_p95"], "kernel_launches": pa.launches,
+               "decode_steps": eng.decode_steps}
+    del eng
+    free_memory(torch)
+    runs = {}
+    for name, reuse in (("reuse_on", True), ("reuse_off", False)):
+        fr = FleetRouter.from_model(model, num_replicas=2, config=FleetConfig(prefix_reuse=reuse), **FLEET_ENGINE)
+        run = fleet_run(torch, fr, prompts)
+        run["against_control"] = fleet_against(torch, model, prompts, run.pop("outputs"), control_out,
+                                               f"fleet serve ({name})")
+        del run["fuids"]
+        if reuse:
+            stats = fr.radix_stats()
+            run["radix_stats"] = stats
+            hits = sum(s["hits"] for s in stats.values())
+            check(sum(s["registrations"] for s in stats.values()) >= 1 and hits >= 1
+                  and sum(s["tokens_reused"] for s in stats.values()) >= FLEET_PREAMBLE * hits,
+                  f"fleet serve: the preamble promoted and hit ({stats})")
+        else:
+            tick = fleet_tick_idle(torch, fr)  # the drained fleet serves the tick's 16 requests
+        runs[name] = run
+        del fr
+        free_memory(torch)
+    row = {"phase": "fleet_serve", "config": "TinyLlama-1.1B shape, 22 layers, bf16, seeded random weights; "
+           "2 paged replicas (block 16) of 8 slots", "requests": len(prompts), "max_new_tokens": FLEET_NEW,
+           "prompt_lengths": [len(p) for p in prompts], "control": control, **runs,
+           "tick": tick,
+           "kernel_launches": control["kernel_launches"] + sum(r["kernel_launches"] for r in runs.values())}
+    emit(row)
+    return {"row": row, "control": control_out}
+
+
+@contextlib.contextmanager
+def timed_handoff_copies(torch, fr):
+    """Time every rows-out (``KVCache.host_rows`` in ``prefill_detached``)
+    and rows-in (each replica's ``_rows_to_device`` at the paste) of the
+    handoffs, the card idle before and after each copy; yields the
+    running totals."""
+    from accelerate_tpu_torch.ops import kv_cache
+
+    acc = {"d2h_s": 0.0, "h2d_s": 0.0, "bytes": 0, "copies": 0}
+    lock = threading.Lock()  # the decode replicas paste from threads of their own
+    host_rows = kv_cache.KVCache.host_rows
+
+    def out(self, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = host_rows(self, n)
+        with lock:
+            acc["d2h_s"] += time.perf_counter() - t0
+            acc["bytes"] += sum(x.numel() * x.element_size() for x in rows.values())
+            acc["copies"] += 1
+        return rows
+
+    def timed_back(to_device):
+        def back(rows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = to_device(rows)
+            torch.cuda.synchronize()
+            with lock:
+                acc["h2d_s"] += time.perf_counter() - t0
+            return cache
+
+        return back
+
+    kv_cache.KVCache.host_rows = out
+    for rep in fr.replicas:
+        rep.engine._rows_to_device = timed_back(rep.engine._rows_to_device)
+    try:
+        yield acc
+    finally:
+        kv_cache.KVCache.host_rows = host_rows
+
+
+def phase_fleet_disagg(torch, model, prompts, control_out) -> dict:
+    """``roles=("prefill", "decode", "decode")``, ``handoff`` forced and
+    then ``"auto"``, driven by ``step()``: the router's moved bytes equal
+    its predicted bytes exactly, and greedy tokens equal the control's up
+    to a near tie. The handoffs' measured round trip (device to host and
+    back) beside the costmodel's ``h100`` row, and the handoffs ``"auto"``
+    chose."""
+    from accelerate_tpu_torch.analysis.costmodel import HANDOFF_BW_TABLE
+    from accelerate_tpu_torch.serving_fleet import FleetConfig, FleetRouter
+
+    runs = {}
+    for mode in ("always", "auto"):
+        fr = FleetRouter.from_model(model, num_replicas=3, config=FleetConfig(
+            roles=("prefill", "decode", "decode"), handoff=mode), **FLEET_ENGINE)
+        with timed_handoff_copies(torch, fr) as copies:
+            run = fleet_run(torch, fr, prompts)
+        acc = fr.handoff_accounting()
+        check(acc["bytes_moved"] == acc["bytes_predicted"],
+              f"fleet disagg ({mode}): moved bytes {acc['bytes_moved']} == predicted {acc['bytes_predicted']}")
+        check(acc["handoffs"] + acc["handoffs_local"] == len(prompts), f"fleet disagg ({mode}): every request decided")
+        if mode == "always":
+            check(acc["handoffs"] == len(prompts) and acc["bytes_moved"] > 0, "fleet disagg: every request handed off")
+        run["against_control"] = fleet_against(torch, model, prompts, run.pop("outputs"), control_out,
+                                               f"fleet disagg ({mode})")
+        del run["fuids"]
+        run["handoff_accounting"] = acc
+        secs = copies["d2h_s"] + copies["h2d_s"]
+        run["handoff_copies"] = {**copies, "round_trip_bytes_per_s": copies["bytes"] / secs if secs else None}
+        runs[mode] = run
+        del fr
+        free_memory(torch)
+    row = {"phase": "fleet_disagg", "config": "TinyLlama-1.1B shape, 22 layers, bf16; roles prefill, decode, "
+           "decode (paged, block 16, 8 slots each)", **runs,
+           "costmodel_h100_bytes_per_s": HANDOFF_BW_TABLE["h100"],
+           "kernel_launches": sum(r["kernel_launches"] for r in runs.values())}
+    emit(row)
+    return row
+
+
+def chaos_leg(torch, model, prompts, engine, chaos_kw, *, sampled=False, threaded=False, **cfg_kw):
+    """A fleet of ``engine`` replicas (2 dense, or 3 paged) with
+    ``FLEET_CHAOS`` requests in flight (``FLEET_CHAOS_NEW`` new tokens
+    each), the fault ``chaos_kw`` injected on r1 after two ticks, driven by
+    ``step()`` (or one thread a replica) to the end. Returns the router and
+    the outputs; ``chaos_kw`` None: the no-fault control."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving_fleet import FleetConfig, FleetRouter
+    from accelerate_tpu_torch.test_utils.fault_injection import ReplicaChaos
+
+    kw = dict(temperature=0.8, top_k=50, seed=3) if sampled else {}
+    n = 3 if "paged_block_size" in engine else 2
+    fr = FleetRouter.from_model(model, num_replicas=n, config=FleetConfig(prefix_reuse=False, **cfg_kw), trace=True,
+                                **engine, **kw)
+    torch.cuda.synchronize()
+    pa.launches = 0
+    t0 = time.perf_counter()
+    fuids = [fr.submit(p, FLEET_CHAOS_NEW) for p in prompts[:FLEET_CHAOS]]
+    fr.step()
+    fr.step()
+    drive = fr.drain_threaded if threaded else fr.run
+    if chaos_kw is None:
+        drive()
+    else:
+        with ReplicaChaos(replica="r1", **chaos_kw) as chaos:
+            drive()
+        check(chaos.fired, f"fleet chaos: {chaos_kw} fired")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(pa.launches == fleet_k4(fr), f"fleet chaos: K4 launches {pa.launches} == layers x decode steps")
+    acc = fr.failover_accounting()
+    check(acc["failovers_lost"] == 0, f"fleet chaos ({chaos_kw}): zero requests lost ({acc})")
+    check(acc["bytes_moved"] == acc["bytes_predicted"], f"fleet chaos: failover bytes moved == predicted ({acc})")
+    return fr, fleet_outputs(fr, fuids), {"wall_s": wall, "kernel_launches": pa.launches, "failover_accounting": acc,
+                                          "health": {k: v["health"] for k, v in fr.health().items()}}
+
+
+def phase_fleet_chaos(torch, model, prompts, control_out) -> dict:
+    """Failover with ``FLEET_CHAOS`` requests in flight: a crash at
+    ``mid_decode`` on r1 of three paged replicas drained by one thread a
+    replica (failover by recompute: greedy tokens equal the control's up
+    to a near tie, logprobs within SERVE_LP_LIMIT, K4's count exact under
+    the threads); the same crash on two dense replicas (failover by KV:
+    tokens and logprobs bit-equal to a no-fault run of the same fleet;
+    the dense layout's attention is the einsum); a poison there
+    (quarantined, recompute only, no rows shipped); and a sampled stream
+    (temperature 0.8, top-k 50) failing over by KV with its generator's
+    state, bit-equal to its no-fault run. Zero requests lost in each; the
+    flight recorder's dump ends with the injected fault."""
+    crash = {"label": "mid_decode", "action": "crash"}
+    legs = {}
+    fr, out, leg = chaos_leg(torch, model, prompts, FLEET_ENGINE, crash, threaded=True)
+    check(leg["failover_accounting"]["failovers_recompute"] >= 1 and leg["health"]["r1"] == "dead",
+          f"fleet chaos: paged failover by recompute ({leg})")
+    dump = next(r for r in fr.replicas if r.name == "r1").flightrec.last_dump
+    last = dump["events"][-1]
+    check(last["name"] == "replica_state" and "SimulatedCrash" in str(last.get("reason")),
+          f"fleet chaos: the flight dump's last event is the injected crash ({last})")
+    leg["against_control"] = fleet_against(torch, model, prompts[:FLEET_CHAOS], out, control_out, "chaos recompute",
+                                           new=FLEET_CHAOS_NEW)
+    leg["flight_dump"] = {"reason": dump["reason"], "events": len(dump["events"]), "inflight": len(dump["inflight"]),
+                          "last_event": {k: last[k] for k in ("name", "state", "reason") if k in last}}
+    legs["paged_recompute"] = leg
+    del fr
+    free_memory(torch)
+    for name, sampled in (("dense_kv", False), ("sampled_kv", True)):
+        fr, want, ctl = chaos_leg(torch, model, prompts, FLEET_DENSE, None, sampled=sampled, failover="handoff")
+        del fr
+        fr, got, leg = chaos_leg(torch, model, prompts, FLEET_DENSE, crash, sampled=sampled, failover="handoff")
+        acc = leg["failover_accounting"]
+        check(acc["failovers_kv"] >= 1 and acc["bytes_moved"] > 0, f"fleet chaos ({name}): failover by KV ({acc})")
+        leg["against_no_fault"] = fleet_against(torch, model, prompts[:FLEET_CHAOS], got, want, name, exact=True,
+                                                new=FLEET_CHAOS_NEW)
+        leg["no_fault_wall_s"] = ctl["wall_s"]
+        legs[name] = leg
+        del fr
+        free_memory(torch)
+    fr, out, leg = chaos_leg(torch, model, prompts, FLEET_DENSE, {"label": "mid_decode", "action": "poison"})
+    acc = leg["failover_accounting"]
+    check(leg["health"]["r1"] == "quarantined" and acc["failovers_kv"] == 0 and acc["bytes_moved"] == 0
+          and acc["failovers_recompute"] >= 1, f"fleet chaos (poison): quarantined, recompute only ({leg})")
+    leg["against_control"] = fleet_against(torch, model, prompts[:FLEET_CHAOS], out, control_out, "chaos poison",
+                                           new=FLEET_CHAOS_NEW)
+    legs["dense_poison"] = leg
+    del fr
+    free_memory(torch)
+    row = {"phase": "fleet_chaos", "config": "TinyLlama-1.1B shape, 22 layers, bf16; a fault on r1 at mid_decode "
+           f"with {FLEET_CHAOS} requests in flight", **legs,
+           "kernel_launches": legs["paged_recompute"]["kernel_launches"]}
+    emit(row)
+    return row
+
+
+def phase_fleet_telemetry(torch, model, prompts) -> dict:
+    """A traced disaggregated fleet (prefill, decode, decode; dense, handoff
+    always, failover by KV) writing one event log, with a crash at
+    ``mid_decode`` on r1: ``summarize_file`` of the log gives the serving
+    counters of the fleet's merged ``ServingMetrics.snapshot()``; every
+    request has a trace whose segment sum equals its end-to-end latency
+    within 1 ms; ``CritPathMonitor`` latches no ``trace_drift`` on
+    ``kv_handoff`` or ``failover``; the engines' own ``kv_handoff`` and
+    ``failover_in`` events give the router's handoff and failover counts and
+    bytes, and summarize's resumes and traces match the requests; then
+    ``spin_up`` adds a replica with 0 compiles."""
+    from accelerate_tpu_torch.serving_fleet import FleetConfig, FleetRouter
+    from accelerate_tpu_torch.telemetry import EventLog, decompose, summarize_file
+    from accelerate_tpu_torch.test_utils.fault_injection import ReplicaChaos
+
+    work = ckpt_workdir()
+    try:
+        path = str(work / "fleet.jsonl")
+        log = EventLog(path, rank=0)
+        fr = FleetRouter.from_model(model, num_replicas=3, config=FleetConfig(
+            roles=("prefill", "decode", "decode"), handoff="always", failover="handoff", prefix_reuse=False),
+            trace=True, telemetry_log=log, **FLEET_DENSE)
+        fuids = [fr.submit(p, FLEET_CHAOS_NEW) for p in prompts[:FLEET_CHAOS]]
+        fr.step()
+        fr.step()
+        with ReplicaChaos("mid_decode", replica="r1") as chaos:
+            fr.run()
+        check(chaos.fired, "fleet telemetry: the crash fired")
+        fleet_outputs(fr, fuids)
+        acc = fr.failover_accounting()
+        check(acc["failovers_kv"] >= 1 and acc["failovers_lost"] == 0, f"fleet telemetry: KV failover ({acc})")
+        merged = fr.metrics_merged()
+        merged.log = log
+        merged.emit()
+        snap = merged.snapshot()
+        log.close()
+        report = summarize_file(path)
+        counts = ("requests_submitted", "requests_completed", "requests_cancelled", "tokens_generated", "prefills",
+                  "resumes", "failovers_in", "failovers_out", "failovers_lost", "replica_errors", "replica_state")
+        serving = report["serving"]
+        check(all(serving[k] == snap[k] for k in counts),
+              f"fleet telemetry: summarize's serving counters equal the snapshot's "
+              f"({ {k: (serving.get(k), snap[k]) for k in counts} })")
+        # what the engines' own events say, against what the router counted
+        events = [json.loads(line) for line in Path(path).read_text().splitlines() if line.strip()]
+        hacc = fr.handoff_accounting()
+        bpt, fixed = fr.replicas[0].engine.kv_handoff_dims()
+        handed = [e for e in events if e.get("kind") == "event" and e.get("name") == "kv_handoff"]
+        check(len(handed) == hacc["handoffs"]
+              and sum(bpt * e["tokens"] + fixed for e in handed) == sum(e["moved_bytes"] for e in handed)
+              == hacc["bytes_moved"], f"fleet telemetry: the kv_handoff events give the router's handoffs ({hacc})")
+        arrived = [e for e in events if e.get("kind") == "event" and e.get("name") == "failover_in"]
+        shipped = [e for e in arrived if e.get("kv_rows")]
+        check(len(arrived) == acc["failovers"] - acc["failovers_lost"] and len(shipped) == acc["failovers_kv"]
+              and sum(bpt * e["kv_rows"] + fixed for e in shipped) == acc["bytes_moved"],
+              f"fleet telemetry: the failover_in events give the router's failovers ({acc})")
+        sched = report["scheduler"]
+        check(sched["resumed"] == len(arrived) + sched["preempted"],
+              f"fleet telemetry: each failed-over or preempted request resumed once ({sched}, {len(arrived)} in)")
+        check(report["traces"]["count"] == report["traces"]["completed"] == len(fuids),
+              f"fleet telemetry: summarize rebuilds one finished trace a request ({report['traces']['count']})")
+        traces = [t for t in fr.tracer.completed() if "fuid" in t["meta"]]
+        check(len(traces) == len(fuids) and all(t["status"] == "ok" for t in traces),
+              f"fleet telemetry: one finished trace a request ({len(traces)} of {len(fuids)})")
+        gaps = [abs(t["dur_ms"] - sum(s["dur_ms"] for s in t["spans"])) for t in traces]
+        check(max(gaps) <= 1.0, f"fleet telemetry: segment sums within 1 ms of end to end ({max(gaps)})")
+        drift = fr.critpath.drift_events
+        check(not {"kv_handoff", "failover"} & set(drift), f"fleet telemetry: no byte drift ({drift})")
+        spin = fr.spin_up(warm_prompt_lens=(64,), max_new_tokens=8)
+        check(spin["compiles"] == 0, f"fleet telemetry: spin_up compiles 0 ({spin})")
+        by_class = decompose(traces)["by_class"]
+        row = {"phase": "fleet_telemetry", "config": "TinyLlama-1.1B shape, 22 layers, bf16; dense replicas "
+               "prefill, decode, decode; a crash on r1 at mid_decode", "requests": len(fuids),
+               "events": report["events"], "serving_counters": {k: serving[k] for k in counts},
+               "traces": len(traces), "max_segment_sum_gap_ms": max(gaps),
+               "segments_ms_p50": {k: v["p50_ms"] for k, v in by_class.items()},
+               "segments_share": {k: v["share"] for k, v in by_class.items()},
+               "drift": sorted(drift), "flight_dumps": report.get("traces", {}).get("flight_dumps"),
+               "failover_accounting": acc, "handoff_accounting": hacc,
+               "spinup_ms": spin["spinup_ms"], "spinup_compiles": spin["compiles"]}
+        del fr
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_memory(torch)
+    emit(row)
+    return row
+
+
+def phase_fleet(torch) -> dict:
+    """The fleet group on TinyLlama-1.1B's published widths at all 22
+    layers (seeded random weights, bf16): fleet_serve, fleet_disagg,
+    fleet_chaos, fleet_telemetry."""
+    from accelerate_tpu_torch import LlamaConfig, create_llama_model
+
+    model = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.bfloat16)
+    prompts = fleet_prompts(model.config.vocab_size)
+    serve = phase_fleet_serve(torch, model, prompts)
+    disagg = phase_fleet_disagg(torch, model, prompts, serve["control"])
+    chaos = phase_fleet_chaos(torch, model, prompts, serve["control"])
+    phase_fleet_telemetry(torch, model, prompts)
+    del model
+    free_memory(torch)
+    return {"k4_launches": serve["row"]["kernel_launches"] + disagg["kernel_launches"] + chaos["kernel_launches"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -5005,7 +5461,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt`
+    # dense,moe,gpt,fleet`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -5087,6 +5543,8 @@ def main() -> int:
         moe = phase_moe(torch)
     if not only or "gpt" in only:
         gpt = phase_gpt(torch, 44 if only else NEOX_LAYERS)  # the group alone serves GPT-NeoX-20B at full depth
+    if not only or "fleet" in only:
+        fleet = phase_fleet(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -5098,11 +5556,12 @@ def main() -> int:
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
         # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
         # Gemma-2B's (head dim 256), the banded families' 2-layer cuts, Mistral-7B-v0.1's three phases,
-        # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts
+        # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts, and the fleet's
+        # paged replicas (TinyLlama, head dim 64)
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
         + gemma_serve["kernel_launches"]
         + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
-        + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"],
+        + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"] + fleet["k4_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

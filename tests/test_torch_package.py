@@ -66,7 +66,9 @@ def test_importing_every_module_loads_no_jax():
                  "utils.safetensors_io", "test_utils.fault_injection", "models.resnet", "utils.memory",
                  "test_utils.training", "test_utils.testing", "ops.fp8", "logging", "utils.imports", "tracking",
                  "telemetry", "telemetry.eventlog", "telemetry.step", "telemetry.mfu", "telemetry.nonfinite",
-                 "ops.moe", "models.mixtral", "models.qwen3_moe", "models.gpt2", "models.gptneox"):
+                 "ops.moe", "models.mixtral", "models.qwen3_moe", "models.gpt2", "models.gptneox",
+                 "serving_fleet", "scheduling", "telemetry.serving_metrics", "telemetry.summarize", "telemetry.trace",
+                 "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -75,10 +77,13 @@ def test_no_source_imports_jax():
     (chip_smoke.py), nor its example imports jax or the JAX package."""
     examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
                                                       "torch_cv_example.py", "torch_gradient_accumulation.py")]
-    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "scripts" / "torch_handoff_rate.py", *examples]
     checked = {p.relative_to(PKG).as_posix() for p in sources if PKG in p.parents}
     assert {"ops/fp8.py", "logging.py", "tracking.py", "utils/imports.py", "telemetry/__init__.py",
-            "telemetry/eventlog.py", "telemetry/step.py", "telemetry/mfu.py", "telemetry/nonfinite.py"} <= checked
+            "telemetry/eventlog.py", "telemetry/step.py", "telemetry/mfu.py", "telemetry/nonfinite.py",
+            "serving_fleet.py", "scheduling.py", "analysis/costmodel.py", "telemetry/serving_metrics.py",
+            "telemetry/summarize.py", "telemetry/trace.py", "telemetry/flightrec.py", "telemetry/critpath.py",
+            "utils/dataclasses.py", "test_utils/fault_injection.py", "serving.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

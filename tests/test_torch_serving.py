@@ -201,25 +201,24 @@ def test_streaming_accessors_and_cancel(models):
 
 def test_not_ported_surface_raises(models):
     """What the engine still refuses, each naming its ROADMAP.md item:
-    perf_check / numerics_check, the runtime services and the fleet's
-    surface (tracing, KV handoff, failover); and, as the JAX package does,
-    a softcapped model on the paged layout (the dense layout serves it)."""
+    perf_check / numerics_check and the program services (program caches,
+    auto-bucketing); and, as the JAX package does, a softcapped model on
+    the paged layout (the dense layout serves it). The telemetry log, the
+    tracer and the fleet's handoff and failover surface are served."""
     from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
 
     _, model = models
     with pytest.raises(NotImplementedError, match="softcapping.*serve with the dense engine layout"):
         ServingEngine(create_gemma2_model(Gemma2Config.tiny(), device="cpu"), device="cpu", paged_block_size=4)
-    for kw in (dict(telemetry_log=object()), dict(program_cache=object()), dict(auto_bucketing=True)):
+    for kw in (dict(program_cache=object()), dict(auto_bucketing=True)):
         with pytest.raises(NotImplementedError, match="item 9"):
             ServingEngine(model, device="cpu", paged_block_size=4, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(model, device="cpu", paged_block_size=4, tracer=object())
     eng = ServingEngine(model, device="cpu", paged_block_size=4)
-    for call, item in ((eng.export_inflight, 10), (eng.import_inflight, 10), (eng.kv_handoff_dims, 10),
-                       (eng.prefill_detached, 10), (eng.submit_prefilled, 10), (eng.perf_check, 11),
-                       (eng.numerics_check, 11), (lambda: eng.submit([1, 2], 2, trace=3), 10)):
+    for call, item in ((eng.perf_check, 11), (eng.numerics_check, 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             call()
+    assert eng.kv_handoff_dims()[1] == 4 * model.config.num_hidden_layers
+    assert eng.export_inflight() == []
     with pytest.raises(ValueError, match="pool blocks"):
         ServingEngine(model, device="cpu", paged_block_size=4, pool_blocks=3).submit([1] * 8, max_new_tokens=8)
 

@@ -399,14 +399,12 @@ def test_checkpoint_events_fire_once_telemetry_is_live(tmp_path):
 
 
 def test_what_stays_unported_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TelemetryKwargs(trace_requests=True)
-    with pytest.raises(NotImplementedError, match="flight_capacity.*Queue 1 item 10"):
-        TelemetryKwargs(flight_capacity=512)
     assert TelemetryKwargs().trace_config() is None
-    for fn, item in ((tel.summarize, 9), (tel.summarize_file, 9), (tel.render_text, 9), (tel.hlo_wire_bytes, 9),
-                     (tel.Tracer, 10), (tel.TraceConfig, 10), (tel.FlightRecorder, 10), (tel.CritPathMonitor, 10),
-                     (tel.TelemetryHTTPD, 10)):
+    cfg = TelemetryKwargs(trace_requests=True, flight_capacity=512).trace_config()
+    assert isinstance(cfg, tel.TraceConfig) and cfg.flight_capacity == 512
+    with pytest.raises(ValueError, match="flight_capacity"):
+        TelemetryKwargs(flight_capacity=2)
+    for fn, item in ((tel.hlo_wire_bytes, 9), (tel.TelemetryHTTPD, 10)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
             fn()
     with pytest.raises(NotImplementedError, match="item 9"):
