@@ -12,7 +12,7 @@ The other analysis tiers are not ported (ROADMAP.md).
 """
 
 from .kernelmodel import KernelReport, KernelSite, kernel_check, scan_paths
-from .report import exit_code, render_sarif, render_text
+from .report import exit_code, render_sarif, render_sarif_run, render_text
 from .rules import RULES, Finding, filter_findings
 from .selfcheck import run_kernel_selfcheck
 
@@ -25,6 +25,7 @@ __all__ = [
     "filter_findings",
     "kernel_check",
     "render_sarif",
+    "render_sarif_run",
     "render_text",
     "run_kernel_selfcheck",
     "scan_paths",

@@ -3,7 +3,9 @@ editors and CI annotators parse, SARIF 2.1.0 for CI annotation, and the
 exit-code contract (JSON is each record's ``as_dict``).
 
 The port's copy of :mod:`accelerate_tpu.analysis.report` (the surfaces
-the kernel analyzer uses), formats unchanged.
+the kernel analyzer and the ``fleet`` command use), formats unchanged:
+:func:`render_sarif_run` is the shared reporter of CLI surfaces whose
+results are not lint findings (``fleet price-handoff --format sarif``).
 """
 
 from __future__ import annotations
@@ -76,6 +78,54 @@ def render_sarif(findings: list) -> str:
                 "informationUri": "https://github.com/",
                 "version": "0",
                 "rules": rules,
+            }
+        },
+        "results": results,
+    }
+    return json.dumps({"$schema": SARIF_SCHEMA, "version": "2.1.0", "runs": [run]}, indent=2)
+
+
+def render_sarif_run(tool_name: str, entries: list, *, tool_version: str = "0") -> str:
+    """One SARIF 2.1.0 document from ad-hoc entries: each
+    ``{"rule_id", "name", "summary", "level", "message"}`` plus optional
+    ``"uri"`` / ``"line"``. Rule descriptors are tool-local (SARIF scopes
+    rules to their driver)."""
+    used: dict = {}
+    for e in entries:
+        used.setdefault(
+            e["rule_id"],
+            {
+                "id": e["rule_id"],
+                "name": e.get("name", e["rule_id"]),
+                "shortDescription": {"text": e.get("summary", e.get("name", e["rule_id"]))},
+                "defaultConfiguration": {"level": e.get("level", "note")},
+            },
+        )
+    rule_index = {rid: i for i, rid in enumerate(used)}
+    results = [
+        {
+            "ruleId": e["rule_id"],
+            "ruleIndex": rule_index[e["rule_id"]],
+            "level": e.get("level", "note"),
+            "message": {"text": e["message"]},
+            "locations": [
+                {
+                    "physicalLocation": {
+                        "artifactLocation": {"uri": e.get("uri") or f"<{tool_name}>"},
+                        "region": {"startLine": e.get("line") or 1},
+                    }
+                }
+            ],
+        }
+        for e in entries
+    ]
+    run = {
+        "tool": {
+            "driver": {
+                "name": tool_name,
+                "informationUri": "https://github.com/",
+                "version": tool_version,
+                "rules": list(used.values()),
             }
         },
         "results": results,

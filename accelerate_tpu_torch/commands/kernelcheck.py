@@ -100,8 +100,14 @@ def resolve_sample_args(module, fn, arg_specs):
     return tuple(samples()) if callable(samples) else tuple(samples)
 
 
-def kernelcheck_parser():
-    parser = argparse.ArgumentParser("python -m accelerate_tpu_torch.commands.kernelcheck")
+def kernelcheck_parser(subparsers=None):
+    if subparsers is not None:
+        parser = subparsers.add_parser(
+            "kernel-check", help="CUDA kernel launch analysis + registered cost contracts (TPU10xx)"
+        )
+        parser.set_defaults(func=kernelcheck_command)
+    else:
+        parser = argparse.ArgumentParser("python -m accelerate_tpu_torch.commands.kernelcheck")
     parser.add_argument(
         "targets", nargs="*",
         help="file.py::fn / pkg.module:fn (traced mode) or files/directories (AST registration gate)",

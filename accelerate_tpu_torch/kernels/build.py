@@ -29,6 +29,8 @@ from .launch import count_launch
 # libraries nvcc built in this process (a library found built counts none):
 # what a fleet's spin-up reports as its compiles
 nvcc_builds = 0
+# libraries this process loaded that it found built: a warm start's loads
+prebuilt_loads = 0
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
@@ -158,7 +160,10 @@ def build_all(names=None) -> dict:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""
-    _finish(name, *_start(name))
+    proc, tmp, lib = _start(name)
+    if proc is None:
+        count_launch(globals(), "prebuilt_loads")
+    _finish(name, proc, tmp, lib)
     lib = ctypes.CDLL(str(_target(name)[1]))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)

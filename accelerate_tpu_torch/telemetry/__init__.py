@@ -20,10 +20,12 @@ or, through the Accelerator (the usual path)::
     accelerator = Accelerator(kwargs_handlers=[TelemetryKwargs(...)])
     step = accelerator.telemetry.wrap(accelerator.build_train_step(loss_fn))
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
+:class:`TelemetryHTTPD` serves ``/metrics``, ``/healthz`` and ``/traces``
+over HTTP, and the multi-process fleet's ``/v1/generate`` front door.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md
 Queue 1 item: the wire-byte counters (``hlo_wire_bytes``,
-``Telemetry.record_wire_bytes``: item 9) and the HTTP endpoint
-(``TelemetryHTTPD``: item 10's process half).
+``Telemetry.record_wire_bytes``: item 9).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from .mfu import (
 )
 from .critpath import CritPathMonitor, decompose, render_critpath
 from .flightrec import FlightRecorder, read_dump, render_dump
+from .httpd import SLO_CLASSES, TelemetryHTTPD
 from .nonfinite import NonFiniteWatchdog
 from .serving_metrics import ServingMetrics, fleet_prometheus_text
 from .step import StepTelemetry, diff_signatures, signature_of, suggest_buckets
@@ -75,6 +78,8 @@ __all__ = [
     "FlightRecorder",
     "read_dump",
     "render_dump",
+    "TelemetryHTTPD",
+    "SLO_CLASSES",
     "CritPathMonitor",
     "decompose",
     "render_critpath",
@@ -101,7 +106,6 @@ def _not_ported(name: str, module: str, item: int):
 
 
 hlo_wire_bytes = _not_ported("hlo_wire_bytes", "wire", 9)
-TelemetryHTTPD = _not_ported("TelemetryHTTPD", "httpd", 10)
 
 
 class Telemetry:

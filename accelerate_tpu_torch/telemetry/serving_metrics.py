@@ -22,8 +22,9 @@ package's.
 samples over the retained window. :func:`fleet_prometheus_text` renders
 N replicas as one scrape with a ``replica`` label a sample, and
 :meth:`ServingMetrics.merge` pools them into one fleet view. The
-process-level counters of the JAX package's multi-process fleet wait for
-that fleet (ROADMAP.md Queue 1 item 10).
+multi-process fleet's process-level counters are its supervisor's
+``proc_*`` lines (:meth:`~accelerate_tpu_torch.serving_proc.ProcessSupervisor.prometheus_text`),
+as in the JAX package.
 """
 
 from __future__ import annotations

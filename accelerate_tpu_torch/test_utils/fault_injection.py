@@ -21,13 +21,17 @@ auto-resume always lands on a valid checkpoint::
 truncates, garbles or deletes committed files to exercise the manifest's
 size/crc32 detection. :class:`ReplicaChaos` faults one replica of a
 :class:`~accelerate_tpu_torch.serving_fleet.FleetRouter` at a serving
-crash point. Its process-level actions (``sigkill``, ``sigstop``) wait for
-the multi-process fleet (ROADMAP.md Queue 1 item 10).
+crash point; its process-level actions (``sigkill``, ``sigstop``) fault
+one engine-worker process of the multi-process fleet
+(:mod:`accelerate_tpu_torch.serving_proc`), installed at the worker's boot
+by :meth:`ReplicaChaos.install_from_env`.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import signal
 import time
 from pathlib import Path
 
@@ -127,7 +131,20 @@ class ReplicaChaos:
     hook fires on every later visit too (a persistently sick replica),
     else once. ``fired`` / ``count`` record what happened. Both raising
     actions use exception types that are not ``OSError``: the failover
-    handoff leg's retry wrapper must never absorb a simulated death."""
+    handoff leg's retry wrapper must never absorb a simulated death.
+
+    **Process-level actions** (the multi-process fleet's faults, installed
+    into one engine-worker process by :meth:`install_from_env` at boot):
+
+    * ``"sigkill"`` -- ``os.kill(os.getpid(), SIGKILL)``: the kernel
+      removes the process mid-tick; the supervisor observes a ``-9`` exit
+      and fails the worker's in-flight snapshots over;
+    * ``"sigstop"`` -- ``os.kill(os.getpid(), SIGSTOP)``: the process
+      freezes (a real hang, not a sleep); the supervisor's heartbeat
+      timeouts escalate degraded -> quarantined and SIGKILL it."""
+
+    #: actions that end (or freeze) the whole process rather than raise
+    PROCESS_ACTIONS = ("sigkill", "sigstop")
 
     def __init__(
         self,
@@ -141,13 +158,8 @@ class ReplicaChaos:
     ):
         if label not in SERVING_CRASH_POINTS:
             raise ValueError(f"unknown serving crash point {label!r}; choose from {SERVING_CRASH_POINTS}")
-        if action in ("sigkill", "sigstop"):
-            raise NotImplementedError(
-                f"ReplicaChaos(action={action!r}) faults a replica process: the multi-process fleet is not "
-                "ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 10)"
-            )
-        if action not in ("crash", "poison", "hang", "latency"):
-            raise ValueError(f"action must be crash|poison|hang|latency, got {action!r}")
+        if action not in ("crash", "poison", "hang", "latency") + self.PROCESS_ACTIONS:
+            raise ValueError(f"action must be crash|poison|hang|latency|sigkill|sigstop, got {action!r}")
         self.label = label
         self.replica = replica
         self.action = action
@@ -172,6 +184,12 @@ class ReplicaChaos:
         if self.action in ("hang", "latency"):
             time.sleep(self.hang_s if self.action == "hang" else self.latency_s)
             return
+        if self.action == "sigkill":
+            os.kill(os.getpid(), signal.SIGKILL)
+            return  # unreachable: the kernel removes the process
+        if self.action == "sigstop":
+            os.kill(os.getpid(), signal.SIGSTOP)
+            return  # resumes here only if something SIGCONTs the process
         where = f"{self.label!r}" + (f" on replica {self.replica!r}" if self.replica else "")
         if self.action == "poison":
             from ..serving_fleet import NonFinitePoison
@@ -186,6 +204,51 @@ class ReplicaChaos:
     def __exit__(self, *exc):
         set_crash_hook(None)
         return False
+
+    # ------------------------------------------------------------------ #
+    # process-level installation (engine-worker processes)
+    # ------------------------------------------------------------------ #
+
+    def to_env_spec(self, worker: str) -> str:
+        """This chaos for ONE named worker process, as the JSON the
+        ``ACCELERATE_TPU_PROC_CHAOS`` environment variable carries."""
+        return json.dumps(
+            {
+                "worker": worker,
+                "label": self.label,
+                "action": self.action,
+                "hits": self.hits,
+                "repeat": self.repeat,
+                "hang_s": self.hang_s,
+                "latency_s": self.latency_s,
+            }
+        )
+
+    @classmethod
+    def install_from_env(cls, worker: str, env_var: str = "ACCELERATE_TPU_PROC_CHAOS"):
+        """Worker-boot hook: if the environment variable names THIS
+        worker, build the chaos and install its hook for good (no context
+        manager: the process lives inside the chaos until it dies).
+        Returns the installed instance or None. The supervisor sets the
+        variable only on the targeted incarnation, so a respawn boots
+        clean."""
+        spec = os.environ.get(env_var)
+        if not spec:
+            return None
+        cfg = json.loads(spec)
+        if cfg.get("worker") not in (None, worker):
+            return None
+        chaos = cls(
+            cfg["label"],
+            replica=worker,
+            action=cfg.get("action", "sigkill"),
+            hits=int(cfg.get("hits", 1)),
+            repeat=bool(cfg.get("repeat", False)),
+            latency_s=float(cfg.get("latency_s", 0.005)),
+            hang_s=float(cfg.get("hang_s", 0.05)),
+        )
+        set_crash_hook(chaos._hook)
+        return chaos
 
 
 def corrupt_file(path, mode: str = "truncate", nbytes: int = 16) -> str:

@@ -60,7 +60,7 @@ it, all three equal. Then the slices:
   checkpoint is (else within twice the repeat's spread); save, async and
   load seconds and bytes;
 * the imperative loop and mutable state: the train phase's TinyLlama
-  shape trained through ``accumulate`` / ``backward`` / ``optimizer.step``
+  widths (8 of its 22 layers) trained through ``accumulate`` / ``backward`` / ``optimizer.step``
   (accumulation 4 over 8 microbatches of 2 x 2048) and through
   ``build_train_step`` from the same weights on the same batches, the two
   bit-equal in every loss, parameter and AdamW tensor and each launching
@@ -76,15 +76,15 @@ it, all three equal. Then the slices:
   tokens against a no-cache loop; one tick profiled) and trained at batch
   2 x 2048 (K1-K3 at head dim 256; one step profiled), Gemma3-1B trained
   likewise (its 512-key band on five layers in six), every family at its
-  published widths cut to 2 layers held on the card to the CPU (logits,
+  published widths cut to 1 layer (Gemma3 2) held on the card to the CPU (logits,
   greedy generate), and Phi-3-mini's widths (head dim 96, a 2047-key
   band) trained through the kernels against the einsum path. K1-K3 are
   held to their plain versions at D 96 and 256 too, and swept over head
-  dims 16 to 256. The banded families' 2-layer cuts (Mistral, Phi-3,
+  dims 16 to 256. The banded families' cuts (Mistral, Phi-3,
   Gemma3) are served paged on the card and held to the CPU engine; Gemma2
   on the paged engine raises, naming the dense layout;
 * the paged engine's memory and scheduling (``--only sched``):
-  Mistral-7B-v0.1 at full width, 8 of its 32 layers (seeded random
+  Mistral-7B-v0.1 at full width, 4 of its 32 layers (seeded random
   weights, bf16) behind the engine, every decode step's attention through K4 in its
   4096-key band, held at that shape against its plain version (NaN in
   every expired entry): 12 prompts of 300-7,900 tokens on a pool sized
@@ -95,7 +95,7 @@ it, all three equal. Then the slices:
   recompute, against an unpreempted control, and a structured
   ``ShedError`` (``preempt_serve``);
 * the dense serving layout, speculative serving and beam search (``--only
-  dense``): Gemma-2-9B at full width, 14 of its 42 layers (seeded random
+  dense``): Gemma-2-9B at full width, 8 of its 42 layers (seeded random
   weights, bf16; its softcaps and its 4096-key band on alternate layers) served on
   the dense layout (``gemma2_serve``: 12 prompts of 16-2,000 tokens and
   one of 3,000, 64 new, greedy tokens against the teacher-forced dense
@@ -132,7 +132,7 @@ it, all three equal. Then the slices:
   (``moe_consistency``). The routing is index tensors and library GEMMs,
   as the JAX package's is one-hot einsums: no kernel of its own;
 * the GPT decoders (``--only gpt``): K4 at GPT-NeoX-20B's and GPT-2's
-  decode shapes (``gpt_kernel``); GPT-NeoX-20B at full width (12 of its 44
+  decode shapes (``gpt_kernel``); GPT-NeoX-20B at full width (6 of its 44
   layers in the full script, all 44 under ``--only gpt``; bf16) served on
   the paged engine with the serving traffic, K4 at D 96 in every decode
   step, greedy tokens against a no-cache loop, one tick traced
@@ -140,8 +140,8 @@ it, all three equal. Then the slices:
   (``gpt2_serve``) and trained at 8 x 1024 on the einsum attention
   (``gpt2_train``); 2-layer f32 cuts of both held card against CPU:
   logits, greedy generate, the paged engine (``gpt_consistency``);
-* the in-process serving fleet (``--only fleet``): TinyLlama-1.1B at all
-  22 layers behind ``FleetRouter``; 48 requests on one engine and on 2
+* the in-process serving fleet (``--only fleet``): TinyLlama-1.1B's widths
+  at 4 of its 22 layers behind ``FleetRouter``; 48 requests on one engine and on 2
   paged replicas with prefix reuse on and off (K4 == layers x each
   replica's decode steps; one tick traced, ``fleet_serve``);
   prefill, decode, decode with the handoff forced and ``"auto"``, moved
@@ -149,7 +149,22 @@ it, all three equal. Then the slices:
   flight failing over by recompute and by KV, greedy and sampled, and a
   poison, zero lost (``fleet_chaos``); the event log through
   ``summarize_file`` against the router's accounting, a trace a request,
-  ``spin_up`` with 0 ``nvcc`` builds (``fleet_telemetry``).
+  ``spin_up`` with 0 ``nvcc`` builds (``fleet_telemetry``);
+* the multi-process fleet (``--only proc``): TinyLlama-1.1B at all 22
+  layers in worker processes behind ``ProcessSupervisor``, each worker on
+  the card: the 48 requests on 2 paged workers, tokens held to one
+  in-process engine's, K4 == 22 x each worker's decode steps (counted in
+  the worker, read in its status replies), each worker's tick traced in
+  the worker (``proc_serve``); faults with 24 requests in flight: SIGKILL
+  at ``mid_decode`` (failover by recompute, greedy and sampled; then the
+  last worker killed: its requests lost with a reason), SIGSTOP
+  (degraded, quarantined, respawned with 0 ``nvcc`` builds), a dense
+  ``shadow_kv`` pair killed once its snapshots carry rows (KV failover,
+  moved bytes == predicted, bit-equal to no fault), free card memory
+  beside each kill (``proc_chaos``); ``python -m
+  accelerate_tpu_torch.commands.serve`` over HTTP: JSON and SSE with the
+  same tokens, a cancel, ``/metrics``, ``/healthz`` 200 then 503, SIGTERM
+  exiting 0 (``proc_http``).
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -161,7 +176,9 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1306,14 +1323,14 @@ def attention_op_errors(torch, b, s, h, hkv, d, window) -> dict:
     return errs
 
 
-# the banded families' 2-layer cuts served paged, card against CPU: prompts that cross Phi-3's 2047-key band and
+# the banded families' cuts served paged, card against CPU: prompts that cross Phi-3's 2047-key band and
 # Gemma3's 512-key one (blocks expire on Phi-3; Gemma3's full layer keeps them); Mistral's 4096-key band is crossed
 # at full depth in mistral_serve, where a CPU run would take minutes
 BANDED_SERVE = {"mistral": (5, 300), "phi3": (5, 2100), "gemma3": (5, 600)}
 
 
 def banded_serve_card_vs_cpu(torch, cpu, card, family, lengths=None) -> dict:
-    """``family``'s 2-layer cut served by the paged engine on the card and on
+    """``family``'s cut served by the paged engine on the card and on
     the CPU (2 slots, blocks of 16, 20 new tokens, greedy, f32): K4 launches
     == layers x decode steps, the pool drained, and the card's tokens equal
     the CPU engine's, a request's comparison ending only at a top-2 logit
@@ -1360,7 +1377,7 @@ def banded_serve_card_vs_cpu(torch, cpu, card, family, lengths=None) -> dict:
 
 
 def phase_families_consistency(torch):
-    """Each family at its published widths cut to 2 layers (Gemma3 keeps one
+    """Each family at its published widths cut to 1 layer (Gemma3 keeps one
     sliding and one full layer), f32, built on the CPU and copied to the
     card: the card's forward logits (batch 2 x 64) within 1e-4 of the CPU's
     RMS; greedy generate of 8 tokens after 16 equal to the CPU's, a token
@@ -1386,9 +1403,10 @@ def phase_families_consistency(torch):
     rows = []
     rng = np.random.default_rng(12)
     for family, _, preset in FAMILY_PRESETS:
-        kw = {"num_hidden_layers": 2}
+        # one layer since PR 18 (two before; the script's 1,200 s): Gemma3 keeps one sliding and one full
+        kw = {"num_hidden_layers": 1}
         if family == "gemma3":
-            kw["layer_types"] = ("sliding_attention", "full_attention")
+            kw = {"num_hidden_layers": 2, "layer_types": ("sliding_attention", "full_attention")}
         cfg = family_config(family, preset, **kw)
         t0 = time.perf_counter()
         cpu = create_llama_model(cfg, seed=5, device="cpu")
@@ -1475,9 +1493,10 @@ def phase_families_consistency(torch):
 MISTRAL_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), paged_block_size=16, tick_block=8, max_len=8192)
 # the windowed need: a request in its band holds at most 266 blocks at 128 new tokens
 MISTRAL_POOL = 8 * 266 + 1
-# Mistral-7B-v0.1's 32 layers cut to 8 (its widths, band and engine kept) since PR 15: the whole script must end
-# within its 1,200 s, and at full depth the three sched phases took 251 s of a 1,035 s run (PERF.md §4)
-SCHED_LAYERS = 8
+# Mistral-7B-v0.1's 32 layers cut to 8 (its widths, band and engine kept) since PR 15, and to 4 since PR 18 (the
+# proc group's share): the whole script must end within its 1,200 s, and at full depth the three sched phases
+# took 251 s of a 1,035 s run (PERF.md §4)
+SCHED_LAYERS = 4
 MISTRAL_LENGTHS = (300, 1200, 2500, 3968, 4000, 4090, 4500, 5000, 5600, 6100, 7000, 7900)
 
 
@@ -2031,7 +2050,7 @@ def phase_sched(torch):
 
 # ---------------------------------------------------------------------------
 # the dense serving layout, speculative serving and beam search: Gemma-2-9B at
-# full width, 14 of 42 layers (its softcaps, its 4096-key band on alternate layers)
+# full width, 8 of 42 layers (its softcaps, its 4096-key band on alternate layers)
 # with a Gemma-2-2B draft; no kernel of the JAX package lies on these paths
 # (the dense cache's attention is an einsum there as here)
 # ---------------------------------------------------------------------------
@@ -2042,8 +2061,9 @@ def phase_sched(torch):
 GEMMA2_2B = dict(hidden_size=2304, intermediate_size=9216, num_hidden_layers=26, num_attention_heads=8,
                  num_key_value_heads=4, head_dim=256, query_pre_attn_scalar=256.0, sliding_window=4096)
 # Gemma-2-9B's 42 layers cut to 14 and the draft's 26 to 8 (widths, softcaps and the alternating band kept)
-# since PR 15, for the script's 1,200 s: the group's serving phases took 151 s of a 1,035 s run at full depth
-DENSE_TARGET_LAYERS, DENSE_DRAFT_LAYERS = 14, 8
+# since PR 15, to 8 and 4 since PR 18, for the script's 1,200 s: the group's serving phases took 151 s of a
+# 1,035 s run at full depth
+DENSE_TARGET_LAYERS, DENSE_DRAFT_LAYERS = 8, 4
 DENSE_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), tick_block=8, max_len=4096)
 DENSE_LENGTHS = (16, 128, 200, 333, 512, 700, 1000, 1234, 1500, 1750, 1900, 2000)
 DENSE_LONG = 3000  # past the largest bucket: chunked prefill, plain serving only (speculation takes bucket-sized)
@@ -2989,16 +3009,21 @@ def imperative_trainer(torch, cfg, accum, seed=0, lr=3e-4):
     return acc, model, opt
 
 
+# the imperative phase trains TinyLlama's widths at 8 of its 22 layers since PR 18 (22 before): the script's
+# 1,200 s with the process fleet's group (PERF.md §4)
+IMPERATIVE_LAYERS = 8
+
+
 def phase_imperative(torch):
-    """The imperative loop at the train phase's shape (TinyLlama-1.1B, 22
-    layers, f32 masters, bf16 compute, remat, AdamW(3e-4, weight decay
+    """The imperative loop at the train phase's widths (TinyLlama-1.1B,
+    IMPERATIVE_LAYERS of its 22 layers, f32 masters, bf16 compute, remat, AdamW(3e-4, weight decay
     0.01)): gradient accumulation 4 over 8 microbatches of 2 x 2048, so two
     optimizer steps, each microbatch ``with accumulate(model): backward(loss_fn,
     batch); optimizer.step(); optimizer.zero_grad()``; then
     ``build_train_step`` from the same weights on the same batches. The
     per-microbatch losses, every parameter and every AdamW tensor must be
-    bit-equal between the two, and each path must launch K1 2 x 22 x 8
-    times and K2 and K3 22 x 8 times. A third run calls
+    bit-equal between the two, and each path must launch K1 2 x layers x 8
+    times and K2 and K3 layers x 8 times. A third run calls
     ``clip_grad_norm_(model, 1.0)`` in the loop: finite losses, parameters
     that differ from the unclipped run's. Each path's optimizer-step
     windows (4 microbatches, fenced once, as a training loop runs) are
@@ -3009,7 +3034,7 @@ def phase_imperative(torch):
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     b, s, accum, micro = 2, 2048, 4, 8
-    cfg = LlamaConfig(**TINYLLAMA, remat=True)
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": IMPERATIVE_LAYERS}, remat=True)
     layers = cfg.num_hidden_layers
     want = {"fwd": 2 * layers * micro, "dq": layers * micro, "dkv": layers * micro}
     free_memory(torch)
@@ -3089,7 +3114,7 @@ def phase_imperative(torch):
     del run, model3, opt3, clipped, kept
     free_memory(torch)
     row = {
-        "phase": "imperative", "config": "TinyLlama-1.1B shape, 22 layers, f32 masters + bf16 compute, remat, "
+        "phase": "imperative", "config": f"TinyLlama-1.1B widths, {layers} of 22 layers, f32 masters + bf16 compute, remat, "
         "AdamW(3e-4, weight decay 0.01), seeded", "batch": b, "seq": s, "accum": accum, "microbatches": micro,
         "optimizer_steps": micro // accum, "losses": i_losses,
         "bit_equal": {"losses": micro, "params_and_adamw_tensors": n_tensors},
@@ -4474,8 +4499,8 @@ MOE_TIE_MARGIN = 1e-6
 MOE_UPDATE_TOL = 2e-3
 # EleutherAI/gpt-neox-20b config.json: GPTNeoXConfig.neox_20b()'s defaults (vocab 50,432, hidden 6144, 44 layers,
 # 64 heads of 96, rotary on 24 dims, parallel residual). Served at full depth under --only gpt; the full script
-# cuts it to NEOX_LAYERS to end inside its 1,200 s
-NEOX_LAYERS = 12
+# cuts it to NEOX_LAYERS (12 in PRs 16-17, 6 since PR 18) to end inside its 1,200 s
+NEOX_LAYERS = 6
 # K4 at the GPT serves' decode shapes: GPT-NeoX-20B's 64 heads of 96 and GPT-2's 12 heads of 64, MHA
 GPT_KERNEL_CASES = [
     ("bf16-neox20b", "bfloat16", 64, 64, 96, None, 2e-2),
@@ -5004,6 +5029,9 @@ FLEET_PREAMBLE = 1024
 FLEET_NEW = 64
 FLEET_CHAOS = 24  # requests in flight when a replica fails
 FLEET_CHAOS_NEW = 32  # their new tokens (the chaos and telemetry legs: the group's share of the 1,200 s)
+# the in-process fleet group serves TinyLlama's widths at 4 of its 22 layers since PR 18 (22 in PR 17): with the
+# process fleet's group at all 22 the script ran 1,216 s of its 1,200 (PERF.md §4)
+FLEET_LAYERS = 4
 
 
 def fleet_prompts(vocab: int, seed: int = 17) -> list:
@@ -5148,7 +5176,7 @@ def phase_fleet_serve(torch, model, prompts) -> dict:
         runs[name] = run
         del fr
         free_memory(torch)
-    row = {"phase": "fleet_serve", "config": "TinyLlama-1.1B shape, 22 layers, bf16, seeded random weights; "
+    row = {"phase": "fleet_serve", "config": f"TinyLlama-1.1B shape, {FLEET_LAYERS} layers, bf16, seeded random weights; "
            "2 paged replicas (block 16) of 8 slots", "requests": len(prompts), "max_new_tokens": FLEET_NEW,
            "prompt_lengths": [len(p) for p in prompts], "control": control, **runs,
            "tick": tick,
@@ -5231,7 +5259,7 @@ def phase_fleet_disagg(torch, model, prompts, control_out) -> dict:
         runs[mode] = run
         del fr
         free_memory(torch)
-    row = {"phase": "fleet_disagg", "config": "TinyLlama-1.1B shape, 22 layers, bf16; roles prefill, decode, "
+    row = {"phase": "fleet_disagg", "config": f"TinyLlama-1.1B shape, {FLEET_LAYERS} layers, bf16; roles prefill, decode, "
            "decode (paged, block 16, 8 slots each)", **runs,
            "costmodel_h100_bytes_per_s": HANDOFF_BW_TABLE["h100"],
            "kernel_launches": sum(r["kernel_launches"] for r in runs.values())}
@@ -5325,7 +5353,7 @@ def phase_fleet_chaos(torch, model, prompts, control_out) -> dict:
     legs["dense_poison"] = leg
     del fr
     free_memory(torch)
-    row = {"phase": "fleet_chaos", "config": "TinyLlama-1.1B shape, 22 layers, bf16; a fault on r1 at mid_decode "
+    row = {"phase": "fleet_chaos", "config": f"TinyLlama-1.1B shape, {FLEET_LAYERS} layers, bf16; a fault on r1 at mid_decode "
            f"with {FLEET_CHAOS} requests in flight", **legs,
            "kernel_launches": legs["paged_recompute"]["kernel_launches"]}
     emit(row)
@@ -5403,7 +5431,7 @@ def phase_fleet_telemetry(torch, model, prompts) -> dict:
         spin = fr.spin_up(warm_prompt_lens=(64,), max_new_tokens=8)
         check(spin["compiles"] == 0, f"fleet telemetry: spin_up compiles 0 ({spin})")
         by_class = decompose(traces)["by_class"]
-        row = {"phase": "fleet_telemetry", "config": "TinyLlama-1.1B shape, 22 layers, bf16; dense replicas "
+        row = {"phase": "fleet_telemetry", "config": f"TinyLlama-1.1B shape, {FLEET_LAYERS} layers, bf16; dense replicas "
                "prefill, decode, decode; a crash on r1 at mid_decode", "requests": len(fuids),
                "events": report["events"], "serving_counters": {k: serving[k] for k in counts},
                "traces": len(traces), "max_segment_sum_gap_ms": max(gaps),
@@ -5421,12 +5449,13 @@ def phase_fleet_telemetry(torch, model, prompts) -> dict:
 
 
 def phase_fleet(torch) -> dict:
-    """The fleet group on TinyLlama-1.1B's published widths at all 22
-    layers (seeded random weights, bf16): fleet_serve, fleet_disagg,
-    fleet_chaos, fleet_telemetry."""
+    """The fleet group on TinyLlama-1.1B's published widths at
+    FLEET_LAYERS of its 22 layers (seeded random weights, bf16):
+    fleet_serve, fleet_disagg, fleet_chaos, fleet_telemetry."""
     from accelerate_tpu_torch import LlamaConfig, create_llama_model
 
-    model = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.bfloat16)
+    model = create_llama_model(LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": FLEET_LAYERS}), seed=0,
+                               dtype=torch.bfloat16)
     prompts = fleet_prompts(model.config.vocab_size)
     serve = phase_fleet_serve(torch, model, prompts)
     disagg = phase_fleet_disagg(torch, model, prompts, serve["control"])
@@ -5435,6 +5464,623 @@ def phase_fleet(torch) -> dict:
     del model
     free_memory(torch)
     return {"k4_launches": serve["row"]["kernel_launches"] + disagg["kernel_launches"] + chaos["kernel_launches"]}
+
+
+# --------------------------------------------------------------------- #
+# the multi-process fleet (--only proc)
+# --------------------------------------------------------------------- #
+
+# each worker's warm prompts: the 64- and 256-token buckets and a chunked
+# prefill past the largest bucket, then a full decode tick
+PROC_WARM = (64, 300, 1100)
+# with shadow_kv a status reply ships every decoding slot's rows: at 8 slots
+# 8 x 1,536 rows x 22,528 B = 276.8 MB passes the transport's 268.4 MB frame
+# cap; 4 slots (138.4 MB) fit it
+PROC_DENSE = dict(FLEET_DENSE, num_slots=4)
+PROC_SAMPLED = dict(temperature=0.8, top_k=50)
+# the sampled failover leg serves in f32: in bf16 the rows a survivor recomputes are not the decoded ones bit for
+# bit, and a random-weight model's flat sampled choices part from the no-fault run's far from a tie of the
+# sampler's race (scripts/torch_sampled_resume.py: 13 of 36 resumed streams parted in bf16, none in f32); its
+# logprobs against the no-fault run's within this (the recomputed rows' rounding)
+PROC_SAMPLED_LP_TOL = 1e-3
+PROC_HTTP_NEW = 16
+
+
+def proc_tinyllama(device=None, seed=0, dtype="bfloat16"):
+    """The worker processes' model (``model_spec="chip_smoke:proc_tinyllama"``):
+    TinyLlama-1.1B's shape at all 22 layers in ``dtype`` (a torch dtype's
+    name), seeded random weights drawn on the card: the draws of this
+    script's own ``create_llama_model(LlamaConfig(**TINYLLAMA), seed=0,
+    dtype=...)``."""
+    import torch
+
+    from accelerate_tpu_torch import LlamaConfig, create_llama_model
+
+    return create_llama_model(LlamaConfig(**TINYLLAMA), seed=seed, device=device, dtype=getattr(torch, dtype))
+
+
+def proc_config(run_dir, engine=FLEET_ENGINE, workers=2, **kw):
+    from accelerate_tpu_torch.serving_proc import ProcConfig
+
+    return ProcConfig(workers=workers, model_spec="chip_smoke:proc_tinyllama", engine=dict(engine),
+                      run_dir=str(run_dir), warm_prompt_lens=PROC_WARM, warm_max_new_tokens=9, **kw)
+
+
+def proc_logs(run_dir) -> str:
+    """The last lines of every worker's log: what a failed check shows."""
+    out = []
+    for path in sorted(Path(run_dir).glob("worker_*.log")):
+        out.append(f"--- {path.name}\n" + "\n".join(path.read_text(errors="replace").splitlines()[-15:]))
+    return "\n".join(out)
+
+
+def proc_spawn(stack, cfg):
+    """A ProcessSupervisor whose workers are spawned and left to boot
+    (``start(wait=False)``; a worker reaches the card in seconds, so
+    fleets boot while earlier ones serve), shut down when ``stack``
+    closes whatever happens."""
+    from accelerate_tpu_torch.serving_proc import ProcessSupervisor
+
+    sup = ProcessSupervisor(cfg)
+    stack.callback(sup.shutdown)
+    sup.spawned_at = time.perf_counter()
+    sup.start(wait=False)
+    return sup
+
+
+def proc_ready(sup):
+    """Pump until every worker said hello (else the phase fails);
+    ``sup.boot_s`` is the time from spawn."""
+    proc_wait(sup, lambda: all(h["health"] != "spawning" for h in sup.health().values()), "every worker's hello",
+              sup.config.spawn_timeout_s)
+    sup.boot_s = time.perf_counter() - sup.spawned_at
+    check(all(h["health"] == "healthy" for h in sup.health().values()),
+          f"proc: every worker said hello ({sup.health()})\n{proc_logs(sup.run_dir)}")
+    return sup
+
+
+def proc_wait(sup, cond, what, timeout_s=300.0, on_pump=None):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        sup.pump()
+        if on_pump is not None:
+            on_pump()
+        if cond():
+            return
+        time.sleep(0.002)
+    check(False, f"proc: {what} within {timeout_s} s\n{proc_logs(sup.run_dir)}")
+
+
+def proc_drive(sup, fids, on_pump=None, timeout_s=300.0):
+    """Pump until every request is done or lost; ``(outs, lost)``:
+    ``{fid: (tokens, logprobs)}`` and ``{fid: reason}``."""
+    from accelerate_tpu_torch.serving_proc import FleetRequestError
+
+    outs, lost = {}, {}
+
+    def finished():
+        for f in fids:
+            if f in outs or f in lost:
+                continue
+            try:
+                got = sup.poll(f)
+            except FleetRequestError as e:
+                lost[f] = str(e)
+                continue
+            if got is not None:
+                outs[f] = (got, sup.logprobs(f))
+        return len(outs) + len(lost) == len(fids)
+
+    proc_wait(sup, finished, "every request done or lost", timeout_s, on_pump)
+    return outs, lost
+
+
+def proc_settle(sup) -> None:
+    """Pump until every live worker's last status came after its last
+    tick (not busy), so the launch counts read are final."""
+    proc_wait(sup, lambda: all(s.get("busy") is False for s in sup.worker_stats().values()
+                               if s["health"] in ("healthy", "degraded")), "the workers' last status", 60)
+
+
+def proc_k4(sup, layers, what, names=("w0", "w1")) -> tuple:
+    """The K4 launches of the workers ``names`` (the ones up at
+    ``reset_counts``; their last polled counts since) against ``layers`` x
+    each one's decode steps (``layers`` 0: a dense engine launches none);
+    ``(sum, rows)``."""
+    rows = {}
+    for name, st in sup.worker_stats().items():
+        if name not in names or st.get("launches") is None:
+            continue
+        k4, steps = st["launches"].get("paged_decode_attention", 0), st.get("decode_steps", 0)
+        check(k4 == layers * steps, f"{what}: {name}'s K4 launches {k4} == {layers} x its decode steps {steps}")
+        rows[name] = {"kernel_launches": k4, "decode_steps": steps}
+    return sum(r["kernel_launches"] for r in rows.values()), rows
+
+
+def proc_worker_rows(sup) -> dict:
+    """Per worker: boot (spawn to hello, the model's build, the warm pass,
+    ``nvcc`` builds) and the served window's host timers (ticks, status
+    replies and the largest snapshot bundle) and engine metrics."""
+    out = {}
+    for name, st in sup.worker_stats().items():
+        hello = st.get("hello") or {}
+        timing = st.get("timing") or {}
+        m = st.get("metrics") or {}
+        out[name] = {
+            "health": st["health"], "spinup_s": st.get("spinup_s"), "device_init_s": hello.get("device_init_s"),
+            "model_s": hello.get("model_s"),
+            "warm_s": hello.get("warm_s"), "nvcc_builds": hello.get("compiles"),
+            "ticks": timing.get("ticks"), "tick_ms_mean": timing["tick_ms"] / timing["ticks"]
+            if timing.get("ticks") else None,
+            "polls": timing.get("polls"), "status_ms_mean": timing["status_ms"] / timing["polls"]
+            if timing.get("polls") else None, "status_blob_bytes_max": timing.get("blob_bytes_max"),
+            "itl_ms_p50": m.get("itl_ms_p50"), "ttft_ms_p50": m.get("ttft_ms_p50"),
+        }
+    return out
+
+
+def free_card_gb(torch) -> float:
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+def proc_tick_idle(sup, vocab) -> dict:
+    """Each worker's tick with 8 slots decoding (16 requests of 200 tokens
+    over the 2 workers): a tick timed on the host, the next traced by
+    ``torch.profiler`` in the worker (``request_tick_profile``) for the
+    device's busy time."""
+    rng = np.random.default_rng(5)
+    fids = [sup.submit(rng.integers(1, vocab, size=200).astype(np.int32), FLEET_NEW) for _ in range(16)]
+    proc_wait(sup, lambda: all(len(sup.partial(f)) >= 1 for f in fids), "16 requests decoding", 120)
+    sup.request_tick_profile()
+
+    def profiled():
+        profs = [s.get("tick_profile") for s in sup.worker_stats().values() if s["health"] == "healthy"]
+        return len(profs) == 2 and all(p is not None for p in profs)
+
+    proc_wait(sup, profiled, "both workers' tick profiles", 120)
+    out = {name: s["tick_profile"] for name, s in sup.worker_stats().items()}
+    check(all(p["idle_share"] is not None for p in out.values()), f"proc tick: traced in every worker ({out})")
+    return out
+
+
+def phase_proc_serve(torch, model, prompts, control_out, work, then=None) -> dict:
+    """The 48 requests served by ``ProcessSupervisor`` over 2 paged worker
+    processes (FLEET_ENGINE): greedy tokens equal the one-engine control's
+    up to a near tie (fleet_against); each worker's K4 launches equal
+    layers x its decode steps; the workers built no kernel. Tokens/s,
+    each worker's spin-up, model and warm seconds and host timers, and each
+    worker's tick idle share. ``then()`` runs once the measurements are
+    taken (the next phase's fleets start booting) and its result rides back
+    as ``chaos_fleets``."""
+    layers = model.config.num_hidden_layers
+    with contextlib.ExitStack() as stack:
+        sup = proc_ready(proc_spawn(stack, proc_config(work / "serve")))
+        boot_s = sup.boot_s
+        check(all(s["hello"]["compiles"] == 0 for s in sup.worker_stats().values()),
+              f"proc serve: the workers built no kernel ({sup.worker_stats()})")
+        sup.reset_counts()
+        t0 = time.perf_counter()
+        fids = [sup.submit(p, FLEET_NEW) for p in prompts]
+        outs, lost = proc_drive(sup, fids)
+        wall = time.perf_counter() - t0
+        check(not lost, f"proc serve: nothing lost ({lost})")
+        proc_settle(sup)
+        k4, per_worker = proc_k4(sup, layers, "proc serve")
+        check(len(per_worker) == 2 and all(r["decode_steps"] > 0 for r in per_worker.values()),
+              f"proc serve: both workers decoded ({per_worker})")
+        workers = proc_worker_rows(sup)
+        tick = proc_tick_idle(sup, model.config.vocab_size)
+    nxt = then() if then is not None else None
+    against = fleet_against(torch, model, prompts, [outs[f] for f in fids], control_out, "proc serve")
+    row = {"phase": "proc_serve", "config": "TinyLlama-1.1B shape, 22 layers, bf16, seeded random weights; "
+           "ProcessSupervisor over 2 paged worker processes (block 16) of 8 slots on one card",
+           "requests": len(prompts), "max_new_tokens": FLEET_NEW, "boot_s": boot_s, "wall_s": wall,
+           "tokens_per_s": len(prompts) * FLEET_NEW / wall, "kernel_launches": k4, "per_worker": per_worker,
+           "workers": workers, "against_control": against, "tick": tick}
+    emit(row)
+    return {"row": row, "outputs": {i: outs[f] for i, f in enumerate(fids)}, "chaos_fleets": nxt}
+
+
+def proc_chaos_leg(torch, model, prompts, sup, paged=True, after=None, kill_when=None, keep=False) -> tuple:
+    """``sup``'s 2 workers (booted, or booting) serve FLEET_CHAOS requests
+    of FLEET_CHAOS_NEW new tokens with the fault its config installs in w1,
+    or with w1 SIGKILLed from here once ``kill_when(sup)`` holds; zero
+    lost; each paged worker's K4 launches == layers x its decode steps
+    (the dead worker's as last polled), a dense one's 0. Free card memory
+    with both workers up and after the fault's process is gone.
+    ``after(sup, fids)`` runs on the live fleet and adds to the leg's row;
+    the fleet is shut down at the end unless ``keep``. ``(row, outputs)``."""
+    layers = model.config.num_hidden_layers if paged else 0
+    proc_ready(sup)
+    mem = {"both_up_gb": free_card_gb(torch)}
+
+    def watch():
+        slot = sup._slots[1]
+        if kill_when is not None and "killed_at_gb" not in mem and kill_when(sup):
+            mem["killed_at_gb"] = free_card_gb(torch)
+            slot["proc"].send_signal(signal.SIGKILL)
+        st = sup.worker_stats().get("w1", {})
+        if "after_fault_gb" not in mem and st.get("health") in ("dead", "quarantined") and (
+                slot["proc"] is None or slot["proc"].poll() is not None):
+            mem["after_fault_gb"] = free_card_gb(torch)
+
+    sup.reset_counts()
+    t0 = time.perf_counter()
+    fids = [sup.submit(p, FLEET_CHAOS_NEW) for p in prompts[:FLEET_CHAOS]]
+    outs, lost = proc_drive(sup, fids, on_pump=watch)
+    wall = time.perf_counter() - t0
+    name = Path(sup.run_dir).name
+    check(not lost, f"proc chaos ({name}): zero requests lost ({lost})")
+    proc_settle(sup)
+    k4, per_worker = proc_k4(sup, layers, f"proc chaos ({name})")
+    acct = sup.failover_accounting()
+    check(acct["failovers_lost"] == 0 and acct["bytes_moved"] == acct["bytes_predicted"],
+          f"proc chaos ({name}): bytes moved == predicted ({acct})")
+    leg = {"wall_s": wall, "boot_s": sup.boot_s, "kernel_launches": k4, "per_worker": per_worker,
+           "failover_accounting": acct, "health": {n: s["health"] for n, s in sup.worker_stats().items()},
+           "workers": proc_worker_rows(sup), "free_card_gb": mem,
+           "gen_states": [sup._reqs[f]["gen_state"] for f in fids]}
+    if after is not None:
+        leg.update(after(sup, fids))
+    # the supervisor's log: w1's health, the failovers and their time
+    sup._log.flush()
+    events = [json.loads(line) for line in (Path(sup.run_dir) / "events_supervisor.jsonl").read_text().splitlines()
+              if line.strip()]
+    leg["w1_states"] = [e["state"] for e in events if e.get("name") == "proc_health" and e.get("worker") == "w1"]
+    fault = next((e["ts"] for e in events if e.get("worker") == "w1" and (
+        e.get("name") == "proc_exit" or (e.get("name") == "proc_health" and e.get("state") == "quarantined"))), None)
+    moved = [e for e in events if e.get("name") == "proc_failover"]
+    leg["kv_fuids"] = sorted(e["fuid"] for e in moved if e.get("kv"))
+    leg["moved"] = {e["fuid"]: {"snapshot": e.get("snapshot"), "generated": e.get("generated")} for e in moved}
+    leg["failover_ms"] = (max(e["ts"] for e in moved) - fault) * 1e3 if fault is not None and moved else None
+    if not keep:
+        sup.shutdown()
+    return leg, [outs[f] for f in fids]
+
+
+def proc_mirror(torch, model, prompts, engine, workers, seed=0) -> tuple:
+    """The no-fault run of a 2-worker fleet, in this process: ``workers``
+    engines (1 where the streams do not depend on routing: greedy on the
+    dense layout, whose every request computes alike in any batch), each
+    serving the requests the supervisor routes to its worker (fuid f to
+    worker f mod ``workers``, a burst split alternately) after as many
+    requests as the worker's warm pass (each request's sampling stream is
+    seeded by its engine's own request id). ``(outputs by fuid, each
+    request's initial generator state)``."""
+    from accelerate_tpu_torch import ServingEngine
+
+    outs, states = {}, {}
+    for w in range(workers):
+        eng = ServingEngine(model, seed=seed, **engine)
+        eng._uid = len(PROC_WARM)  # the worker's warm requests took the first ids
+        fuids = list(range(w, FLEET_CHAOS, workers))
+        uids = {f: eng.submit(prompts[f], FLEET_CHAOS_NEW) for f in fuids}
+        states.update({f: [int(v) for v in eng._gen_state(eng._request_generator(u))] for f, u in uids.items()})
+        eng.run()
+        outs.update({f: (eng.poll(u), eng.logprobs(u)) for f, u in uids.items()})
+        del eng
+    free_memory(torch)
+    return [outs[f] for f in range(FLEET_CHAOS)], [states[f] for f in range(FLEET_CHAOS)]
+
+
+def proc_chaos_spawn(stack, work) -> dict:
+    """The chaos phase's fleets, one a leg, all spawned at once: they boot
+    together (a worker takes ~25 s to reach hello on the card, most of it
+    the interpreter's imports, and holds ~3 GB of the card)."""
+    kill = {"worker": "w1", "label": "mid_decode", "action": "sigkill", "hits": 2}
+    stop = {"worker": "w1", "label": "mid_decode", "action": "sigstop", "hits": 2}
+    sampled = dict(FLEET_ENGINE, **PROC_SAMPLED)
+    plan = {"sigkill": {"chaos": kill},
+            "sampled_sigkill": {"engine": sampled, "seed": 3, "chaos": kill, "model_kwargs": {"dtype": "float32"}},
+            "sigstop": {"chaos": stop, "max_respawns": 1, "heartbeat_timeout_s": 2.0, "quarantine_after_timeouts": 2},
+            "dense_kv": {"engine": PROC_DENSE, "shadow_kv": True}}
+    return {name: proc_spawn(stack, proc_config(work / name, **{"max_respawns": 0, **kw})) for name, kw in plan.items()}
+
+
+def phase_proc_chaos(torch, model, prompts, control_out, sups) -> dict:
+    """Process faults with FLEET_CHAOS requests in flight on 2 workers, one
+    fleet a leg (proc_chaos_spawn): ``sigkill`` at
+    ``mid_decode`` in w1 (failover by recompute from the last polled
+    snapshot: greedy tokens equal the control's up to a near tie; sampled
+    streams, served in f32, equal the no-fault run's (proc_mirror), logprobs
+    within PROC_SAMPLED_LP_TOL), then the survivor killed with 8 requests
+    decoding (the sole worker: lost with a reason, none stranded, a new
+    submit shed); ``sigstop`` in w1 (degraded, then quarantined and
+    SIGKILLed, respawned with 0 ``nvcc`` builds); and a dense pair with
+    ``shadow_kv`` (PROC_DENSE), w1 SIGKILLed once its polled snapshots
+    carry rows: KV failover with moved bytes == predicted, the KV-failed
+    streams bit-equal to the no-fault run (proc_mirror). Free card memory
+    beside each kill. The no-fault runs go first, while the fleets boot."""
+    from accelerate_tpu_torch.serving_proc import FleetRequestError
+
+    from accelerate_tpu_torch import LlamaConfig, create_llama_model
+
+    model32 = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.float32)
+    sampled_clean = proc_mirror(torch, model32, prompts, dict(FLEET_ENGINE, **PROC_SAMPLED), 2, seed=3)
+    del model32
+    dense_clean, _ = proc_mirror(torch, model, prompts, PROC_DENSE, 1)
+
+    sub = prompts[:FLEET_CHAOS]
+    legs, runs = {}, {}
+
+    def sole_death(sup, fids):
+        """After the leg: w0, the last worker, killed with 8 requests decoding."""
+        late = [sup.submit(p, FLEET_CHAOS_NEW) for p in prompts[FLEET_CHAOS:FLEET_CHAOS + 8]]
+        proc_wait(sup, lambda: all(len(sup.partial(f)) >= 1 for f in late), "8 requests decoding on w0", 120)
+        before = free_card_gb(torch)
+        sup._slots[0]["proc"].send_signal(signal.SIGKILL)
+        outs, lost = proc_drive(sup, late, timeout_s=60)
+        stranded = [f for f in late if sup.request_state(f) == "routed"]
+        check(len(lost) == len(late) and not outs and not stranded
+              and all("no routable survivor after crash" in r for r in lost.values()),
+              f"proc chaos: the sole worker's requests lost with a reason ({lost}, stranded {stranded})")
+        shed = sup.submit(prompts[0], 4)
+        proc_wait(sup, lambda: sup.request_state(shed) == "shed", "a submit with no worker shed", 30)
+        try:
+            sup.poll(shed)
+            check(False, "proc chaos: a submit with no worker raises")
+        except FleetRequestError:
+            pass
+        proc_wait(sup, lambda: sup._slots[0]["proc"].poll() is not None, "w0 reaped", 30)
+        return {"sole_death": {"lost": len(lost), "reason": sorted(set(lost.values()))[0],
+                               "free_card_gb": {"before": before, "after": free_card_gb(torch)}}}
+
+    def respawned(sup):
+        """The sigstop leg's slot, respawned while the later legs ran."""
+        proc_wait(sup, lambda: sup.worker_stats().get("w1.1", {}).get("health") == "healthy", "w1 respawned", 180)
+        st = sup.worker_stats()["w1.1"]
+        check(st["hello"]["compiles"] == 0, f"proc chaos (sigstop): the respawn built no kernel ({st['hello']})")
+        sup.shutdown()
+        return {"respawn": {"spinup_s": st["spinup_s"], "nvcc_builds": st["hello"]["compiles"],
+                            "model_s": st["hello"]["model_s"], "warm_s": st["hello"]["warm_s"]}}
+
+    def rows_polled(sup):
+        shadow = sup._slots[1]["shadow"]
+        return shadow is not None and sum(m["has_kv"] and m["generated"] >= 2 for m in shadow[0]) >= 2
+
+    leg_kw = {"sigkill": {"after": sole_death}, "sigstop": {"keep": True},
+              "dense_kv": {"paged": False, "kill_when": rows_polled}}
+    for name, sup in sups.items():
+        runs[name] = proc_chaos_leg(torch, model, prompts, sup, **leg_kw.get(name, {}))
+    runs["sigstop"][0].update(respawned(sups["sigstop"]))
+
+    leg, out = runs["sigkill"]
+    acct = leg["failover_accounting"]
+    check(acct["failovers"] >= 1 and acct["failovers_recompute"] == acct["failovers"] and leg["health"]["w1"] == "dead",
+          f"proc chaos (sigkill): w1 dead, failover by recompute ({leg})")
+    leg["against_control"] = fleet_against(torch, model, sub, out, control_out, "proc sigkill", new=FLEET_CHAOS_NEW)
+    legs["sigkill"] = leg
+
+    (clean_out, clean_states), (leg, out) = sampled_clean, runs["sampled_sigkill"]
+    check(leg["failover_accounting"]["failovers"] >= 1, f"proc chaos (sampled): failover ({leg})")
+    check(leg["gen_states"] == clean_states, "proc chaos (sampled): the workers seeded each stream as the "
+          "no-fault engines did")
+    lp_diff = 0.0
+    for f, ((g, g_lp), (w, w_lp)) in enumerate(zip(out, clean_out)):
+        check(np.array_equal(g, w), f"proc chaos (sampled, f32): request {f}'s stream equals the no-fault run's "
+              f"(failed over: {leg['moved'].get(f)})")
+        lp_diff = max(lp_diff, float(np.max(np.abs(np.asarray(g_lp) - np.asarray(w_lp)))))
+    check(lp_diff <= PROC_SAMPLED_LP_TOL, f"proc chaos (sampled, f32): logprobs within {PROC_SAMPLED_LP_TOL} ({lp_diff})")
+    leg["against_no_fault"] = {"tokens_compared": FLEET_CHAOS * FLEET_CHAOS_NEW, "max_logprob_diff": lp_diff}
+    legs["sampled_sigkill"] = leg
+
+    leg, out = runs["sigstop"]
+    check(leg["w1_states"][-2:] == ["degraded", "quarantined"] and leg["failover_accounting"]["failovers"] >= 1,
+          f"proc chaos (sigstop): degraded, then quarantined, its requests failed over ({leg['w1_states']})")
+    leg["against_control"] = fleet_against(torch, model, sub, out, control_out, "proc sigstop", new=FLEET_CHAOS_NEW)
+    legs["sigstop"] = leg
+
+    clean_out, (leg, out) = dense_clean, runs["dense_kv"]
+    acct = leg["failover_accounting"]
+    check(acct["failovers_kv"] >= 1 and acct["bytes_moved"] == acct["bytes_predicted"] > 0,
+          f"proc chaos (dense_kv): KV failover, moved bytes == predicted ({acct})")
+    by_kv = leg["kv_fuids"]
+    check(len(by_kv) == acct["failovers_kv"], f"proc chaos (dense_kv): the KV failovers logged ({by_kv})")
+    for f in by_kv:
+        check(np.array_equal(out[f][0], clean_out[f][0]) and np.array_equal(out[f][1], clean_out[f][1]),
+              f"proc chaos (dense_kv): request {f}, failed over by KV, bit-equal to no fault")
+    leg["kv_failed_bit_equal"] = len(by_kv)
+    leg["bit_equal_all"] = sum(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                               for a, b in zip(out, clean_out))
+    leg["against_no_fault"] = fleet_against(torch, model, sub, out, clean_out, "proc dense_kv", new=FLEET_CHAOS_NEW)
+    legs["dense_kv"] = leg
+    for leg in legs.values():
+        leg.pop("gen_states", None)
+    row = {"phase": "proc_chaos", "config": "TinyLlama-1.1B shape, 22 layers, bf16; 2 worker processes a leg, "
+           f"a fault in w1 with {FLEET_CHAOS} requests in flight", **legs,
+           "kernel_launches": sum(leg["kernel_launches"] for leg, _ in runs.values())}
+    emit(row)
+    return row
+
+
+def http_json(port, method, path, body=None, headers=None, timeout=120):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body), headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def sse_events(resp, n_events, timeout_s=120.0) -> list:
+    """SSE blocks of an http.client response, until ``n_events`` or the
+    stream's end."""
+    buf, events = b"", []
+    deadline = time.monotonic() + timeout_s
+    while len(events) < n_events and time.monotonic() < deadline:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            block, buf = buf.split(b"\n\n", 1)
+            lines = block.decode().split("\n")
+            events.append((lines[0].split(": ", 1)[1], json.loads(lines[1].split(": ", 1)[1])))
+    return events
+
+
+def proc_http_start(work) -> dict:
+    """Start ``python -m accelerate_tpu_torch.commands.serve`` (2 paged
+    workers, FLEET_ENGINE, no respawn) in the background: it boots while
+    the chaos phase runs."""
+    ready = work / "http_ready.json"
+    log_path = work / "serve.log"
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve", "--workers", "2",
+           "--model-spec", "chip_smoke:proc_tinyllama", "--engine-kwargs", json.dumps(FLEET_ENGINE),
+           "--run-dir", str(work / "http"), "--http-port", "0", "--ready-file", str(ready),
+           "--max-respawns", "0", "--max-runtime-s", "900"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "ready": ready, "log": log_path, "t0": t0}
+
+
+def phase_proc_http(torch, model, prompts, served, server) -> dict:
+    """The ``serve`` command started by proc_http_start: a JSON submit and
+    an SSE stream of one prompt give the same tokens, equal to what
+    proc_serve's supervisor served up to a near tie; a long stream is
+    cancelled from the side; ``/metrics`` carries ``proc_worker_state``;
+    ``/healthz`` answers 200, then 503 once both worker processes are
+    killed; SIGTERM drains and the command exits 0. The command and its
+    workers are killed on the way out whatever happens."""
+    import http.client
+
+    proc, ready, log_path, t0 = server["proc"], server["ready"], server["log"], server["t0"]
+    pids = []
+    try:
+        deadline = time.monotonic() + 300
+        while not ready.exists() and time.monotonic() < deadline:
+            check(proc.poll() is None, f"proc http: serve exited early\n{log_path.read_text()[-3000:]}")
+            time.sleep(0.1)
+        check(ready.exists(), "proc http: serve became ready")
+        ready_s = time.perf_counter() - t0
+        port = json.loads(ready.read_text())["http_port"]
+        status, body = http_json(port, "GET", "/healthz")
+        rows = json.loads(body)["replicas"]
+        pids = [r["pid"] for r in rows.values()]
+        check(status == 200 and sorted(rows) == ["w0", "w1"], f"proc http: /healthz 200 with 2 workers ({rows})")
+
+        prompt = [int(t) for t in prompts[0]]
+        t1 = time.perf_counter()
+        status, body = http_json(port, "POST", "/v1/generate", {"prompt": prompt, "max_new_tokens": PROC_HTTP_NEW})
+        json_ms = (time.perf_counter() - t1) * 1e3
+        out = json.loads(body)
+        check(status == 200 and out["state"] == "done" and len(out["tokens"]) == PROC_HTTP_NEW,
+              f"proc http: the JSON submit done ({status}, {out.get('state')})")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/v1/generate", body=json.dumps({"prompt": prompt, "max_new_tokens": PROC_HTTP_NEW}),
+                     headers={"Accept": "text/event-stream"})
+        r = conn.getresponse()
+        events = sse_events(r, PROC_HTTP_NEW + 1)
+        conn.close()
+        check([k for k, _ in events] == ["token"] * PROC_HTTP_NEW + ["done"]
+              and [d["token"] for _, d in events[:PROC_HTTP_NEW]] == out["tokens"],
+              f"proc http: the SSE stream gives the JSON submit's tokens ({events[-1]})")
+        against = fleet_against(torch, model, [prompts[0]], [(np.asarray(out["final"]), np.asarray(out["lps"]))],
+                                [served[0]], "proc http", new=PROC_HTTP_NEW)
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/v1/generate", body=json.dumps({"prompt": prompt[:64], "max_new_tokens": 512,
+                                                              "stream": True}))
+        r = conn.getresponse()
+        rid = int(r.getheader("X-Request-Id"))
+        status, body = http_json(port, "DELETE", f"/v1/generate/{rid}")
+        check(status == 200 and json.loads(body)["cancelled"], f"proc http: DELETE cancels ({status})")
+        tail = sse_events(r, 600)
+        conn.close()
+        check(tail and tail[-1][0] == "done" and tail[-1][1]["state"] == "cancelled"
+              and len(tail[-1][1]["tokens"]) < 512, f"proc http: the stream ends cancelled ({tail[-1:]})")
+
+        status, metrics = http_json(port, "GET", "/metrics")
+        check(status == 200 and b'proc_worker_state{worker="w0"} 0' in metrics, "proc http: /metrics per worker")
+        for pid in pids:
+            os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 60
+        while http_json(port, "GET", "/healthz")[0] != 503 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        status, body = http_json(port, "GET", "/healthz")
+        check(status == 503 and not json.loads(body)["serving"], f"proc http: /healthz 503 with no worker ({body})")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"proc http: SIGTERM drains and exits 0 (rc {rc})\n{log_path.read_text()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+    row = {"phase": "proc_http", "config": "python -m accelerate_tpu_torch.commands.serve --workers 2 "
+           "(TinyLlama-1.1B shape, 22 layers, bf16; FLEET_ENGINE)", "ready_s": ready_s,
+           "json_request_ms": json_ms, "new_tokens": PROC_HTTP_NEW, "against_served": against,
+           "cancelled_after_tokens": len(tail[-1][1]["tokens"]), "sigterm_rc": rc}
+    emit(row)
+    return row
+
+
+def proc_control(torch, model, prompts, threaded) -> dict:
+    """The 48 requests on one in-process engine driven by ``step()`` (the
+    control whose tokens the process fleet is held to), and with
+    ``threaded`` on 2 in-process replicas drained by one thread each
+    (``drain_threaded``, prefix reuse off): tokens/s of each."""
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.serving_fleet import FleetConfig, FleetRouter
+
+    ServingEngine(model, **FLEET_ENGINE).generate_many([prompts[0][:300]], max_new_tokens=9)  # warm-up
+    eng = ServingEngine(model, **FLEET_ENGINE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, FLEET_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"tokens_per_s": len(prompts) * FLEET_NEW / wall, "wall_s": wall}
+    outputs = [(eng.poll(u), eng.logprobs(u)) for u in uids]
+    del eng
+    if threaded:
+        fr = FleetRouter.from_model(model, num_replicas=2, config=FleetConfig(prefix_reuse=False), **FLEET_ENGINE)
+        fuids = [fr.submit(p, FLEET_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.drain_threaded()
+        torch.cuda.synchronize()
+        row["threaded_tokens_per_s"] = len(fuids) * FLEET_NEW / (time.perf_counter() - t0)
+        del fr
+    free_memory(torch)
+    return {"row": row, "outputs": outputs}
+
+
+def phase_proc(torch, threaded=False) -> dict:
+    """The multi-process fleet group on TinyLlama-1.1B's published widths
+    at all 22 layers (seeded random weights, bf16): proc_serve, proc_chaos,
+    proc_http, held to the one-engine control measured first (with the
+    threaded drain beside it when ``threaded``)."""
+    from accelerate_tpu_torch import LlamaConfig, create_llama_model
+
+    model = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.bfloat16)
+    prompts = fleet_prompts(model.config.vocab_size)
+    control = proc_control(torch, model, prompts, threaded)
+    emit({"phase": "proc_control", "one_engine": control["row"]})
+    work = ckpt_workdir()
+    server = None
+    try:
+        with contextlib.ExitStack() as stack:
+            serve = phase_proc_serve(torch, model, prompts, control["outputs"], work,
+                                     then=lambda: proc_chaos_spawn(stack, work))
+            server = proc_http_start(work)  # it boots with the chaos phase's fleets
+            chaos = phase_proc_chaos(torch, model, prompts, control["outputs"], serve["chaos_fleets"])
+        phase_proc_http(torch, model, prompts, [serve["outputs"][0]], server)
+    finally:
+        if server is not None and server["proc"].poll() is None:
+            server["proc"].kill()
+            server["proc"].wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    del model
+    free_memory(torch)
+    return {"k4_launches": serve["row"]["kernel_launches"] + chaos["kernel_launches"]}
 
 
 def main() -> int:
@@ -5461,7 +6107,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet`
+    # dense,moe,gpt,fleet,proc`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -5545,6 +6191,8 @@ def main() -> int:
         gpt = phase_gpt(torch, 44 if only else NEOX_LAYERS)  # the group alone serves GPT-NeoX-20B at full depth
     if not only or "fleet" in only:
         fleet = phase_fleet(torch)
+    if not only or "proc" in only:
+        proc = phase_proc(torch, threaded=bool(only))  # alone, the group times the threaded drain too
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -5556,12 +6204,13 @@ def main() -> int:
         "replaces": "accelerate_tpu/ops/pallas_paged_attention.py:40",
         # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
         # Gemma-2B's (head dim 256), the banded families' 2-layer cuts, Mistral-7B-v0.1's three phases,
-        # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts, and the fleet's
-        # paged replicas (TinyLlama, head dim 64)
+        # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts, the fleet's
+        # paged replicas and the process fleet's paged workers (TinyLlama, head dim 64)
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
         + gemma_serve["kernel_launches"]
         + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
-        + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"] + fleet["k4_launches"],
+        + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"] + fleet["k4_launches"]
+        + proc["k4_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -473,8 +473,10 @@ def test_spin_up_builds_nothing_and_store_dir_refused(pair):
     assert u in fr.run()
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         pfleet.FleetRouter.from_model(model, store_dir="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ReplicaChaos("pre_tick", action="sigkill")
+    # the process fleet is ported: process chaos builds and serializes as the JAX package's does
+    for action in ("sigkill", "sigstop"):
+        chaos = ReplicaChaos("pre_tick", action=action, hits=3)
+        assert chaos.to_env_spec("w1") == JaxReplicaChaos("pre_tick", action=action, hits=3).to_env_spec("w1")
 
 
 # --------------------------------------------------------------------- #

@@ -68,7 +68,9 @@ def test_importing_every_module_loads_no_jax():
                  "telemetry", "telemetry.eventlog", "telemetry.step", "telemetry.mfu", "telemetry.nonfinite",
                  "ops.moe", "models.mixtral", "models.qwen3_moe", "models.gpt2", "models.gptneox",
                  "serving_fleet", "scheduling", "telemetry.serving_metrics", "telemetry.summarize", "telemetry.trace",
-                 "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses"):
+                 "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses", "serving_transport",
+                 "serving_proc", "telemetry.httpd", "commands.serve", "commands.fleet", "commands.trace",
+                 "commands.telemetry", "commands.cli"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -77,13 +79,17 @@ def test_no_source_imports_jax():
     (chip_smoke.py), nor its example imports jax or the JAX package."""
     examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
                                                       "torch_cv_example.py", "torch_gradient_accumulation.py")]
-    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "scripts" / "torch_handoff_rate.py", *examples]
+    scripts = [REPO / "scripts" / name for name in ("torch_handoff_rate.py", "torch_proc_boot.py",
+                                                    "torch_sampled_resume.py")]
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *scripts, *examples]
     checked = {p.relative_to(PKG).as_posix() for p in sources if PKG in p.parents}
     assert {"ops/fp8.py", "logging.py", "tracking.py", "utils/imports.py", "telemetry/__init__.py",
             "telemetry/eventlog.py", "telemetry/step.py", "telemetry/mfu.py", "telemetry/nonfinite.py",
             "serving_fleet.py", "scheduling.py", "analysis/costmodel.py", "telemetry/serving_metrics.py",
             "telemetry/summarize.py", "telemetry/trace.py", "telemetry/flightrec.py", "telemetry/critpath.py",
-            "utils/dataclasses.py", "test_utils/fault_injection.py", "serving.py"} <= checked
+            "utils/dataclasses.py", "test_utils/fault_injection.py", "serving.py", "serving_transport.py",
+            "serving_proc.py", "telemetry/httpd.py", "commands/serve.py", "commands/fleet.py", "commands/trace.py",
+            "commands/telemetry.py", "commands/cli.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
