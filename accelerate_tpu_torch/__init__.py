@@ -56,7 +56,11 @@ package imports nothing of it (nor of jax). Its slices so far:
 * the MoE and GPT decoder families (:mod:`.models`: Mixtral and
   Qwen3-MoE over :mod:`.ops.moe`'s top-k routing with a fixed expert
   capacity, trained with ``mixtral_lm_loss``'s router aux term; GPT-2 and
-  GPT-NeoX, served by the same ``ServingEngine`` and ``generate``).
+  GPT-NeoX, served by the same ``ServingEngine`` and ``generate``);
+* the encoder-decoder families (:mod:`.models`: T5 and Whisper), served
+  by ``generate_seq2seq`` (the encoder once, its output and every layer's
+  cross-attention K/V kept in the cache) and trained with
+  ``seq2seq_lm_loss``.
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
@@ -66,7 +70,7 @@ from .accelerator import Accelerator
 from .checkpointing import load_model, save_model
 from .data_loader import prepare_data_loader, skip_first_batches
 from .ft import CheckpointManager
-from .generation import beam_search, generate, per_token_latency
+from .generation import beam_search, generate, generate_seq2seq, per_token_latency
 from .models import (
     BertConfig,
     LlamaConfig,
@@ -144,6 +148,7 @@ __all__ = [
     "gather",
     "gather_object",
     "generate",
+    "generate_seq2seq",
     "llama_params_from_jax",
     "load_and_quantize_model",
     "load_model",

@@ -2,17 +2,18 @@
 
 Counterpart of ``accelerate_tpu.generation``: :func:`generate` (prefill
 in one forward over the whole prompt, then one token a step),
-:func:`beam_search`, :func:`per_token_latency` and the sampler the
-serving engine shares. The JAX package scans the steps inside one jitted
-program; here the loop is eager Python over the module's cached forward,
-and the cache is written in place.
+:func:`generate_seq2seq` (the encoder-decoder families: the encoder once,
+then one decoder token a step), :func:`beam_search`,
+:func:`per_token_latency` and the sampler the serving engine shares. The
+JAX package scans the steps inside one jitted program; here the loop is
+eager Python over the module's cached forward, and the cache is written
+in place.
 
 Sampling is greedy at temperature 0, else temperature sampling,
 optionally truncated to the ``top_k`` highest logits. Randomness comes
 from an explicit ``torch.Generator`` (the JAX package's key chain has no
 bitwise counterpart here, so sampled streams match in distribution, not
-token for token). ``generate_seq2seq`` is not ported yet (ROADMAP.md
-Queue 1 item 7).
+token for token).
 """
 
 from __future__ import annotations
@@ -103,6 +104,73 @@ def generate(
         tok, done = _freeze_after_eos(sample(logits[:, -1], gen), done, eos_token_id)
         new_tokens.append(tok)
     return torch.cat([input_ids, torch.stack(new_tokens, dim=1).to(torch.int32)], dim=1)
+
+
+@torch.no_grad()
+def generate_seq2seq(
+    model,
+    input_ids,
+    max_new_tokens: int = 32,
+    decoder_start_token_id: int = 0,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    seed: int = 0,
+    eos_token_id: Optional[int] = None,
+    attention_mask=None,
+) -> torch.Tensor:
+    """Encoder-decoder generation on the model's device (the T5 and
+    Whisper contract: ``model(src, decoder_ids, attention_mask=...,
+    decode=True, cache=...) -> (logits, cache)``).
+
+    The prefill runs the encoder over ``input_ids`` (token ids, cast to
+    int32, or float features such as log-mels, passed as they are) with
+    ``attention_mask`` (all ones by default) and the first decoder step on
+    ``decoder_start_token_id``; every later step feeds the last token with
+    the cache, so the encoder runs exactly once. Sampling as in
+    :func:`generate`, from a ``torch.Generator`` seeded with ``seed``;
+    after a row's ``eos_token_id`` it keeps emitting EOS. Returns int32
+    ``[B, 1 + max_new_tokens]`` starting with the start token. The
+    decoder cache holds ``max_decode_len`` rows and the loop writes
+    exactly ``max_new_tokens`` of them, so more is refused."""
+    device = model.device
+    if isinstance(input_ids, torch.Tensor):
+        src = input_ids.to(device)
+    else:
+        src = torch.as_tensor(np.asarray(input_ids), device=device)
+        if src.dtype == torch.float64:
+            src = src.float()  # the JAX package's float arrays are f32
+    if not src.is_floating_point():
+        src = src.to(torch.int32)
+    b, src_len = src.shape[:2]
+    if attention_mask is None:
+        attention_mask = torch.ones((b, src_len), dtype=torch.bool, device=device)
+    elif isinstance(attention_mask, torch.Tensor):
+        attention_mask = attention_mask.to(device=device, dtype=torch.bool)
+    else:
+        attention_mask = torch.as_tensor(np.asarray(attention_mask, bool), device=device)
+
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    start = torch.full((b, 1), decoder_start_token_id, dtype=torch.int32, device=device)
+    if max_new_tokens == 0:
+        return start
+    max_dec = getattr(getattr(model, "config", None), "max_decode_len", None)
+    if max_dec is not None and max_new_tokens > max_dec:
+        raise ValueError(
+            f"max_new_tokens ({max_new_tokens}) exceeds the decoder cache (max_decode_len={max_dec})"
+        )
+
+    sample = _make_sampler(temperature, top_k)
+    gen = torch.Generator(device=device).manual_seed(seed) if temperature > 0.0 else None
+    logits, cache = model(src, start, attention_mask=attention_mask, decode=True, cache=None)
+    tok = sample(logits[:, -1], gen)
+    done = torch.zeros(b, dtype=torch.bool, device=device) if eos_token_id is None else tok == eos_token_id
+    new_tokens = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = model(src, tok[:, None], decode=True, cache=cache)
+        tok, done = _freeze_after_eos(sample(logits[:, -1], gen), done, eos_token_id)
+        new_tokens.append(tok)
+    return torch.cat([start, torch.stack(new_tokens, dim=1).to(torch.int32)], dim=1)
 
 
 @torch.no_grad()

@@ -6,6 +6,8 @@ from .convert import (
     llama_params_from_jax,
     mixtral_params_from_jax,
     resnet_params_from_jax,
+    t5_params_from_jax,
+    whisper_params_from_jax,
 )
 from .gemma import GemmaConfig, create_gemma_model
 from .gemma2 import Gemma2Config, create_gemma2_model
@@ -21,6 +23,8 @@ from .qwen2 import Qwen2Config, create_qwen2_model
 from .qwen3 import Qwen3Config, create_qwen3_model
 from .qwen3_moe import Qwen3MoeConfig, Qwen3MoeModel, create_qwen3_moe_model, qwen3_moe_lm_loss
 from .resnet import ResNetConfig, create_resnet_model, resnet_classification_loss
+from .t5 import T5Config, T5Model, create_t5_model, seq2seq_lm_loss
+from .whisper import WhisperConfig, WhisperModel, create_whisper_model
 
 __all__ = [
     "BertConfig",
@@ -42,6 +46,10 @@ __all__ = [
     "Qwen3MoeConfig",
     "Qwen3MoeModel",
     "ResNetConfig",
+    "T5Config",
+    "T5Model",
+    "WhisperConfig",
+    "WhisperModel",
     "bert_classification_loss",
     "bert_params_from_jax",
     "causal_lm_loss",
@@ -61,6 +69,8 @@ __all__ = [
     "create_qwen3_model",
     "create_qwen3_moe_model",
     "create_resnet_model",
+    "create_t5_model",
+    "create_whisper_model",
     "gpt2_params_from_jax",
     "gptneox_params_from_jax",
     "llama_params_from_jax",
@@ -70,4 +80,7 @@ __all__ = [
     "qwen3_moe_lm_loss",
     "resnet_classification_loss",
     "resnet_params_from_jax",
+    "seq2seq_lm_loss",
+    "t5_params_from_jax",
+    "whisper_params_from_jax",
 ]

@@ -32,10 +32,21 @@ LayerNorm ``scale``/``bias``, the position table, a tied or untied head.
 ``resnet_params_from_jax`` for
 :func:`accelerate_tpu.models.resnet.create_resnet_model`'s params and
 BatchNorm statistics (``Conv`` kernels ``[kh, kw, in, out]`` become
-``Conv2d`` weights ``[out, in, kh, kw]``).
+``Conv2d`` weights ``[out, in, kh, kw]``). ``t5_params_from_jax`` and
+``whisper_params_from_jax`` carry the encoder-decoder families: the
+``enc_layer_<i>`` / ``dec_layer_<i>`` subtrees become ``enc_layers.<i>`` /
+``dec_layers.<i>``; two flax names hold a literal ``/``:
+``relative_bias/embedding`` (only in layer 0's ``attn`` and
+``self_attn``: T5's bias table) becomes ``relative_bias`` and
+``dec_pos/embedding`` (Whisper's decoder positions) ``dec_pos``; a 1-D
+``Conv`` kernel ``[k, in, out]`` becomes a ``Conv1d`` weight ``[out, in,
+k]``; a tied head is the ``shared`` / ``embed_tokens`` table, an untied
+one ``lm_head``.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -263,3 +274,53 @@ def gptneox_params_from_jax(params: dict, config) -> dict:
     ``final_norm``, ``embed_out``)."""
     return _gpt_params(params, config, {"embed": "embed_in", "ln1": "input_norm", "ln2": "post_attn_norm",
                                         "final": "final_norm", "head": "embed_out"})
+
+
+# flax leaf names that hold a "/" (a param named with a path), and what the port calls them
+_SLASHED = {"relative_bias/embedding": "relative_bias", "dec_pos/embedding": "dec_pos"}
+
+
+def _seq2seq_params(params: dict, layer_counts: tuple) -> dict:
+    """The encoder-decoder families' walk: every leaf by its path, with the
+    stacks' layer subtrees renamed, Dense and Conv kernels transposed,
+    ``scale`` and ``embedding`` as ``weight``. ``layer_counts`` is the
+    config's ``(encoder, decoder)`` depth, held against the tree's."""
+    sd = {}
+
+    def walk(tree: dict, prefix: str):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                m = re.fullmatch(r"(enc|dec)_layer_(\d+)", key)
+                walk(value, f"{prefix}{m[1]}_layers.{m[2]}." if m else f"{prefix}{key}.")
+                continue
+            arr = np.asarray(value)
+            if key in _SLASHED:
+                sd[f"{prefix}{_SLASHED[key]}"] = _tensor(arr, False)
+            elif key == "kernel" and arr.ndim == 3:
+                sd[f"{prefix}weight"] = torch.from_numpy(np.array(arr.transpose(2, 1, 0), np.float32, order="C"))
+            elif key == "kernel":
+                sd[f"{prefix}weight"] = _tensor(arr, True)
+            else:
+                sd[f"{prefix}{'bias' if key == 'bias' else 'weight'}"] = _tensor(arr, False)
+
+    walk(params, "")
+    found = tuple(sum(1 for k in params if k.startswith(f"{stack}_layer_")) for stack in ("enc", "dec"))
+    if found != layer_counts:
+        raise ValueError(f"the tree holds {found} (encoder, decoder) layers; the config says {layer_counts}")
+    return sd
+
+
+def t5_params_from_jax(params: dict, config) -> dict:
+    """The port's T5 state dict (f32 tensors) from a JAX T5 param tree
+    (``shared``, ``enc_layer_<i>/{ln_attn,attn,ln_ffn,ffn}``,
+    ``dec_layer_<i>/{ln_self,self_attn,ln_cross,cross_attn,ln_ffn,ffn}``,
+    the two final norms and, when untied, ``lm_head``)."""
+    return _seq2seq_params(params, (config.num_layers, config.num_layers))
+
+
+def whisper_params_from_jax(params: dict, config) -> dict:
+    """The port's Whisper state dict (f32 tensors) from a JAX Whisper param
+    tree (``conv1``, ``conv2``, ``enc_layer_<i>/{ln_self,self_attn,ln_ffn,
+    fc1,fc2}``, ``embed_tokens``, ``dec_pos/embedding``, ``dec_layer_<i>``
+    with ``cross_attn`` and ``ln_cross`` too, the two final norms)."""
+    return _seq2seq_params(params, (config.encoder_layers, config.decoder_layers))

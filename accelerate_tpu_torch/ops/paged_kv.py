@@ -66,19 +66,24 @@ class PagedKVCache:
         self.index += n
 
 
-def paged_cached_attention(cache: PagedKVCache, layer: int, q, k, v, scale=None, sliding_window=None):
+def paged_cached_attention(cache: PagedKVCache, layer: int, q, k, v, scale=None, sliding_window=None,
+                           bias_fn=None):
     """Single-token attention against the paged pool: write the step's
     K/V at ``pool[table[b, min(cur // bs, MB - 1)], cur % bs]`` (past the
     table a row's writes clamp to its last entry: its own block or the
     trash sink, never another row's), then attend to positions
     ``<= cur``. Prefill runs the dense path and is pasted in by
-    :func:`paste_row`, so only ``S_new == 1`` reaches here."""
+    :func:`paste_row`, so only ``S_new == 1`` reaches here. A position
+    bias (``bias_fn``, T5's) is refused, as the JAX package refuses it:
+    the kernel has no bias branch."""
     b, s_new, _, d = k.shape
     if s_new != 1:
         raise ValueError(
             f"paged attention is decode-only (S_new == 1, got {s_new}); "
             "prefill runs the dense path and is pasted into the pool"
         )
+    if bias_fn is not None:
+        raise NotImplementedError("paged attention does not support bias_fn (T5-style relative bias)")
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     bs_, mb = cache.key_pool.shape[2], cache.block_table.shape[1]
     cur = cache.index

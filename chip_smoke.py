@@ -164,7 +164,25 @@ it, all three equal. Then the slices:
   beside each kill (``proc_chaos``); ``python -m
   accelerate_tpu_torch.commands.serve`` over HTTP: JSON and SSE with the
   same tokens, a cancel, ``/metrics``, ``/healthz`` 200 then 503, SIGTERM
-  exiting 0 (``proc_http``).
+  exiting 0 (``proc_http``);
+* the encoder-decoder families (``--only s2s``): T5-large at full width
+  and depth (seeded random weights, bf16) serving 8 sources of 64-512
+  tokens right-padded to 512 through ``generate_seq2seq`` (greedy, 64
+  tokens; the encoder once a call, counted on its stack; the tokens held
+  to one teacher-forced forward under serve's gap rule; garbage under the
+  mask giving the same tokens; encoder ms, ITL, tokens/s, peak memory;
+  one decode step traced: ``t5_serve``), trained at 16 x 512 source and
+  128 target tokens through ``build_train_step(seq2seq_lm_loss)`` (f32
+  masters, bf16 compute; losses falling; MFU from the step's FLOP count;
+  one step traced by kind: ``t5_train``); Whisper-large-v3 likewise on 8
+  log-mel inputs of 3,000 frames (1,500 encoder positions; the traced
+  step's casts of the f32 cross K/V timed: ``whisper_serve``); 2 + 2-layer
+  f32 cuts of both card against CPU (logits, the cached decode step by
+  step, ``generate_seq2seq``) and T5's bucket ids on the card equal to the
+  CPU's over +-4,096 (``s2s_consistency``). No kernel of the JAX package
+  lies on these paths (T5's attention is an einsum with its bias, Whisper's
+  1,500 positions are under ``FLASH_MIN_SEQ``, and both decode on the dense
+  cache): K1-K5's counters read the same after the group.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -6083,6 +6101,456 @@ def phase_proc(torch, threaded=False) -> dict:
     return {"k4_launches": serve["row"]["kernel_launches"] + chaos["kernel_launches"]}
 
 
+# --------------------------------------------------------------------- #
+# the encoder-decoder families (--only s2s)
+# --------------------------------------------------------------------- #
+
+# google-t5/t5-large config.json (d_model, d_ff, d_kv, num_heads, num_layers = num_decoder_layers,
+# relative_attention_num_buckets / max_distance, layer_norm_epsilon; ReLU FFN, tied embeddings)
+T5_LARGE = dict(vocab_size=32128, hidden_size=1024, intermediate_size=4096, num_layers=24, num_attention_heads=16,
+                head_dim=64, relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                layer_norm_eps=1e-6, tie_word_embeddings=True)
+T5_START, T5_EOS = 0, 1  # decoder_start_token_id, eos_token_id
+# openai/whisper-large-v3 config.json
+WHISPER_LARGE_V3 = dict(vocab_size=51866, num_mel_bins=128, d_model=1280, encoder_layers=32, decoder_layers=32,
+                        encoder_attention_heads=20, decoder_attention_heads=20, encoder_ffn_dim=5120,
+                        decoder_ffn_dim=5120, max_source_positions=1500, max_target_positions=448,
+                        layer_norm_eps=1e-5)
+WHISPER_START, WHISPER_EOS = 50258, 50257
+S2S_DECODE_LEN = 128  # max_decode_len of both serves
+S2S_BATCH, S2S_NEW = 8, 64
+T5_SRC = 512  # sources of 64-512 tokens, right-padded to 512
+WHISPER_FRAMES = 3000  # 30 s of log-mel frames: 1,500 encoder positions
+S2S_CUT_FRAMES = 400  # s2s_consistency's Whisper inputs (200 encoder positions)
+# s2s_consistency's bound on |card - CPU| over the CPU logits' RMS (logits and every cached step), f32. T5's
+# attention is unscaled (scores of std ~8 at random weights), so f32 itself is coarser there: the CPU's f32 logits
+# of the 2 + 2-layer cut sit ~7e-5 of the RMS from the same model's in f64 (the phase's cpu_f32_vs_f64), the
+# card's 9.8e-5 from the CPU's (H100, 700 W); a bf16 model is 1.0 off. Whisper's scaled attention keeps
+# gpt_consistency's bound (card 8.4e-6 of the RMS from the CPU)
+S2S_CUT_TOL = {"t5": 4e-4, "whisper": 1e-4}
+
+
+def kernel_counts():
+    """The launch counters of K1-K5, which no encoder-decoder path moves."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import qmatmul as qm
+
+    return {"k1": fa.launches_fwd, "k2": fa.launches_dq, "k3": fa.launches_dkv, "k4": pa.launches, "k5": qm.launches}
+
+
+def s2s_reference_check(torch, model, src, mask, out, step_lp, eos):
+    """Greedy tokens ``out`` ``[B, 1 + n]`` of the cached loop against one
+    teacher-forced forward (no cache, the encoder again) over the same
+    decoder sequence, under serve's gap rule (greedy_against_reference):
+    a token may differ only where the forward's top-2 gap is under
+    SERVE_BF16_GAP, which ends that row's comparison, as does its EOS; the
+    cached step's logprob of each compared token (``step_lp`` ``[B, n]``)
+    within SERVE_LP_LIMIT of the forward's. Returns ``(tokens compared,
+    rows stopped at a near tie, max logprob error)``."""
+    with torch.no_grad():
+        logits = model(src, out[:, :-1], attention_mask=mask)
+    logp = torch.log_softmax(logits, dim=-1)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    ref = logits.argmax(-1)
+    gen = out[:, 1:].long()
+    chosen_lp = logp.gather(-1, gen[..., None])[..., 0]
+    ref, gen, gaps = ref.cpu().numpy(), gen.cpu().numpy(), (top2[..., 0] - top2[..., 1]).float().cpu().numpy()
+    chosen_lp, step_lp = chosen_lp.float().cpu().numpy(), step_lp.float().cpu().numpy()
+    compared = near = 0
+    lp_err = 0.0
+    for r in range(gen.shape[0]):
+        for i in range(gen.shape[1]):
+            if gen[r, i] != ref[r, i]:
+                check(gaps[r, i] < SERVE_BF16_GAP,
+                      f"row {r} token {i}: {gen[r, i]} != {ref[r, i]} with top-2 gap {gaps[r, i]}")
+                near += 1
+                break
+            lp_err = max(lp_err, abs(float(chosen_lp[r, i] - step_lp[r, i])))
+            compared += 1
+            if gen[r, i] == eos:
+                break
+    check(lp_err <= SERVE_LP_LIMIT, f"cached logprobs within {SERVE_LP_LIMIT} of the forward's: {lp_err}")
+    check(compared > 0, "tokens compared against the teacher-forced forward")
+    return compared, near, lp_err
+
+
+def s2s_step_profile(torch, model, src, mask, start, cross_shape):
+    """One decode step (the 8 rows' 2nd token) timed without the profiler,
+    the next traced (``traced``): kernels a step, the device's busy time
+    and idle share, busy time by kind, and the device time of the casts of
+    the f32 cross K/V to the stream dtype (each ``aten::_to_copy`` of a
+    ``cross_shape`` tensor)."""
+    from torch.autograd import DeviceType
+
+    with torch.no_grad():
+        logits, cache = model(src, start, attention_mask=mask, decode=True, cache=None)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        model(src, tok, decode=True, cache=cache)  # a warm step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(src, tok, decode=True, cache=cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kept = {}
+        events, traced_ms, attempts, lost = traced(
+            torch, lambda: model(src, tok, decode=True, cache=cache), record_shapes=True,
+            on_trace=lambda prof: kept.__setitem__("prof", prof))
+    busy, by_name = device_time(events)
+    by_kind = {}
+    for name, (ms, _) in by_name.items():
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    def is_cast(node):
+        return node.name == "aten::_to_copy" and node.input_shapes and list(node.input_shapes[0]) == list(cross_shape)
+
+    cast_ms, casts = 0.0, 0
+    for ev in kept["prof"].events():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        casts += is_cast(ev)
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        node = ev
+        while ms > 0 and node is not None and not is_cast(node):
+            node = node.cpu_parent
+        if ms > 0 and node is not None:
+            cast_ms += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"what": "one decode step, 8 rows, the cache at row 2", "step_wall_ms": wall_ms,
+            "step_wall_ms_profiled": traced_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "kernels_traced": len(events), "busy_ms_by_kind": by_kind, "cross_cast_ms": cast_ms,
+            "cross_casts": casts, "trace_attempts": attempts, "trace_lead_lost": lost,
+            "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+
+
+def s2s_serve(torch, phase, model, src, mask, start, eos, what, garbage=None):
+    """``generate_seq2seq`` greedy for S2S_NEW tokens on 8 rows: a warm call,
+    then the timed one with an encoder counter on the encoder stack (one
+    run a call), its tokens/s and peak memory; the encoder alone timed; the
+    same decoder sequence fed again through the cache one token a step,
+    each step timed (ITL) and its logprobs kept, then held to one
+    teacher-forced forward (s2s_reference_check); with ``garbage`` (a
+    source differing only under the mask) the tokens again, equal; one
+    decode step traced."""
+    from accelerate_tpu_torch import generate_seq2seq
+    from accelerate_tpu_torch.ops.kv_cache import kv_layout
+
+    cfg, b = model.config, src.shape[0]
+    runs = [0]
+    hook = model.module.enc_layers[0].register_forward_pre_hook(lambda *a: runs.__setitem__(0, runs[0] + 1))
+    kw = dict(decoder_start_token_id=start, eos_token_id=eos, attention_mask=mask)
+    generate_seq2seq(model, src, max_new_tokens=4, **kw)  # warm: allocator, GEMM heuristics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = runs[0]
+    t0 = time.perf_counter()
+    out = generate_seq2seq(model, src, max_new_tokens=S2S_NEW, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    encoder_runs = runs[0] - before
+    check(encoder_runs == 1, f"{phase}: the encoder runs once a generate_seq2seq call ({encoder_runs})")
+    check(out.shape == (b, 1 + S2S_NEW) and out.dtype == torch.int32, f"{phase}: output {tuple(out.shape)}")
+    hook.remove()
+    with torch.no_grad():
+        enc_ms = time_ms(torch, lambda: model.module.encode(*((src, mask) if mask is not None else (src,))),
+                         reps=5, warmup=1)
+        step_ms, step_lp = [], []
+        logits, cache = model(src, out[:, :1], attention_mask=mask, decode=True, cache=None)
+        for i in range(S2S_NEW):
+            step_lp.append(torch.log_softmax(logits[:, -1], -1).gather(-1, out[:, i + 1, None].long())[:, 0])
+            if i == S2S_NEW - 1:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model(src, out[:, i + 1:i + 2], decode=True, cache=cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del cache
+    compared, near, lp_err = s2s_reference_check(torch, model, src, mask, out, torch.stack(step_lp, 1), eos)
+    row = {"phase": phase, "what": what, "params": model.num_parameters(), "batch": b,
+           "source_shape": list(src.shape), "max_new_tokens": S2S_NEW, "max_decode_len": cfg.max_decode_len,
+           "encoder_runs_a_call": encoder_runs, "generate_s": wall_s, "tokens_per_s": b * S2S_NEW / wall_s,
+           "encoder_ms": enc_ms, "itl_ms_p50": statistics.median(step_ms),
+           "itl_ms_p90": sorted(step_ms)[int(np.ceil(0.9 * len(step_ms))) - 1], "peak_memory_gb": peak,
+           "tokens_compared": compared, "stopped_at_near_tie": near, "max_logprob_err": lp_err,
+           "eos_emitted": int((out[:, 1:] == eos).any(-1).sum())}
+    if garbage is not None:
+        again = generate_seq2seq(model, garbage, max_new_tokens=S2S_NEW, **kw)
+        check(torch.equal(again, out), f"{phase}: garbage under the mask changes the tokens")
+        row["garbage_under_mask_equal"] = True
+    heads, head_dim = kv_layout(cfg)
+    s_enc = src.shape[1] if mask is not None else (src.shape[1] + 1) // 2  # Whisper's conv2 halves the frames
+    row["decode_step"] = s2s_step_profile(torch, model, src, mask, out[:, :1], (b, s_enc, heads, head_dim))
+    return row
+
+
+def phase_t5_serve(torch):
+    """T5-large at full width and depth (seeded random weights, bf16,
+    ``max_decode_len`` 128): 8 sources of 64-512 tokens right-padded to 512
+    with their mask, greedy for 64 tokens through ``generate_seq2seq``
+    (s2s_serve), garbage under the mask giving the same tokens."""
+    from accelerate_tpu_torch.models import T5Config, create_t5_model
+
+    cfg = T5Config(**T5_LARGE, max_decode_len=S2S_DECODE_LEN)
+    free_memory(torch)
+    t0 = time.perf_counter()
+    model = create_t5_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(19)
+    lengths = np.linspace(64, T5_SRC, S2S_BATCH).astype(int)
+    mask = np.arange(T5_SRC)[None] < lengths[:, None]
+    ids = np.where(mask, rng.integers(2, cfg.vocab_size, size=(S2S_BATCH, T5_SRC)), 0).astype(np.int32)
+    garbage = np.where(mask, ids, rng.integers(2, cfg.vocab_size, size=ids.shape)).astype(np.int32)
+    dev = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    row = s2s_serve(torch, "t5_serve", model, dev(ids), dev(mask), T5_START, T5_EOS,
+                    "T5-large (google-t5/t5-large widths, 24 + 24 layers), bf16, seeded random weights",
+                    garbage=dev(garbage))
+    row.update(model_build_s=build_s, source_lengths=lengths.tolist())
+    emit(row)
+    del model
+    free_memory(torch)
+    return row
+
+
+def t5_step_flops(cfg, b: int, s: int, t: int) -> float:
+    """A T5 train step's FLOPs at batch ``b``, ``s`` source and ``t`` target
+    tokens: 6 x each projection's parameters x the tokens it sees (the
+    cross K/V projections see the source), the attention scores 12 x
+    width x query x key pairs a layer (the decoder's causal half), and a
+    tied head's 6 x target tokens x hidden x vocab."""
+    d, inner, ff, n = cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim, cfg.intermediate_size, cfg.num_layers
+    enc = 6.0 * b * s * (4 * d * inner + 2 * d * ff) + 12.0 * b * inner * s * s
+    dec = 6.0 * b * t * (6 * d * inner + 2 * d * ff) + 6.0 * b * s * 2 * d * inner \
+        + 12.0 * b * inner * (0.5 * t * t + t * s)
+    return n * (enc + dec) + 6.0 * b * t * d * cfg.vocab_size
+
+
+def phase_t5_train(torch):
+    """T5-large at full width and depth, f32 masters, bf16 compute, AdamW
+    (3e-4, weight decay 0.01) through ``build_train_step(lambda p, b:
+    seq2seq_lm_loss(p, b, model.apply_fn))``: 2 warm-up and 10 timed steps
+    at 16 x 512 source (right-padded, 384-512 real) and 128 target tokens
+    whose last 16 labels are -100; losses finite and falling; one step
+    traced by kernel kind."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import T5Config, create_t5_model, seq2seq_lm_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    b, s, t, warmup, timed = 16, T5_SRC, 128, 2, 10
+    cfg = T5Config(**T5_LARGE, max_decode_len=S2S_DECODE_LEN)
+    free_memory(torch)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare_model(create_t5_model(cfg, seed=0))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=3e-4, weight_decay=0.01))
+    step = acc.build_train_step(lambda p, batch: seq2seq_lm_loss(p, batch, model.apply_fn))
+    src = token_batches(torch, warmup + timed + 1, b, s, cfg.vocab_size, seed=21)
+    labels = token_batches(torch, warmup + timed + 1, b, t, cfg.vocab_size, seed=22)
+    labels[:, :, -16:] = -100
+    rng = np.random.default_rng(23)
+    lengths = torch.as_tensor(rng.integers(3 * s // 4, s + 1, size=(warmup + timed + 1, b, 1)), device="cuda")
+    masks = torch.arange(s, device="cuda") < lengths
+    batches = [{"input_ids": src[i], "attention_mask": masks[i], "labels": labels[i]}
+               for i in range(warmup + timed + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(float(step(batches[i])))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"t5_train: losses finite: {losses}")
+    check(losses[-1] < losses[0], f"t5_train: loss falls: {losses[0]} -> {losses[-1]}")
+    step_ms = sorted(times[warmup:])
+    med = statistics.median(step_ms)
+    flops = t5_step_flops(cfg, b, s, t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    events, traced_ms, attempts, lost = traced(torch, lambda: step(batches[-1]))
+    busy, by_name = device_time(events)
+    by_kind = {}
+    for name, (ms, _) in by_name.items():
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    row = {
+        "phase": "t5_train", "config": "T5-large, 24 + 24 layers, f32 masters + bf16 compute, seeded",
+        "params": model.num_parameters(), "batch": b, "source": s, "target": t, "label_ignored_tail": 16,
+        "warmup_steps": warmup, "timed_steps": timed, "tokens_per_s": b * (s + t) / (med / 1e3),
+        "step_ms_median": med, "step_ms_p90": step_ms[int(np.ceil(0.9 * len(step_ms))) - 1], "step_flops": flops,
+        "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak, "losses": losses,
+        # the idle share against the profiled step's wall and against the unprofiled median (the profiler's
+        # host cost a launch is a large share of a step of ~8,700 launches)
+        "profile": {"step_wall_ms": traced_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / traced_ms,
+                    "idle_share_unprofiled": 1.0 - busy / med,
+                    "busy_ms_by_kind": by_kind, "kernels_traced": len(events), "trace_attempts": attempts,
+                    "trace_lead_lost": lost, "top": [[name[:90], ms, n] for name, (ms, n) in top]},
+    }
+    emit(row)
+    del acc, model, step, batches, src, labels, masks
+    free_memory(torch)
+    return row
+
+
+def phase_whisper_serve(torch):
+    """Whisper-large-v3 at full width and depth (seeded random weights,
+    bf16, ``max_decode_len`` 128): 8 seeded log-mel inputs of 3,000 frames x
+    128 bins in bf16 (1,500 encoder positions; the encoder computes in the
+    features' dtype), greedy for 64 tokens from <|startoftranscript|> with
+    EOS 50,257 through ``generate_seq2seq`` (s2s_serve); the traced step's
+    casts of the f32 cross K/V (2 x 32 layers of 8 x 1,500 x 1,280, read in
+    f32 and written in bf16: 5.9 GB) timed."""
+    from accelerate_tpu_torch.models import WhisperConfig, create_whisper_model
+
+    cfg = WhisperConfig(**WHISPER_LARGE_V3, max_decode_len=S2S_DECODE_LEN)
+    free_memory(torch)
+    t0 = time.perf_counter()
+    model = create_whisper_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    feats = np.random.default_rng(20).standard_normal((S2S_BATCH, WHISPER_FRAMES, cfg.num_mel_bins))
+    src = torch.as_tensor(feats, dtype=torch.float32, device="cuda").bfloat16()
+    row = s2s_serve(torch, "whisper_serve", model, src, None, WHISPER_START, WHISPER_EOS,
+                    "Whisper-large-v3 (openai/whisper-large-v3 widths, 32 + 32 layers), bf16, seeded random weights")
+    s_enc = (WHISPER_FRAMES + 1) // 2
+    cast_bytes = 2 * cfg.decoder_layers * S2S_BATCH * s_enc * cfg.d_model * (4 + 2)
+    step = row["decode_step"]
+    check(step["cross_casts"] == 2 * cfg.decoder_layers,
+          f"whisper_serve: {step['cross_casts']} cross K/V casts traced in a step, want {2 * cfg.decoder_layers}")
+    row.update(model_build_s=build_s, encoder_positions=s_enc, cross_cast_bytes=cast_bytes,
+               cross_cast_bound_ms=cast_bytes / HBM_BYTES_PER_S * 1e3)
+    emit(row)
+    del model
+    free_memory(torch)
+    return row
+
+
+def s2s_card_vs_cpu(torch, family, cpu, card, src, mask, start) -> dict:
+    """One family's 2 + 2-layer f32 cut, card against CPU: logits of a
+    teacher-forced forward within S2S_CUT_TOL of the CPU's RMS; the cached
+    decode (prefill on the start token, then 15 steps of the same tokens)
+    step by step likewise; ``generate_seq2seq`` for 8 tokens token for token (a
+    token differing only where the CPU's top-2 gap is under 1e-3, which
+    ends that row)."""
+    import copy
+
+    from accelerate_tpu_torch import generate_seq2seq
+
+    tol = S2S_CUT_TOL[family]
+    dec = torch.as_tensor(np.random.default_rng(31).integers(0, card.config.vocab_size, size=(2, 16)),
+                          dtype=torch.int32)
+    dec[:, 0] = start
+    src_card = src.to("cuda")
+    mask_card = None if mask is None else mask.to("cuda")
+    with torch.no_grad():
+        want = cpu(src, dec, attention_mask=mask)
+        got = card(src_card, dec.cuda(), attention_mask=mask_card).cpu()
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((got - want).abs().max())
+        f64 = copy.deepcopy(cpu.module).double()(src if mask is not None else src.double(), dec, attention_mask=mask)
+        floor = float((want.double() - f64).abs().max()) / rms
+        check(bool(torch.isfinite(got).all()) and err <= tol * rms,
+              f"{family}: card logits within {tol} of the CPU's RMS: {err} vs {rms}")
+        step_err = 0.0
+        lw, cw = cpu(src, dec[:, :1], attention_mask=mask, decode=True, cache=None)
+        lg, cg = card(src_card, dec[:, :1].cuda(), attention_mask=mask_card, decode=True, cache=None)
+        for i in range(16):
+            step_err = max(step_err, float((lg.cpu() - lw).abs().max()))
+            if i == 15:
+                break
+            lw, cw = cpu(src, dec[:, i + 1:i + 2], decode=True, cache=cw)
+            lg, cg = card(src_card, dec[:, i + 1:i + 2].cuda(), decode=True, cache=cg)
+        check(step_err <= tol * rms, f"{family}: cached steps within {tol} of the CPU's RMS: {step_err}")
+    want_tok = generate_seq2seq(cpu, src, max_new_tokens=8, decoder_start_token_id=start, attention_mask=mask).numpy()
+    got_tok = generate_seq2seq(card, src_card, max_new_tokens=8, decoder_start_token_id=start,
+                               attention_mask=mask_card).cpu().numpy()
+    compared = near = 0
+    for r in range(2):
+        diff = np.nonzero(want_tok[r, 1:] != got_tok[r, 1:])[0]
+        upto = int(diff[0]) if len(diff) else 8
+        compared += upto
+        if len(diff):
+            with torch.no_grad():
+                row = cpu(src[r:r + 1], torch.as_tensor(want_tok[r:r + 1, :1 + upto]),
+                          attention_mask=None if mask is None else mask[r:r + 1])[0, -1]
+            top2 = torch.topk(row, 2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-3, f"{family}: generated token {upto} differs with top-2 gap {gap}")
+            near += 1
+    return {"family": family, "params": cpu.num_parameters(), "logits_max_abs_err": err, "logits_rms": rms,
+            "tol_over_rms": tol, "cpu_f32_vs_f64": floor, "cached_steps_max_abs_err": step_err, "tokens_compared": compared, "stopped_at_near_tie": near}
+
+
+def phase_s2s_consistency(torch):
+    """T5-large and Whisper-large-v3 at their published widths cut to 2 + 2
+    layers, f32, built on the CPU and copied to the card (s2s_card_vs_cpu;
+    T5 on 64-token sources, one padded to 40; Whisper on 400 frames with
+    cuDNN's TF32 off, so its convolutions are f32); and T5's bucket ids:
+    those the model uses on the card (built on the host, then moved) equal
+    to the CPU's for every relative position in +-4,096, both directions,
+    and the formula evaluated on the card itself, its disagreements
+    counted."""
+    import copy
+
+    from accelerate_tpu_torch.modeling import Model
+    from accelerate_tpu_torch.models import T5Config, WhisperConfig, create_t5_model, create_whisper_model
+    from accelerate_tpu_torch.models.t5 import _bucketize, relative_position_buckets
+
+    rows = []
+    rng = np.random.default_rng(30)
+    t5_cfg = T5Config(**{**T5_LARGE, "num_layers": 2}, max_decode_len=S2S_DECODE_LEN)
+    cpu = create_t5_model(t5_cfg, seed=5, device="cpu")
+    card = Model(copy.deepcopy(cpu.module).to("cuda"), t5_cfg, name=cpu.name)
+    src = torch.as_tensor(rng.integers(2, t5_cfg.vocab_size, size=(2, 64)), dtype=torch.int32)
+    mask = torch.arange(64)[None] < torch.tensor([[64], [40]])
+    rows.append(s2s_card_vs_cpu(torch, "t5", cpu, card, src, mask, T5_START))
+    del cpu, card
+    w_cfg = WhisperConfig(**{**WHISPER_LARGE_V3, "encoder_layers": 2, "decoder_layers": 2},
+                          max_decode_len=S2S_DECODE_LEN)
+    cpu = create_whisper_model(w_cfg, seed=5, device="cpu")
+    card = Model(copy.deepcopy(cpu.module).to("cuda"), w_cfg, name=cpu.name)
+    feats = torch.as_tensor(rng.standard_normal((2, S2S_CUT_FRAMES, w_cfg.num_mel_bins)), dtype=torch.float32)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        rows.append(s2s_card_vs_cpu(torch, "whisper", cpu, card, feats, None, WHISPER_START))
+    del cpu, card
+    free_memory(torch)
+    buckets = {}
+    nb, md = T5_LARGE["relative_attention_num_buckets"], T5_LARGE["relative_attention_max_distance"]
+    rel = torch.arange(-4096, 4097)
+    for bidirectional in (True, False):
+        name = "encoder" if bidirectional else "decoder"
+        # rel = key - query over +-4,096: a query at 0 against keys 0..4096, keys at 0 against queries 0..4096
+        used = [relative_position_buckets(1, 4097, nb, md, bidirectional, torch.device("cuda")),
+                relative_position_buckets(4097, 1, nb, md, bidirectional, torch.device("cuda"))]
+        want = [relative_position_buckets(1, 4097, nb, md, bidirectional), relative_position_buckets(4097, 1, nb, md,
+                                                                                                    bidirectional)]
+        equal = all(u.is_cuda and torch.equal(u.cpu(), w) for u, w in zip(used, want))
+        check(equal, f"T5 {name} bucket ids on the card equal the CPU's over +-4,096")
+        on_card = _bucketize(rel.cuda(), nb, md, bidirectional).cpu()
+        host = _bucketize(rel, nb, md, bidirectional)
+        buckets[name] = {"model_ids_equal": equal, "formula_on_card_disagreements": int((on_card != host).sum()),
+                         "disagreeing_rel": rel[on_card != host][:8].tolist()}
+    row = {"phase": "s2s_consistency", "families": rows, "bucket_ids": buckets}
+    emit(row)
+    return row
+
+
+def phase_s2s(torch) -> dict:
+    """The encoder-decoder group: T5-large served and trained, Whisper-large-v3
+    served, the 2 + 2-layer cuts card against CPU. No kernel of the port
+    lies on these paths (K1-K5's counters read the same after the group)."""
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    t5 = phase_t5_serve(torch)
+    train = phase_t5_train(torch)
+    whisper = phase_whisper_serve(torch)
+    consistency = phase_s2s_consistency(torch)
+    after = kernel_counts()
+    check(after == before, f"s2s: the kernel counters moved: {before} -> {after}")
+    emit({"phase": "s2s", "kernel_counts_unchanged": after, "seconds": time.perf_counter() - t0})
+    return {"t5_serve": t5, "t5_train": train, "whisper_serve": whisper, "consistency": consistency}
+
+
 def main() -> int:
     try:
         import torch
@@ -6107,7 +6575,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet,proc`
+    # dense,moe,gpt,fleet,proc,s2s`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -6193,6 +6661,8 @@ def main() -> int:
         fleet = phase_fleet(torch)
     if not only or "proc" in only:
         proc = phase_proc(torch, threaded=bool(only))  # alone, the group times the threaded drain too
+    if not only or "s2s" in only:
+        phase_s2s(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
