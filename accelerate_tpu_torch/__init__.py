@@ -60,7 +60,14 @@ package imports nothing of it (nor of jax). Its slices so far:
 * the encoder-decoder families (:mod:`.models`: T5 and Whisper), served
   by ``generate_seq2seq`` (the encoder once, its output and every layer's
   cross-attention K/V kept in the cache) and trained with
-  ``seq2seq_lm_loss``.
+  ``seq2seq_lm_loss``;
+* the vision and diffusion families (:mod:`.models`: ViT, CLIP, UNet2D
+  and the VAE; :mod:`.diffusion`): ``text_to_image`` (CLIP's text tower,
+  the UNet sampled by DDIM or DDPM under classifier-free guidance, the
+  VAE's decoder), ViT and CLIP trained with ``vit_classification_loss``
+  and ``clip_contrastive_loss``, the UNet with ``diffusion_loss`` or
+  ``latent_diffusion_loss``; at Stable Diffusion's widths the 64 x 64
+  level's attention (head dim 40) runs on the flash kernels.
 
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 ``Accelerator(cpu=True)``).
@@ -69,6 +76,7 @@ Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
 from .accelerator import Accelerator
 from .checkpointing import load_model, save_model
 from .data_loader import prepare_data_loader, skip_first_batches
+from .diffusion import text_to_image
 from .ft import CheckpointManager
 from .generation import beam_search, generate, generate_seq2seq, per_token_latency
 from .models import (
@@ -164,4 +172,5 @@ __all__ = [
     "skip_first_batches",
     "slice_tensors",
     "speculative_generate",
+    "text_to_image",
 ]

@@ -25,7 +25,7 @@
 // FMA units bound all three.
 //
 // Head dims. The kernels are built at the widths D 64, 128 and 256; a head
-// dim d (a multiple of 4; the wrappers pass multiples of 16) runs at the
+// dim d (a multiple of 4; the wrappers pass multiples of 8) runs at the
 // least of them that holds it, its columns past d loaded as zeros and never
 // stored. At D 256 a block owns 32 rows with 2 warps (four tiles of 64 rows
 // would not fit in shared memory), and K3 runs two blocks a key tile, each

@@ -24,7 +24,7 @@
 // pair against 6 D (K2) or 8 D (K3) tensor-core FLOPs.
 //
 // Head dims as in K1: built at D 64, 128 and 256, a head dim d (a multiple
-// of 16) run at the least that holds it, its tensor maps d columns wide (TMA
+// of 8) run at the least that holds it, its tensor maps d columns wide (TMA
 // reads the columns past d as zeros) and its stores stopping at d.
 //
 // What the design does about it: K1's (flash_fwd_sm90.cu), whose primitives
@@ -563,7 +563,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 bool bad_config(int dtype, int b, int h, int hkv, int sq, int sk, int d) {
-  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 16 != 0 || b <= 0 || h <= 0 || hkv <= 0 ||
+  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 8 != 0 || b <= 0 || h <= 0 || hkv <= 0 ||
          h % hkv != 0 || sq <= 0 || sk <= 0 || dq_grid(b, h, sq, d).y > 65535 || dkv_grid(b, hkv, sk, d).y > 65535;
 }
 

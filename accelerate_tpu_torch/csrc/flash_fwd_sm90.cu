@@ -21,9 +21,12 @@
 // exp2 a (query, key) pair against 4 D tensor-core FLOPs.
 //
 // Head dims. The kernel is built at the widths D 64, 128 and 256; a head dim
-// d (a multiple of 16) runs at the least of them that holds it. Its tensor
+// d (a multiple of 8) runs at the least of them that holds it. Its tensor
 // maps are d columns wide, so TMA reads the columns past d as zeros (Q K^T
-// stays exact, and the columns of O past d stay 0) and the stores stop at d.
+// stays exact, and the columns of O past d stay 0) and the stores stop at d:
+// each thread stores column pairs of 8-column tiles, so a d of 40 (Stable
+// Diffusion's) ends on a tile's edge, and its rows of 80 bytes keep the
+// 16-byte alignment a tensor map's strides need.
 //
 // What the design does about it. A block is a producer warpgroup and one
 // consumer warpgroup for each 64 query rows (three at D 64, two at D 128 and
@@ -342,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, const Args& a, int b, in
 }
 
 bool bad_config(int dtype, int b, int h, int sq, int d) {
-  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 16 != 0 || b <= 0 || h <= 0 || sq <= 0 ||
+  return (dtype != 1 && dtype != 2) || d < 16 || d > 256 || d % 8 != 0 || b <= 0 || h <= 0 || sq <= 0 ||
          (sq + rows_of(d) - 1) / rows_of(d) > 65535;
 }
 

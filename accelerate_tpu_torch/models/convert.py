@@ -41,7 +41,15 @@ BatchNorm statistics (``Conv`` kernels ``[kh, kw, in, out]`` become
 ``dec_pos/embedding`` (Whisper's decoder positions) ``dec_pos``; a 1-D
 ``Conv`` kernel ``[k, in, out]`` becomes a ``Conv1d`` weight ``[out, in,
 k]``; a tied head is the ``shared`` / ``embed_tokens`` table, an untied
-one ``lm_head``.
+one ``lm_head``. ``vit_params_from_jax``, ``clip_params_from_jax``,
+``unet_params_from_jax`` and ``vae_params_from_jax`` carry the vision and
+diffusion families, whose port modules keep the flax names: a flax name
+holding a ``/`` (``attention/query``, ``vision/block_0``,
+``text/token_embed``) is indexed whole in the tree and read as a
+submodule path in the port, and a parameter named ``.../embedding``
+(``vision/pos_embed/embedding``) as the parameter itself; ``Conv``
+kernels ``[kh, kw, in, out]`` become ``Conv2d`` weights ``[out, in, kh,
+kw]``, and GroupNorm's ``scale`` and ``bias`` sit under ``.../gn``.
 """
 
 from __future__ import annotations
@@ -324,3 +332,58 @@ def whisper_params_from_jax(params: dict, config) -> dict:
     fc1,fc2}``, ``embed_tokens``, ``dec_pos/embedding``, ``dec_layer_<i>``
     with ``cross_attn`` and ``ln_cross`` too, the two final norms)."""
     return _seq2seq_params(params, (config.encoder_layers, config.decoder_layers))
+
+
+def _flax_named_params(params: dict) -> dict:
+    """The vision and diffusion families' walk: every leaf by its flax path,
+    ``/`` read as ``.``, Dense and Conv kernels transposed, ``scale`` and
+    ``embedding`` as ``weight``."""
+    sd = {}
+
+    def walk(tree: dict, prefix: str):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key.replace('/', '.')}.")
+                continue
+            arr = np.asarray(value)
+            if key == "kernel" and arr.ndim == 4:
+                sd[f"{prefix}weight"] = torch.from_numpy(np.array(arr.transpose(3, 2, 0, 1), np.float32, order="C"))
+            elif key == "kernel":
+                sd[f"{prefix}weight"] = _tensor(arr, True)
+            elif key in ("scale", "embedding"):
+                sd[f"{prefix}weight"] = _tensor(arr, False)
+            else:  # bias, or a parameter of its own (cls_token, vision/pos_embed/embedding, logit_scale)
+                name = key[: -len("/embedding")] if key.endswith("/embedding") else key
+                sd[f"{prefix}{name.replace('/', '.')}"] = _tensor(arr, False)
+
+    walk(params, "")
+    return sd
+
+
+def vit_params_from_jax(params: dict) -> dict:
+    """The port's ViT state dict (f32 tensors) from a JAX ViT param tree
+    (``patch_embed``, ``cls_token``, ``pos_embed``, ``block_<i>/{norm1,
+    attention/{query,key,value,out}, norm2, mlp/{up,down}}``,
+    ``final_norm``, ``head``)."""
+    return _flax_named_params(params)
+
+
+def clip_params_from_jax(params: dict) -> dict:
+    """The port's CLIP state dict (f32 tensors) from a JAX CLIP param tree
+    (``vision/...`` and ``text/...`` towers, the two projections,
+    ``logit_scale``)."""
+    return _flax_named_params(params)
+
+
+def unet_params_from_jax(params: dict) -> dict:
+    """The port's UNet2D state dict (f32 tensors) from a JAX UNet2D param
+    tree (``time_mlp_{1,2}``, ``label_embed``, ``conv_in``, ``down_*``,
+    ``downsample_*``, ``mid_*``, ``up_*``, ``upsample_*``, ``norm_out/gn``,
+    ``conv_out``)."""
+    return _flax_named_params(params)
+
+
+def vae_params_from_jax(params: dict) -> dict:
+    """The port's VAE state dict (f32 tensors) from a JAX VAE param tree
+    (``encoder/...`` and ``decoder/...``)."""
+    return _flax_named_params(params)

@@ -9,10 +9,11 @@ kernels with ``_flash``'s custom VJP. In bf16 and fp16 they are
 ``csrc/flash_bwd_sm90.cu`` (K2, K3): TMA, wgmma and a producer warpgroup;
 in f32 ``csrc/flash_attention.cu``'s (:func:`fwd_launch`,
 :func:`bwd_launch`), which also states their layout and masking. They take
-the head dims :func:`flash_head_dim_ok` admits, every multiple of 16 up to
-256: each source is built at the widths 64, 128 and 256, and a head dim
-runs at the next of them (:func:`kernel_width`), the columns past it read
-as zeros and never stored.
+the head dims :func:`flash_head_dim_ok` admits, every multiple of 8 from
+16 to 256: each source is built at the widths 64, 128 and 256, and a head
+dim runs at the next of them (:func:`kernel_width`), the columns past it
+read as zeros and never stored (Stable Diffusion's head dim 40 runs at
+64).
 
 On CUDA tensors :func:`flash_attention` launches the kernels or raises;
 on ``meta`` tensors under ``kernel_check`` it records their launch sites;
@@ -47,9 +48,10 @@ _BLOCK = 64
 
 def flash_head_dim_ok(d: int) -> bool:
     """Whether the CUDA flash kernels (K1-K3) take head dim ``d``, a multiple
-    of 16 from 16 to 256: the one test the wrappers and
+    of 8 from 16 to 256 (a row of 8 16-bit elements is the 16 bytes the
+    kernels read and store at a time): the one test the wrappers and
     ``dot_product_attention``'s dispatch share."""
-    return d % 16 == 0 and 16 <= d <= _WIDTHS[-1]
+    return d % 8 == 0 and 16 <= d <= _WIDTHS[-1]
 
 
 def kernel_width(d: int) -> int:
@@ -331,7 +333,7 @@ def _check_cuda(q, k, v) -> None:
     if h % k.shape[2]:
         raise ValueError(f"heads {h} not divisible by kv heads {k.shape[2]}")
     if not flash_head_dim_ok(d):
-        raise ValueError(f"the CUDA flash kernels take head dims that are multiples of 16 up to 256; got head_dim {d}")
+        raise ValueError(f"the CUDA flash kernels take head dims that are multiples of 8 from 16 to 256; got head_dim {d}")
     if sq < 1 or k.shape[1] < 1 or b < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if q.dtype != torch.float32:  # the 16-bit kernels read q, k and v through TMA tensor maps

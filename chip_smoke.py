@@ -182,7 +182,29 @@ it, all three equal. Then the slices:
   CPU's over +-4,096 (``s2s_consistency``). No kernel of the JAX package
   lies on these paths (T5's attention is an einsum with its bias, Whisper's
   1,500 positions are under ``FLASH_MIN_SEQ``, and both decode on the dense
-  cache): K1-K5's counters read the same after the group.
+  cache): K1-K5's counters read the same after the group;
+* the vision families (``--only vision``): ViT-B/16 and CLIP ViT-L/14 at
+  their published widths (seeded random weights, f32 masters, bf16
+  compute) trained 10 steps on one repeated batch of 64 through
+  ``build_train_step`` (samples/s or pairs/s, MFU from the step's FLOP
+  count, peak memory, one step traced; CLIP's zero-shot 8 x 8), and their
+  2-layer f32 cuts card against CPU with one step's gradients
+  (``vision_consistency``). Every sequence is under ``FLASH_MIN_SEQ``:
+  K1-K8's counters read the same after the group;
+* the diffusion family (``--only diffusion``): K1-K3 at Stable Diffusion
+  v1.5's head dim 40 (built at 64) against their plain versions at the
+  UNet's self- (4,096 keys) and cross-attention (77) shapes, bf16 and f32,
+  beside the bound, the plain version and SDPA (``flash_d40``);
+  ``text_to_image`` at SD v1.5's widths (CLIP ViT-L/14's text tower, the
+  711.8 M UNet, the VAE; bf16): 4 prompts, guidance 7.5, 50 DDIM steps, K1
+  == 10 x 50 a call, images finite [4, 512, 512, 3], the text-encode,
+  denoising-step and VAE-decode ms, one step traced (``t2i_serve``); the
+  UNet trained at 8 x 512² through ``latent_diffusion_loss`` with the
+  frozen VAE encoder and text tower in the step, K1 = K2 = K3 = 10 a step
+  (``ldm_train``); a one-level UNet cut (K1 at D 40 on the card, the
+  einsum on the CPU), a 2-level VAE and a 4-step guided DDIM card against
+  CPU in f32 (``diffusion_consistency``). K4-K8's counters read the same
+  after the group; its K1-K3 launches join the kernels line.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -6551,6 +6573,661 @@ def phase_s2s(torch) -> dict:
     return {"t5_serve": t5, "t5_train": train, "whisper_serve": whisper, "consistency": consistency}
 
 
+# --------------------------------------------------------------------------- #
+# the vision and diffusion families (--only vision, --only diffusion)
+# --------------------------------------------------------------------------- #
+
+# openai/clip-vit-large-patch14 config.json; its text tower is Stable Diffusion v1.5's text encoder
+CLIP_L14 = dict(image_size=224, patch_size=14, vision_hidden_size=1024, vision_layers=24, vision_heads=16,
+                vision_ffn_dim=4096, vocab_size=49408, max_text_positions=77, text_hidden_size=768, text_layers=12,
+                text_heads=12, text_ffn_dim=3072, eos_token_id=2, projection_dim=768)
+CLIP_SOT, CLIP_EOT = 49406, 49407  # the EOT is the vocabulary's highest id: the legacy argmax pooling finds it
+# runwayml/stable-diffusion-v1-5 unet/config.json in the JAX package's UNet2D layout (its AttnBlocks carry no FFN:
+# 711,768,004 parameters) and vae/config.json (one ResBlock a level and no attention: 40,337,291), depth the repo's
+SD15_UNET = dict(in_channels=4, out_channels=4, sample_size=64, base_channels=320, channel_mults=(1, 2, 4, 4),
+                 layers_per_block=2, attention_levels=(0, 1, 2), num_heads=8, num_groups=32, context_dim=768)
+SD15_VAE = dict(sample_size=512, base_channels=128, channel_mults=(1, 2, 4, 4), latent_channels=4, num_groups=32,
+                scaling_factor=0.18215)
+SD_FLASH_CALLS = 10  # a UNet forward's K1 launches: 5 AttnBlocks on the 64 x 64 level, self- and cross-attention
+SD_STEPS, SD_GUIDANCE = 50, 7.5  # the SD pipeline's defaults
+# vision_consistency / diffusion_consistency: |card - CPU| over the CPU tensor's RMS (a gradient's RMS floored at
+# 1e-4 of the largest gradient RMS), f32 with TF32 off. Set from the f64 floor each phase reports (the CPU's f32
+# against its f64 run of the same cut)
+VISION_CUT_TOL = 1e-4
+DIFFUSION_CUT_TOL = 1e-4
+# The guided 4-step DDIM sample of diffusion_consistency's UNet cut: its first step divides the predicted noise by
+# sqrt(abar_999) = 6.4e-3 after guidance multiplied cond - uncond by 7.5, so f32 itself is coarse there: the CPU's
+# f32 sample sits 1.8e-3 of its RMS from the same loop in f64 (scripts/torch_ddim_floor.py, on the CPU), the
+# card's 1.4e-3 from the CPU's (H100, 700 W). Held to 5e-3
+DDIM_CUT_TOL = 5e-3
+# ... or FLOOR_FACTOR x the tensor's own f64 floor, where f32 itself is that far off: ViT-B/16's cut has head.weight's
+# gradient 7.2e-5 of its RMS from f64 on the CPU, CLIP ViT-L/14's the token table's 1.4e-3 (a sparse gradient)
+FLOOR_FACTOR = 4.0
+# A key bias adds q . bias to every logit of a row, which the softmax cancels: its gradient is zero in exact
+# arithmetic and rounding noise on either side (2e-8 of the largest gradient RMS apart on ViT-B/16's cut, H100).
+# Held to |gradient| <= ZERO_GRAD_TOL x that RMS on both, not to each other
+ZERO_GRAD_TOL = 1e-6
+ZERO_GRAD_PARAMS = ("attention.key.bias", "k_proj.bias")
+
+
+def all_kernel_counts():
+    """Every kernel wrapper's launch counter, K1-K8."""
+    from accelerate_tpu_torch.kernels import fixtures, reference
+
+    return {**kernel_counts(), "k6": reference.launches_matmul_softmax, "k7": reference.launches_accumulate,
+            "k8": (fixtures.launches_copy, fixtures.launches_add, fixtures.launches_scale)}
+
+
+def reset_flash_counts():
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+
+
+def flash_counts() -> dict:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv}
+
+
+@contextlib.contextmanager
+def f32_exact(torch):
+    """TF32 off for cuBLAS and cuDNN (torch lets cuDNN convolve f32 in TF32 by
+    default), restored after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def vision_kind(name: str) -> str:
+    """A traced kernel's kind on the vision and diffusion paths."""
+    n = name.lower()
+    if "flash_" in n and ("sm90" in n or "f32" in n or "wgmma" in n):
+        return "flash"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
+        return "conv"
+    if "norm" in n or "welford" in n:
+        return "norm"
+    return kernel_kind(name)
+
+
+def step_profile(torch, run, wall_ms_unprofiled) -> dict:
+    """One ``run()`` traced: busy, idle share, busy ms by kind, the top kernels."""
+    events, traced_ms, attempts, lost = traced(torch, run)
+    busy, by_name = device_time(events)
+    by_kind: dict = {}
+    for name, (ms, _) in by_name.items():
+        by_kind[vision_kind(name)] = by_kind.get(vision_kind(name), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": traced_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / traced_ms,
+            "idle_share_unprofiled": 1.0 - busy / wall_ms_unprofiled, "busy_ms_by_kind": by_kind,
+            "kernels_traced": len(events), "trace_attempts": attempts, "trace_lead_lost": lost,
+            "top": [[name[:90], ms, n] for name, (ms, n) in top]}
+
+
+def vision_trainer(torch, model, loss_fn, lr):
+    """``(accelerator, prepared model, step)``: f32 masters, bf16 compute,
+    AdamW (weight decay 0.01) through ``build_train_step`` over
+    ``loss_fn(params, batch, model.apply_fn)``."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare_model(model)
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=lr, weight_decay=0.01))
+    return acc, model, acc.build_train_step(lambda p, batch: loss_fn(p, batch, model.apply_fn))
+
+
+def train_on_one_batch(torch, phase, step, batch, warmup, timed, extra_flops=0.0) -> dict:
+    """The first step under ``FlopCounterMode`` (the step's FLOPs; plus
+    ``extra_flops`` for what it cannot see), then ``warmup - 1`` and
+    ``timed`` more on the same batch: losses, step ms, MFU at the bf16 peak
+    and peak memory. The losses must be finite and fall."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    free_memory(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        losses = [float(step(batch))]
+    flops = counter.get_total_flops() + extra_flops
+    losses += [float(step(batch)) for _ in range(warmup - 1)]
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))  # float() waits for the card
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"{phase}: losses finite: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: the loss falls on the repeated batch: {losses[0]} -> {losses[-1]}")
+    med = statistics.median(times)
+    return {"losses": losses, "warmup_steps": warmup, "timed_steps": timed, "step_ms_median": med,
+            "step_ms_min": min(times), "step_flops": flops, "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def clip_ids(torch, rng, n, device="cuda"):
+    """``n`` rows of 77 ids: SOT, 5-75 random tokens, the EOT (the highest id),
+    EOT padding (the pipelines' padding)."""
+    t = CLIP_L14["max_text_positions"]
+    ids = np.full((n, t), CLIP_EOT, np.int64)
+    ids[:, 0] = CLIP_SOT
+    for r in range(n):
+        length = int(rng.integers(5, t - 1))
+        ids[r, 1: 1 + length] = rng.integers(1, CLIP_SOT, size=length)
+    return torch.as_tensor(ids, device=device)
+
+
+def phase_vit_train(torch):
+    """ViT-B/16 (``ViTConfig.base()``: 224 px, patch 16, 768 wide, 12 layers
+    of 12 heads, FFN 3,072, 1,000 classes; seeded random weights), f32
+    masters and bf16 compute, AdamW(3e-4) through
+    ``build_train_step(vit_classification_loss)``: 10 steps at batch 64 on
+    one repeated batch, the last 8 timed; samples/s, MFU from the step's
+    FLOP count, peak memory; one step traced. Its 197 positions stay under
+    ``FLASH_MIN_SEQ``: no kernel of the port runs (the einsum path, as in
+    the JAX package)."""
+    from accelerate_tpu_torch.models import ViTConfig, create_vit_model, vit_classification_loss
+
+    b, cfg = 64, ViTConfig.base()
+    acc, model, step = vision_trainer(torch, create_vit_model(cfg, seed=0), vit_classification_loss, 3e-4)
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    batch = {"images": torch.randn(b, cfg.image_size, cfg.image_size, 3, generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.num_classes, (b,), generator=gen, device="cuda")}
+    row = {"phase": "vit_train", "config": "ViT-B/16 (google/vit-base-patch16-224 widths), f32 masters + bf16 "
+           "compute, seeded", "params": model.num_parameters(), "batch": b,
+           **train_on_one_batch(torch, "vit_train", step, batch, warmup=2, timed=8)}
+    row["samples_per_s"] = b / (row["step_ms_median"] / 1e3)
+    row["profile"] = step_profile(torch, lambda: step(batch), row["step_ms_median"])
+    emit(row)
+    del acc, model, step, batch
+    free_memory(torch)
+    return row
+
+
+def phase_clip_train(torch):
+    """CLIP ViT-L/14 (openai/clip-vit-large-patch14 widths; seeded random
+    weights), f32 masters and bf16 compute, AdamW(1e-4) through
+    ``build_train_step(clip_contrastive_loss)``: 10 steps on one repeated
+    batch of 64 image-text pairs (77-token ids ending in the EOT, the
+    highest id, which the legacy ``eos_token_id == 2`` pooling finds by
+    argmax), the last 8 timed; pairs/s, MFU, peak memory; one step traced.
+    Then a zero-shot pass on the trained f32 masters: 8 images against 8
+    texts, the similarity matrix and each image's argmax text. The towers' 257 and 77 positions stay
+    under ``FLASH_MIN_SEQ``: no kernel of the port runs."""
+    from accelerate_tpu_torch.models import CLIPConfig, clip_contrastive_loss, create_clip_model
+
+    b = 64
+    acc, model, step = vision_trainer(torch, create_clip_model(CLIPConfig(**CLIP_L14), seed=0),
+                                      clip_contrastive_loss, 1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    size = CLIP_L14["image_size"]
+    batch = {"pixel_values": torch.randn(b, size, size, 3, generator=gen, device="cuda"),
+             "input_ids": clip_ids(torch, np.random.default_rng(41), b)}
+    row = {"phase": "clip_train", "config": "CLIP ViT-L/14 (openai/clip-vit-large-patch14 widths), f32 masters + "
+           "bf16 compute, seeded", "params": model.num_parameters(), "pairs": b,
+           **train_on_one_batch(torch, "clip_train", step, batch, warmup=2, timed=8)}
+    row["pairs_per_s"] = b / (row["step_ms_median"] / 1e3)
+    row["profile"] = step_profile(torch, lambda: step(batch), row["step_ms_median"])
+    with torch.no_grad():
+        params = model.params  # the trained f32 masters
+
+        def zero_shot():
+            img, txt, scale = model.apply_fn(params, batch["pixel_values"][:8], batch["input_ids"][:8])
+            return torch.softmax(torch.exp(scale.float()) * img.float() @ txt.float().T, dim=-1)
+
+        probs = zero_shot()
+        zs_ms = time_ms(torch, zero_shot, reps=5, warmup=1)
+    check(probs.shape == (8, 8) and bool(torch.isfinite(probs).all()), "clip_train: zero-shot 8 x 8, finite")
+    check(bool(torch.allclose(probs.sum(-1), torch.ones(8, device="cuda"), atol=1e-5)), "clip_train: rows sum to 1")
+    picks = probs.argmax(-1).tolist()
+    row["zero_shot"] = {"images": 8, "texts": 8, "ms": zs_ms, "argmax_text": picks,
+                        "matched_own_text": sum(int(p == i) for i, p in enumerate(picks))}
+    emit(row)
+    del acc, model, step, batch, params
+    free_memory(torch)
+    return row
+
+
+def cut_err(a, b, floor=0.0) -> float:
+    """max |a - b| over the larger of ``b``'s RMS and ``floor``."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / max(float(b.pow(2).mean().sqrt()), floor, 1e-30))
+
+
+def grads_of(torch, model, loss_fn, batch):
+    """``(loss, {name: gradient})`` of ``loss_fn(params, batch, apply_fn)`` on
+    the model's own parameters (f32)."""
+    params = {n: p.detach().clone().requires_grad_() for n, p in model.module.named_parameters()}
+    loss = loss_fn(params, batch, model.apply_fn)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def card_vs_cpu(torch, cpu_out: dict, card_out: dict, grad_keys=()) -> tuple[dict, dict]:
+    """``(the largest error of each output (cut_err), gradients floored at
+    1e-4 of their largest RMS; the zero-gradient parameters' largest
+    |gradient| over that RMS, card or CPU)``."""
+    g_rms = max((float(cpu_out[k].pow(2).mean().sqrt()) for k in grad_keys), default=0.0)
+    zero = {k for k in grad_keys if k.endswith(ZERO_GRAD_PARAMS)}
+    errs = {k: cut_err(card_out[k], v, 1e-4 * g_rms if k in grad_keys else 0.0) for k, v in cpu_out.items()
+            if k not in zero}
+    return errs, {k: max(float(cpu_out[k].abs().max()), float(card_out[k].abs().max())) / g_rms for k in zero}
+
+
+def phase_vision_consistency(torch):
+    """ViT-B/16 and CLIP ViT-L/14 at their published widths cut to 2 layers
+    (CLIP: 2 vision + 2 text), f32, built on the CPU and loaded on the card,
+    TF32 off: logits (ViT) or both embeddings and the logit scale (CLIP),
+    the loss, and every parameter's gradient of one step, card against CPU.
+    Each tensor is held within the larger of ``VISION_CUT_TOL`` and
+    ``FLOOR_FACTOR`` x its f64 floor (the CPU's f32 against the same cut
+    run in f64 on the CPU, its norms and ViT's head in f32 by design) of its
+    RMS; the key biases' gradients, zero in exact arithmetic, within
+    ``ZERO_GRAD_TOL``."""
+    from accelerate_tpu_torch.models import (
+        CLIPConfig,
+        ViTConfig,
+        clip_contrastive_loss,
+        create_clip_model,
+        create_vit_model,
+        vit_classification_loss,
+    )
+
+    rng = np.random.default_rng(42)
+    rows, failed = [], []
+    size = CLIP_L14["image_size"]  # ViT-B/16's too
+    pix = torch.as_tensor(rng.standard_normal((4, size, size, 3)), dtype=torch.float32)
+    cases = (
+        ("vit_b16_2_layers", lambda dev: create_vit_model(ViTConfig.base(num_hidden_layers=2), seed=6, device=dev),
+         vit_classification_loss, {"images": pix, "labels": torch.as_tensor(rng.integers(0, 1000, 4))}),
+        ("clip_l14_2_layers", lambda dev: create_clip_model(
+            CLIPConfig(**{**CLIP_L14, "vision_layers": 2, "text_layers": 2}), seed=6, device=dev),
+         clip_contrastive_loss, {"pixel_values": pix, "input_ids": clip_ids(torch, rng, 4, device="cpu")}),
+    )
+
+    def run(model, loss_fn, batch, dev, dtype):
+        b = {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev)) for k, v in batch.items()}
+        with f32_exact(torch):
+            loss, grads = grads_of(torch, model, loss_fn, b)
+            with torch.no_grad():
+                fwd = model.apply_fn(model.params, *b.values()) if "input_ids" in b else \
+                    model.apply_fn(model.params, b["images"])
+        fwd = {"logits": fwd} if torch.is_tensor(fwd) else dict(zip(("image_embeds", "text_embeds", "logit_scale"),
+                                                                    fwd))
+        return {**{k: v.cpu() for k, v in fwd.items()}, "loss": loss.cpu(),
+                **{f"grad:{k}": v.cpu() for k, v in grads.items()}}
+
+    for name, build, loss_fn, batch in cases:
+        cpu = build("cpu")
+        card = build("cuda")
+        card.load_state_dict(cpu.state_dict())
+        outs = {"cpu": run(cpu, loss_fn, batch, "cpu", torch.float32),
+                "cuda": run(card, loss_fn, batch, "cuda", torch.float32)}
+        del card
+        cpu.module.double()
+        f64 = run(cpu, loss_fn, batch, "cpu", torch.float64)
+        grad_keys = [k for k in outs["cpu"] if k.startswith("grad:")]
+        errs, zero = card_vs_cpu(torch, outs["cpu"], outs["cuda"], grad_keys)
+        floor, _ = card_vs_cpu(torch, f64, outs["cpu"], grad_keys)  # the CPU's f32 against its f64 run
+        tol = {k: max(VISION_CUT_TOL, FLOOR_FACTOR * floor[k]) for k in errs}
+        worst = max(errs, key=lambda k: errs[k] / tol[k])
+        grads = [k for k in errs if k.startswith("grad:")]
+        rows.append({"model": name, "outputs_err_over_rms": {k: errs[k] for k in errs if not k.startswith("grad:")},
+                     "outputs_cpu_f32_vs_f64": {k: floor[k] for k in errs if not k.startswith("grad:")},
+                     "grad_err_over_rms_max": max(errs[k] for k in grads),
+                     "grad_cpu_f32_vs_f64_max": max(floor[k] for k in grads), "grads_compared": len(grads),
+                     "worst_over_tol": [worst, errs[worst], tol[worst]],
+                     "zero_grads_over_rms_max": max(zero.values()), "zero_grads": len(zero)})
+        failed += [f"{name} {k}: {errs[k]} > {tol[k]}" for k in errs if errs[k] > tol[k]]
+        failed += [f"{name} {k}: |grad| {g} > {ZERO_GRAD_TOL}" for k, g in zero.items() if g > ZERO_GRAD_TOL]
+        del cpu, outs, f64
+        free_memory(torch)
+    row = {"phase": "vision_consistency", "config": "f32, TF32 off, batch 4, one step's gradients", "models": rows,
+           "tol": VISION_CUT_TOL, "floor_factor": FLOOR_FACTOR}
+    emit(row)
+    check(not failed, f"vision_consistency: card vs CPU past tolerance: {failed[:4]}")
+    return row
+
+
+def phase_vision(torch) -> dict:
+    """The vision group: ViT-B/16 and CLIP ViT-L/14 trained, their 2-layer
+    cuts card against CPU. No kernel of the port lies on these paths (every
+    sequence is under ``FLASH_MIN_SEQ``): K1-K8's counters read the same
+    after the group."""
+    before = all_kernel_counts()
+    t0 = time.perf_counter()
+    vit = phase_vit_train(torch)
+    clip = phase_clip_train(torch)
+    consistency = phase_vision_consistency(torch)
+    after = all_kernel_counts()
+    check(after == before, f"vision: the kernel counters moved: {before} -> {after}")
+    emit({"phase": "vision", "kernel_counts_unchanged": after, "seconds": time.perf_counter() - t0})
+    return {"vit_train": vit, "clip_train": clip, "consistency": consistency}
+
+
+# K1-K3 at Stable Diffusion v1.5's 64 x 64 attention: (name, dtype, Sk, timed runs). B 8 (the guided sampler's
+# batch), Sq 4,096, H 8, D 40, not causal; Sk 4,096 (self) or 77 (cross, over the CLIP text states)
+D40_CASES = [
+    ("bf16-self", "bfloat16", 4096, 30),
+    ("bf16-cross", "bfloat16", 77, 30),
+    ("f32-self", "float32", 4096, 3),
+    ("f32-cross", "float32", 77, 10),
+]
+
+
+def phase_flash_d40(torch) -> dict:
+    """K1-K3 at head dim 40 (built at 64, the columns past 40 zero) against
+    their plain versions under ``FLASH_TOL``, in bf16 and f32, at the UNet's
+    self- and cross-attention shapes: their times beside the bound
+    (``flash_bound``), the plain version's and scaled_dot_product_attention's
+    (forward; backward, dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    b, sq, h, d = 8, 4096, 8, 40
+    results = {}
+    for name, dtype_name_, sk, reps in D40_CASES:
+        dtype = getattr(torch, dtype_name_)
+        q, k, v, do = flash_inputs(torch, gen, b, sq, sk, h, h, d, dtype)
+        errs, (out, lse, delta) = flash_compare(torch, fa, q, k, v, do, False, None)
+        check_flash(errs, f"d40 {name}")
+        scale = d**-0.5
+        kernels = {
+            "fwd": lambda: fa.flash_fwd_kernel(q, k, v, False, scale, None),
+            "dq": lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, False, scale, None),
+            "dkv": lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, False, scale, None),
+        }
+        plains = {
+            "fwd": lambda: fa.flash_attention_plain(q, k, v, False, scale, None),
+            "dq": lambda: fa.flash_attention_plain_dq(q, k, v, do, lse, delta, False, scale, None),
+            "dkv": lambda: fa.flash_attention_plain_dkv(q, k, v, do, lse, delta, False, scale, None),
+        }
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        row = {"phase": "flash_d40", "case": name, "shape": {"b": b, "sq": sq, "sk": sk, "h": h, "d": d},
+               "causal": False, "built_width": fa.kernel_width(d),
+               "library_max_abs_err_fwd": (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()}
+        for kind in kernels:
+            bound_ms, bound_by = flash_bound(kind, q, k, False, None)
+            ms = time_ms(torch, kernels[kind], reps=reps, flush=flush)
+            row[kind] = {
+                "max_abs_err": errs[kind][0], "err_over_tol": errs[kind][1], "ms": ms,
+                "plain_ms": time_ms(torch, plains[kind], reps=min(reps, 3), warmup=1, flush=flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "tflops": flash_flops(kind, q, k, False, None) / (ms * 1e-3) / 1e12, "share_of_bound": bound_ms / ms,
+            }
+        row["library_fwd_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=reps,
+                                        flush=flush)
+        row["library_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                                           retain_graph=True), reps=reps, flush=flush)
+        emit(row)
+        results[name] = row
+        del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, dot, kernels, plains
+    del flush
+    free_memory(torch)
+    return results
+
+
+def sd_models(torch, dtype, unet=True):
+    """Stable Diffusion v1.5's models at their published widths on the card,
+    seeded: CLIP ViT-L/14 (its text tower is SD's text encoder), the UNet
+    (None when ``unet`` is false) and the VAE."""
+    from accelerate_tpu_torch.models import (
+        CLIPConfig,
+        UNetConfig,
+        VAEConfig,
+        create_clip_model,
+        create_unet_model,
+        create_vae_model,
+    )
+
+    return (create_clip_model(CLIPConfig(**CLIP_L14), seed=1, dtype=dtype),
+            create_unet_model(UNetConfig(**SD15_UNET), seed=2, dtype=dtype) if unet else None,
+            create_vae_model(VAEConfig(**SD15_VAE), seed=3, dtype=dtype))
+
+
+def phase_t2i_serve(torch) -> dict:
+    """``text_to_image`` at Stable Diffusion v1.5's widths (CLIP ViT-L/14's
+    text tower, the UNet, the VAE; seeded random weights, bf16): 4 prompts
+    of 77 tokens and the empty prompt's ids, guidance 7.5, 50 DDIM steps
+    (the SD pipeline's defaults), so the UNet runs at batch 8 on 64 x 64
+    latents and the VAE decodes 4 x 512 x 512 (in f32, the latents' dtype,
+    as the JAX package's ``decode_fn`` does). A 2-step call warms up; the
+    timed call's K1 launches must be 10 x 50 (the 64 x 64 level's self- and
+    cross-attention at head dim 40); the images finite and [4, 512, 512,
+    3]. The text-encode, per-denoising-step and VAE-decode ms timed alone;
+    one guided denoising step traced by kind."""
+    from accelerate_tpu_torch.diffusion import make_schedule, text_to_image
+
+    free_memory(torch)
+    clip, unet, vae = sd_models(torch, torch.bfloat16)
+    rng = np.random.default_rng(43)
+    prompts = clip_ids(torch, rng, 4)
+    empty = torch.full((CLIP_L14["max_text_positions"],), CLIP_EOT, dtype=torch.int64, device="cuda")
+    empty[0] = CLIP_SOT
+    sched = make_schedule()
+
+    def call(steps):
+        return text_to_image(unet, vae, clip, prompts, empty, guidance_scale=SD_GUIDANCE, num_steps=steps,
+                             schedule=sched, seed=0)
+
+    call(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    images = call(SD_STEPS)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    px, lat = SD15_VAE["sample_size"], SD15_UNET["sample_size"]
+    with torch.no_grad():
+        ctx = clip.encode_text(clip.params, prompts)
+        uctx = clip.encode_text(clip.params, empty[None].expand(prompts.shape))
+        encode_ms = time_ms(torch, lambda: (clip.encode_text(clip.params, prompts),
+                                            clip.encode_text(clip.params, empty[None].expand(prompts.shape))),
+                            reps=5, warmup=1)
+        x2 = torch.randn(8, lat, lat, 4, device="cuda")
+        t2 = torch.full((8,), 500, dtype=torch.int32, device="cuda")
+        ctx2 = torch.cat([ctx, uctx])
+        unet_params = unet.params
+
+        def denoise():
+            return unet.apply_fn(unet_params, x2, t2, None, ctx2)
+
+        step_ms = time_ms(torch, denoise, reps=5, warmup=1)
+        latents = torch.randn(4, lat, lat, 4, device="cuda")
+        vae_params = vae.params
+        decode_ms = time_ms(torch, lambda: vae.decode_fn(vae_params, latents), reps=3, warmup=1)
+        profile = step_profile(torch, denoise, step_ms)
+    row = {"phase": "t2i_serve", "config": "SD v1.5 widths (CLIP ViT-L/14 text tower, UNet, VAE), bf16, seeded",
+           "unet_params": unet.num_parameters(), "vae_params": vae.num_parameters(),
+           "clip_params": clip.num_parameters(), "prompts": 4, "tokens": CLIP_L14["max_text_positions"],
+           "guidance": SD_GUIDANCE,
+           "steps": SD_STEPS, "call_s": call_s, "images_per_s": 4 / call_s, "text_encode_ms": encode_ms,
+           "denoise_step_ms": step_ms, "vae_decode_ms": decode_ms, "peak_memory_gb": peak,
+           "image_rms": float(images.pow(2).mean().sqrt()), "launches": launches, "step_profile": profile}
+    emit(row)
+    check(tuple(images.shape) == (4, px, px, 3) and images.dtype == torch.float32,
+          f"t2i_serve: images [4, {px}, {px}, 3] f32, got {tuple(images.shape)} {images.dtype}")
+    check(bool(torch.isfinite(images).all()), "t2i_serve: images finite")
+    check(launches["fwd"] == SD_FLASH_CALLS * SD_STEPS and launches["dq"] == launches["dkv"] == 0,
+          f"t2i_serve: K1 launches {launches} == {SD_FLASH_CALLS} x {SD_STEPS}")
+    del clip, unet, vae, images, ctx, uctx, ctx2, x2, latents, unet_params, vae_params
+    free_memory(torch)
+    return row
+
+
+def sd_attention_flops(b: int) -> float:
+    """The flash kernels' FLOPs in one UNet train step at batch ``b`` (which
+    ``FlopCounterMode`` cannot see: K1-K3 launch through ctypes): each of the
+    5 level-0 AttnBlocks' self- (4,096 keys) and cross-attention (77), the
+    forward's two products (4 x width x query x key pairs) and the
+    backward's twice that."""
+    width, positions = SD15_UNET["base_channels"], SD15_UNET["sample_size"] ** 2
+    return 5 * 12.0 * b * width * positions * (positions + CLIP_L14["max_text_positions"])
+
+
+def phase_ldm_train(torch) -> dict:
+    """The SD v1.5 UNet trained through ``build_train_step`` over
+    ``latent_diffusion_loss`` with the frozen VAE encoder (sampled) and CLIP
+    ViT-L/14's text tower inside the step, as the reference's text-to-image
+    example has it: f32 masters, bf16 compute, AdamW(1e-5); the VAE and CLIP
+    frozen in bf16. 8 images of 512 x 512 and their 77-token prompts,
+    conditioning dropped with probability 0.1: a FLOP-counted step, a warm
+    step, 6 timed. Step ms, MFU (``FlopCounterMode`` plus the flash
+    kernels' FLOPs), peak memory; one step traced (idle share, busy by
+    kind). K1 = K2 = K3 = 10 x the timed steps (no remat); losses finite."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.diffusion import latent_diffusion_loss, make_schedule
+    from accelerate_tpu_torch.models import UNetConfig, create_unet_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    b, timed = 8, 6
+    free_memory(torch)
+    clip, _, vae = sd_models(torch, torch.bfloat16, unet=False)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    unet = acc.prepare_model(create_unet_model(UNetConfig(**SD15_UNET), seed=2))
+    acc.prepare_optimizer(torch.optim.AdamW(unet.module.parameters(), lr=1e-5, weight_decay=0.01))
+    sched = make_schedule()
+    step = acc.build_train_step(lambda p, batch, rng: latent_diffusion_loss(
+        p, batch, unet.apply_fn, sched, rng, vae=vae, text_encoder=clip.encode_text, text_params=clip.params))
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    px = SD15_VAE["sample_size"]
+    batch = {"pixel_values": torch.rand(b, px, px, 3, generator=gen, device="cuda") * 2 - 1,
+             "input_ids": clip_ids(torch, np.random.default_rng(44), b)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        losses = [float(step(batch))]
+    flops = counter.get_total_flops() + sd_attention_flops(b)
+    losses.append(float(step(batch)))
+    reset_flash_counts()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times)
+    row = {"phase": "ldm_train", "config": "SD v1.5 UNet, f32 masters + bf16 compute; VAE and CLIP ViT-L/14 text "
+           "tower frozen, bf16, in the step", "unet_params": unet.num_parameters(), "batch": b, "image_size": px,
+           "timed_steps": timed, "losses": losses, "step_ms_median": med, "step_ms_min": min(times),
+           "images_per_s": b / (med / 1e3), "step_flops": flops, "attention_flops": sd_attention_flops(b),
+           "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak, "launches": launches,
+           "profile": step_profile(torch, lambda: step(batch), med)}
+    emit(row)
+    check(all(np.isfinite(losses)), f"ldm_train: losses finite: {losses}")
+    want = SD_FLASH_CALLS * timed
+    check(launches == {"fwd": want, "dq": want, "dkv": want}, f"ldm_train: K1-K3 launches {launches} == {want} each")
+    del acc, unet, step, batch, clip, vae
+    free_memory(torch)
+    return row
+
+
+def phase_diffusion_consistency(torch) -> dict:
+    """Card against CPU in f32 (TF32 off), from the same weights (built on
+    the CPU, loaded on the card) and draws: a cut UNet keeping one 64 x 64
+    level of 320 channels in 8 heads with SD's text conditioning (its 4
+    AttnBlocks' attention runs K1 at D 40 on the card, the einsum on the
+    CPU), on 1 latent at timestep 500; the VAE cut to 2 levels (base 128),
+    encode (the mean) and decode at 256 x 256; a 4-step guided DDIM
+    ``sample`` of the cut UNet from one x_T. Each within the larger of
+    ``DIFFUSION_CUT_TOL`` and ``FLOOR_FACTOR`` x its f64 floor (the CPU's
+    f32 against its f64 run; the GroupNorms and the output convolutions in
+    f32 by design) of the CPU's RMS, the sample within ``DDIM_CUT_TOL``."""
+    from accelerate_tpu_torch.diffusion import _sample, make_schedule
+    from accelerate_tpu_torch.models import UNetConfig, VAEConfig, create_unet_model, create_vae_model
+
+    rng = np.random.default_rng(45)
+    ucfg = UNetConfig(**{**SD15_UNET, "channel_mults": (1,), "layers_per_block": 1, "attention_levels": (0,)})
+    px, lat = SD15_VAE["sample_size"] // 2, SD15_UNET["sample_size"]
+    vcfg = VAEConfig(**{**SD15_VAE, "sample_size": px, "channel_mults": (1, 2)})
+    x = torch.as_tensor(rng.standard_normal((1, lat, lat, 4)), dtype=torch.float32)
+    t = torch.tensor([500], dtype=torch.int32)
+    ctx = torch.as_tensor(rng.standard_normal((1, CLIP_L14["max_text_positions"], SD15_UNET["context_dim"])),
+                          dtype=torch.float32)
+    img = torch.as_tensor(rng.uniform(-1, 1, (1, px, px, 3)), dtype=torch.float32)
+    z = torch.as_tensor(rng.standard_normal((1, px // 2, px // 2, 4)), dtype=torch.float32)
+    sched = make_schedule()
+    cpu_unet, cpu_vae = create_unet_model(ucfg, seed=7, device="cpu"), create_vae_model(vcfg, seed=8, device="cpu")
+    card_unet, card_vae = create_unet_model(ucfg, device="cuda"), create_vae_model(vcfg, device="cuda")
+    card_unet.load_state_dict(cpu_unet.state_dict())
+    card_vae.load_state_dict(cpu_vae.state_dict())
+    out, launches = {}, {}
+    for dev, unet, vae in (("cpu", cpu_unet, cpu_vae), ("cuda", card_unet, card_vae)):
+        reset_flash_counts()
+        with f32_exact(torch), torch.no_grad():
+            eps = unet.apply_fn(unet.params, x.to(dev), t.to(dev), None, ctx.to(dev))
+            enc = vae.encode_fn(vae.params, img.to(dev))[0]
+            dec = vae.decode_fn(vae.params, z.to(dev))
+            smp = _sample(unet, 1, 4, sched, guidance_scale=SD_GUIDANCE, encoder_hidden_states=ctx.to(dev),
+                          x_T=x.to(dev))
+        launches[dev] = flash_counts()
+        out[dev] = {"unet_eps": eps.cpu(), "vae_encode": enc.cpu(), "vae_decode": dec.cpu(), "ddim_sample": smp.cpu()}
+    del card_unet, card_vae
+    # the f64 floor; the GroupNorms and the output convolutions compute in f32 by design (the reference's dtype)
+    cpu_unet.module.double()
+    cpu_vae.module.double()
+    with torch.no_grad():
+        f64 = {"unet_eps": cpu_unet.apply_fn(cpu_unet.params, x.double(), t, None, ctx.double()),
+               "vae_encode": cpu_vae.encode_fn(cpu_vae.params, img.double())[0],
+               "vae_decode": cpu_vae.decode_fn(cpu_vae.params, z.double())}
+    floor = {k: cut_err(out["cpu"][k], v) for k, v in f64.items()}
+    del cpu_unet, cpu_vae
+    errs = {k: cut_err(out["cuda"][k], v) for k, v in out["cpu"].items()}
+    tol = {k: max(DIFFUSION_CUT_TOL, FLOOR_FACTOR * floor[k]) for k in floor}
+    tol["ddim_sample"] = DDIM_CUT_TOL
+    # the cut's 4 AttnBlocks on 4,096 positions: K1 twice each a forward; the sampler's 4 guided forwards
+    want_k1 = 2 * 4 * (1 + 4)
+    row = {"phase": "diffusion_consistency", "config": "f32, TF32 off; UNet cut to one 64 x 64 level (320 ch, 8 "
+           "heads of 40, SD's context), VAE cut to 2 levels at 256 px, 4-step guided DDIM",
+           "err_over_rms": errs, "cpu_f32_vs_f64": floor, "tol": tol, "k1_launches": launches}
+    emit(row)
+    check(launches["cuda"]["fwd"] == want_k1 and launches["cpu"]["fwd"] == 0,
+          f"diffusion_consistency: K1 launches card {launches['cuda']} == {want_k1}, CPU {launches['cpu']} == 0")
+    for k, e in errs.items():
+        check(e <= tol[k], f"diffusion_consistency: card vs CPU {k} err {e} <= {tol[k]}")
+    free_memory(torch)
+    return row
+
+
+def phase_diffusion(torch) -> dict:
+    """The diffusion group: K1-K3 at D 40, ``text_to_image`` and the UNet's
+    train step at SD v1.5's widths, the cuts card against CPU. K4-K8's
+    counters read the same after the group."""
+    before = all_kernel_counts()
+    t0 = time.perf_counter()
+    d40 = phase_flash_d40(torch)
+    serve = phase_t2i_serve(torch)
+    train = phase_ldm_train(torch)
+    consistency = phase_diffusion_consistency(torch)
+    after = all_kernel_counts()
+    others = [k for k in before if k not in ("k1", "k2", "k3")]
+    check({k: after[k] for k in others} == {k: before[k] for k in others},
+          f"diffusion: K4-K8's counters moved: {before} -> {after}")
+    emit({"phase": "diffusion", "k4_k8_counts_unchanged": {k: after[k] for k in others},
+          "seconds": time.perf_counter() - t0})
+    return {"flash_d40": d40, "t2i_serve": serve, "ldm_train": train, "consistency": consistency,
+            "launches": {kind: serve["launches"][kind] + train["launches"][kind] for kind in ("fwd", "dq", "dkv")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -6575,7 +7252,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet,proc,s2s`
+    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -6663,6 +7340,10 @@ def main() -> int:
         proc = phase_proc(torch, threaded=bool(only))  # alone, the group times the threaded drain too
     if not only or "s2s" in only:
         phase_s2s(torch)
+    if not only or "vision" in only:
+        phase_vision(torch)
+    if not only or "diffusion" in only:
+        diffusion = phase_diffusion(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -6693,10 +7374,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"accelerate_tpu_torch/csrc/{source}",
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
             # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
-            # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128)
+            # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128); SD v1.5's UNet (D 40): text_to_image's K1 and
+            # the UNet train step's K1-K3
             "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
             + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed"))
-            + moe["train"]["launches"][kind],
+            + moe["train"]["launches"][kind] + diffusion["launches"][kind],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv

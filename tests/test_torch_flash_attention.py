@@ -219,8 +219,8 @@ def test_kernel_wrappers_check_their_inputs():
     """Shapes and types the kernels do not take raise before any launch,
     whatever the device (the checks come first)."""
     q = torch.zeros(1, 8, 2, 40)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa._check_cuda(q, q, q)
+    with pytest.raises(ValueError, match="head_dim 36"):
+        fa._check_cuda(*(torch.zeros(1, 8, 2, 36),) * 3)
     with pytest.raises(TypeError, match="one dtype"):
         fa._check_cuda(q, q.double(), q)
     with pytest.raises(ValueError, match="last dim"):
@@ -278,15 +278,16 @@ def test_bf16_plain_forward_matches_pallas(b, s, h, h_kv, d, causal):
 
 def test_flash_head_dim_predicate():
     """One test of the head dims K1-K3 take, shared by the wrappers and the
-    dispatch: every multiple of 16 up to 256, each run at the built width
-    (64, 128 or 256) that holds it."""
-    taken = [d for d in range(0, 290, 8) if fa.flash_head_dim_ok(d)]
-    assert taken == list(range(16, 257, 16))
-    assert [fa.kernel_width(d) for d in (16, 48, 64, 80, 96, 128, 144, 208, 256)] == [64] * 3 + [128] * 3 + [256] * 3
-    for d in (8, 40, 272):
+    dispatch: every multiple of 8 from 16 to 256 (Stable Diffusion's 40
+    among them), each run at the built width (64, 128 or 256) that holds
+    it."""
+    taken = [d for d in range(0, 290, 4) if fa.flash_head_dim_ok(d)]
+    assert taken == list(range(16, 257, 8))
+    assert [fa.kernel_width(d) for d in (16, 40, 64, 72, 96, 128, 136, 208, 256)] == [64] * 3 + [128] * 3 + [256] * 3
+    for d in (8, 36, 264):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             fa._check_cuda(*(torch.zeros(1, 8, 2, d),) * 3)
-    for d in (16, 96, 256):
+    for d in (16, 40, 96, 256):
         fa._check_cuda(*(torch.zeros(1, 8, 2, d),) * 3)
 
 
@@ -308,7 +309,7 @@ def _spy_dispatch(monkeypatch):
     return attention, calls
 
 
-@pytest.mark.parametrize("d", [8, 40, 272])
+@pytest.mark.parametrize("d", [8, 36, 272])
 def test_auto_dispatch_keeps_other_head_dims_on_einsum(monkeypatch, d):
     """On the card, use_flash=None sends a long sequence to the flash
     kernels only at a head dim they take; any other stays on the einsum
@@ -324,7 +325,7 @@ def test_auto_dispatch_keeps_other_head_dims_on_einsum(monkeypatch, d):
     assert calls == [64]
 
 
-@pytest.mark.parametrize("d", [8, 40, 272])
+@pytest.mark.parametrize("d", [8, 36, 272])
 def test_explicit_flash_with_other_head_dim_raises_on_the_card(monkeypatch, d):
     """use_flash=True on the card at a head dim the kernels do not take
     raises, naming it: no fallback to the einsum path."""

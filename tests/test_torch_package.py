@@ -70,7 +70,8 @@ def test_importing_every_module_loads_no_jax():
                  "serving_fleet", "scheduling", "telemetry.serving_metrics", "telemetry.summarize", "telemetry.trace",
                  "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses", "serving_transport",
                  "serving_proc", "telemetry.httpd", "commands.serve", "commands.fleet", "commands.trace",
-                 "commands.telemetry", "commands.cli", "models.t5", "models.whisper", "ops.kv_cache"):
+                 "commands.telemetry", "commands.cli", "models.t5", "models.whisper", "ops.kv_cache",
+                 "models.vit", "models.clip", "models.unet", "models.vae", "diffusion"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -80,7 +81,7 @@ def test_no_source_imports_jax():
     examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
                                                       "torch_cv_example.py", "torch_gradient_accumulation.py")]
     scripts = [REPO / "scripts" / name for name in ("torch_handoff_rate.py", "torch_proc_boot.py",
-                                                    "torch_sampled_resume.py")]
+                                                    "torch_sampled_resume.py", "torch_ddim_floor.py")]
     sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *scripts, *examples]
     checked = {p.relative_to(PKG).as_posix() for p in sources if PKG in p.parents}
     assert {"ops/fp8.py", "logging.py", "tracking.py", "utils/imports.py", "telemetry/__init__.py",
@@ -90,7 +91,8 @@ def test_no_source_imports_jax():
             "utils/dataclasses.py", "test_utils/fault_injection.py", "serving.py", "serving_transport.py",
             "serving_proc.py", "telemetry/httpd.py", "commands/serve.py", "commands/fleet.py", "commands/trace.py",
             "commands/telemetry.py", "commands/cli.py", "models/t5.py", "models/whisper.py", "ops/kv_cache.py",
-            "generation.py", "models/convert.py"} <= checked
+            "generation.py", "models/convert.py", "models/vit.py", "models/clip.py", "models/unet.py",
+            "models/vae.py", "diffusion.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
