@@ -63,7 +63,7 @@ thread a replica (:meth:`FleetRouter.drain_threaded`: each replica's lock
 serializes its host bookkeeping; the kernels' ``ctypes`` calls and
 PyTorch's operators release the GIL, so replicas overlap on the host).
 The process-level fleet (a process a replica, the transport between
-them) waits for ROADMAP.md Queue 1 item 10.
+them) is :class:`~accelerate_tpu_torch.serving_proc.ProcessSupervisor`.
 """
 
 from __future__ import annotations

@@ -204,7 +204,16 @@ it, all three equal. Then the slices:
   (``ldm_train``); a one-level UNet cut (K1 at D 40 on the card, the
   einsum on the CPU), a 2-level VAE and a 4-step guided DDIM card against
   CPU in f32 (``diffusion_consistency``). K4-K8's counters read the same
-  after the group; its K1-K3 launches join the kernels line.
+  after the group; its K1-K3 launches join the kernels line;
+* the HF checkpoint importers (``--only hub``): TinyLlama-1.1B's widths at
+  all 22 layers written here as an HF checkpoint from seeded tensors (bf16,
+  two shards and ``model.safetensors.index.json``) and imported by
+  ``load_hf_llama`` onto the card (seconds, GB/s; the q/k projections
+  re-paired for the interleaved rope and the untouched tensors checked bit
+  for bit), served by the paged engine (K4; greedy tokens against the
+  no-cache loop), quantized to int4 and decoded by ``generate`` (K5), and,
+  loaded again with f32 masters, fine-tuned 3 steps at 8 x 2048 (K1-K3),
+  each kernel's launches counted in the group and joining the kernels line.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -7228,6 +7237,252 @@ def phase_diffusion(torch) -> dict:
             "launches": {kind: serve["launches"][kind] + train["launches"][kind] for kind in ("fwd", "dq", "dkv")}}
 
 
+# The hub group: TinyLlama's widths (TINYLLAMA, all 22 layers) written as an HF checkpoint of two bf16 shards and an
+# index (the layout Llama-2-7B is published in), the first shard the embedding and layers 0-10
+HUB_FIRST_SHARD_LAYERS = 11
+HUB_TRAIN_STEPS = 3
+HUB_TRAIN_SHAPE = (8, 2048)  # batch x sequence: FLASH_MIN_SEQ, the train phase's shape
+HUB_PROMPTS = (5, 37, 130, 300)
+HUB_NEW = 16
+# flax leaves of a scanned Llama: the embedding, the final norm, the head and 9 stacked [L, ...] leaves
+HUB_LEAVES = 12
+
+
+def hub_hf_state(torch, cfg, seed=21) -> dict:
+    """TinyLlama's HF-named tensors in bf16 on the host, drawn on the card
+    from a seeded generator at a trained model's scales (matrices
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    hd = h // cfg.num_attention_heads
+    q, kv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, h), "model.norm.weight": (h,),
+              "lm_head.weight": (cfg.vocab_size, h)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "self_attn.q_proj.weight": (q, h), p + "self_attn.k_proj.weight": (kv, h),
+                       p + "self_attn.v_proj.weight": (kv, h), p + "self_attn.o_proj.weight": (h, q),
+                       p + "mlp.gate_proj.weight": (ff, h), p + "mlp.up_proj.weight": (ff, h),
+                       p + "mlp.down_proj.weight": (h, ff), p + "input_layernorm.weight": (h,),
+                       p + "post_attention_layernorm.weight": (h,)})
+    state = {}
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x = x / shape[-1] ** 0.5 if len(shape) > 1 else 1.0 + 0.1 * x
+        state[name] = x.to(torch.bfloat16).cpu()
+    return state
+
+
+def hub_write_shards(torch, state, directory) -> int:
+    """``state`` as two shards and ``model.safetensors.index.json`` in
+    ``directory`` with the port's ``save_file``; the bytes written."""
+    from accelerate_tpu_torch.utils.safetensors_io import save_file
+
+    def second(name):
+        parts = name.split(".")
+        return name in ("model.norm.weight", "lm_head.weight") or (
+            parts[1] == "layers" and int(parts[2]) >= HUB_FIRST_SHARD_LAYERS)
+
+    shards = {"model-00001-of-00002.safetensors": {n: t for n, t in state.items() if not second(n)},
+              "model-00002-of-00002.safetensors": {n: t for n, t in state.items() if second(n)}}
+    for fname, part in shards.items():
+        save_file(part, directory / fname)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    weight_map = {n: fname for fname, part in shards.items() for n in part}
+    (directory / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return sum((directory / fname).stat().st_size for fname in shards)
+
+
+def hub_load(torch, directory, cfg, dtype, nbytes) -> tuple:
+    """``load_hf_llama`` of the shards onto the card: the model and its
+    seconds, bytes and GB/s (the files were just written: a warm read)."""
+    from accelerate_tpu_torch.models import load_hf_llama
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_hf_llama(str(directory), config=cfg, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(model.device.type == "cuda", f"hub: the model is on the card, not {model.device}")
+    check(model.imported_weight_count == HUB_LEAVES,
+          f"hub: imported_weight_count {model.imported_weight_count} == {HUB_LEAVES} (the scanned tree's leaves)")
+    return model, {"seconds": seconds, "bytes": nbytes, "gb_per_s": nbytes / seconds / 1e9,
+                   "dtype": dtype_name(dtype), "imported_weight_count": model.imported_weight_count}
+
+
+def hub_load_breakdown(torch, directory, cfg, dtype) -> dict:
+    """Seconds of each step ``load_hf_llama`` takes, run one by one: the
+    shards read into host tensors, the flax tree built (q/k re-paired, the
+    layers stacked), the seeded model built on the card, the merge (each
+    leaf copied to the card, transposed back and cast there)."""
+    from accelerate_tpu_torch.models import convert_hf_llama_state, create_llama_model, read_safetensors_state
+    from accelerate_tpu_torch.models.hub import _merge_into
+
+    out, t0 = {}, time.perf_counter()
+    state = read_safetensors_state(str(directory))
+    out["read_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tree = convert_hf_llama_state(state, cfg.scan_layers, cfg.num_attention_heads, cfg.num_key_value_heads)
+    out["convert_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    model = create_llama_model(cfg, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    out["create_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _merge_into(model, tree)
+    torch.cuda.synchronize()
+    out["merge_s"] = time.perf_counter() - t0
+    return out
+
+
+def hub_check_weights(torch, model, state, cfg) -> dict:
+    """On the card: layer 0's and the last layer's q/k projections equal the
+    HF tensors with each head's rows re-paired from the half-split rope to
+    the interleaved one (row 2j <- j, 2j + 1 <- j + D/2), bit for bit; the
+    tensors loaded untouched (v, o and the MLP projections, both norms, the
+    embedding) equal the written ones bit for bit."""
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    perm = torch.empty(hd, dtype=torch.int64)
+    perm[0::2] = torch.arange(hd // 2)
+    perm[1::2] = torch.arange(hd // 2) + hd // 2
+    params, checked = model.params, []
+    for i in (0, cfg.num_hidden_layers - 1):
+        for proj, heads in (("q_proj", cfg.num_attention_heads), ("k_proj", cfg.num_key_value_heads)):
+            hf = state[f"model.layers.{i}.self_attn.{proj}.weight"].cuda()
+            want = hf.view(heads, hd, -1)[:, perm.cuda()].reshape(hf.shape)
+            check(torch.equal(params[f"layers.{i}.attn.{proj}.weight"], want),
+                  f"hub: layer {i} {proj} == the HF tensor re-paired for the interleaved rope")
+            check(not torch.equal(want, hf), f"hub: the re-pairing of layer {i} {proj} moves rows")
+            checked.append(f"layers.{i}.attn.{proj}.weight (re-paired)")
+        for port, hf in (("attn.v_proj.weight", "self_attn.v_proj.weight"),
+                         ("attn.o_proj.weight", "self_attn.o_proj.weight"),
+                         ("mlp.down_proj.weight", "mlp.down_proj.weight"),
+                         ("input_norm.weight", "input_layernorm.weight"),
+                         ("post_attn_norm.weight", "post_attention_layernorm.weight")):
+            check(torch.equal(params[f"layers.{i}.{port}"], state[f"model.layers.{i}.{hf}"].cuda()),
+                  f"hub: layers.{i}.{port} == the written tensor, bit for bit")
+            checked.append(f"layers.{i}.{port}")
+    for port, hf in (("embed_tokens.weight", "model.embed_tokens.weight"), ("final_norm.weight", "model.norm.weight"),
+                     ("lm_head.weight", "lm_head.weight")):
+        got = params[port]
+        check(torch.equal(got, state[hf].cuda().to(got.dtype)), f"hub: {port} == the written tensor, bit for bit")
+        checked.append(port)
+    return {"bit_equal": checked}
+
+
+def phase_hub(torch, smi) -> dict:
+    """TinyLlama-1.1B (TINYLLAMA: 2048 hidden, 22 layers, 32/4 heads, 5632
+    FFN, vocab 32,000, untied head) imported from an HF checkpoint written
+    here from seeded tensors (bf16, two shards and an index) by
+    ``load_hf_llama``: loaded in bf16 onto the card (seconds, GB/s, the
+    re-paired q/k and the untouched tensors bit for bit), served by the
+    paged engine (K4 == 22 x decode steps; greedy tokens and logprobs held
+    to the no-cache loop over the same model under SERVE_BF16_GAP and
+    SERVE_LP_LIMIT), quantized to int4 and decoded by ``generate`` (K5 ==
+    154 x forwards); then loaded again with f32 masters and fine-tuned
+    HUB_TRAIN_STEPS steps at 8 x 2048 with bf16 compute through
+    ``build_train_step(causal_lm_loss)`` (K1 == 2 x 22 x steps with remat,
+    K2 == K3 == 22 x steps; losses finite). Each kernel's launches are
+    counted from 0 in its sub-phase."""
+    from accelerate_tpu_torch import (Accelerator, LlamaConfig, QuantizationConfig, ServingEngine, causal_lm_loss,
+                                      load_and_quantize_model)
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    t_group = time.perf_counter()
+    cfg = LlamaConfig(**TINYLLAMA)
+    workdir = ckpt_workdir()
+    try:
+        t0 = time.perf_counter()
+        state = hub_hf_state(torch, cfg)
+        nbytes = hub_write_shards(torch, state, workdir)
+        write_s = time.perf_counter() - t0
+        # the loader's steps one by one first, in a process whose first model build and first read of the fresh
+        # files this is; then the entry point, as a user calls it
+        breakdown = hub_load_breakdown(torch, workdir, cfg, torch.bfloat16)
+        free_memory(torch)
+        model, load = hub_load(torch, workdir, cfg, torch.bfloat16, nbytes)
+        load["breakdown_first"] = breakdown
+        weights = hub_check_weights(torch, model, state, cfg)
+        del state
+
+        # serve: the paged engine, greedy; every decode step's attention through K4
+        rng = np.random.default_rng(22)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in HUB_PROMPTS]
+        ServingEngine(model, num_slots=4, prompt_buckets=(64, 512), paged_block_size=16, tick_block=8).generate_many(
+            [np.arange(1, 9, dtype=np.int32)], max_new_tokens=4)  # warm-up: library handles, allocator
+        eng = ServingEngine(model, num_slots=4, prompt_buckets=(64, 512), paged_block_size=16, tick_block=8)
+        torch.cuda.synchronize()
+        pa.launches = 0
+        t0 = time.perf_counter()
+        uids = [eng.submit(p, HUB_NEW) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        k4 = pa.launches
+        check(k4 == cfg.num_hidden_layers * eng.decode_steps > 0,
+              f"hub serve: K4 launches {k4} == {cfg.num_hidden_layers} x decode steps {eng.decode_steps}")
+        served = [(p, eng.poll(uid)[len(p):], eng.logprobs(uid)) for uid, p in zip(uids, prompts)]
+        check(all(len(t) == HUB_NEW and np.isfinite(lp).all() for _, t, lp in served),
+              "hub serve: every request's tokens and finite logprobs")
+        compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit=SERVE_BF16_GAP)
+        check(compared > 0 and max_lp_err < SERVE_LP_LIMIT,
+              f"hub serve: {compared} tokens against the no-cache loop, logprob err {max_lp_err} < {SERVE_LP_LIMIT}")
+        serve = {"requests": len(prompts), "prompt_lengths": list(HUB_PROMPTS), "new_tokens": HUB_NEW,
+                 "wall_s": serve_s, "tokens_per_s": len(prompts) * HUB_NEW / serve_s,
+                 "decode_steps": eng.decode_steps, "k4_launches": k4, "tokens_compared": compared,
+                 "stopped_at_near_tie": near_ties, "max_logprob_err": max_lp_err}
+        del eng
+
+        # int4: every projection through K5 in generate
+        t0 = time.perf_counter()
+        qmodel = load_and_quantize_model(model, QuantizationConfig(method="int4", group_size=128))
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        del model
+        free_memory(torch)
+        int4 = {"quantize_s": quantize_s, **generate_run(torch, qmodel, "hub int4")}
+        del qmodel
+        free_memory(torch)
+
+        # fine-tune: f32 masters loaded from the same shards, bf16 compute, remat; K1-K3 at 8 x 2048
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        acc = Accelerator(mixed_precision="bf16")
+        tcfg = LlamaConfig(**TINYLLAMA, remat=True)
+        tmodel, train_load = hub_load(torch, workdir, tcfg, torch.float32, nbytes)
+        tmodel = acc.prepare_model(tmodel)
+        acc.prepare_optimizer(torch.optim.AdamW(tmodel.module.parameters(), lr=3e-4, weight_decay=0.01))
+        step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, tmodel.apply_fn))
+        b, s = HUB_TRAIN_SHAPE
+        batches = token_batches(torch, HUB_TRAIN_STEPS, b, s, cfg.vocab_size, seed=23)
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        losses, times = [], []
+        for i in range(HUB_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = step({"input_ids": batches[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launches = flash_counts()
+        layers, n = cfg.num_hidden_layers, HUB_TRAIN_STEPS
+        check(all(np.isfinite(losses)), f"hub train: losses finite: {losses}")
+        check(launches == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n},
+              f"hub train: flash launches {launches} == K1 2 x {layers} x {n}, K2/K3 {layers} x {n}")
+        train = {"batch": b, "seq": s, "steps": n, "losses": losses, "step_ms": times, "last_step_ms": times[-1],
+                 "tokens_per_s_last": b * s / (times[-1] / 1e3), "launches": launches, "load": train_load,
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del acc, tmodel, step, batches
+        free_memory(torch)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    row = {"phase": "hub", "card": smi, "config": "TinyLlama-1.1B widths, 22 layers, seeded HF checkpoint: "
+           "two bf16 shards + index", "write_s": write_s, "load": load, "weights": weights, "serve": serve,
+           "int4": int4, "train": train, "seconds": time.perf_counter() - t_group}
+    emit(row)
+    return {"k4": serve["k4_launches"], "k5": int4["int4_launches"], "flash": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -7252,7 +7507,7 @@ def main() -> int:
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion`
+    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion,hub`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -7344,6 +7599,8 @@ def main() -> int:
         phase_vision(torch)
     if not only or "diffusion" in only:
         diffusion = phase_diffusion(torch)
+    if not only or "hub" in only:
+        hub = phase_hub(torch, smi)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -7356,12 +7613,12 @@ def main() -> int:
         # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
         # Gemma-2B's (head dim 256), the banded families' 2-layer cuts, Mistral-7B-v0.1's three phases,
         # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts, the fleet's
-        # paged replicas and the process fleet's paged workers (TinyLlama, head dim 64)
+        # paged replicas and the process fleet's paged workers (TinyLlama, head dim 64), the HF-imported TinyLlama
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
         + gemma_serve["kernel_launches"]
         + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
         + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"] + fleet["k4_launches"]
-        + proc["k4_launches"],
+        + proc["k4_launches"] + hub["k4"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
@@ -7375,10 +7632,10 @@ def main() -> int:
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
             # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
             # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128); SD v1.5's UNet (D 40): text_to_image's K1 and
-            # the UNet train step's K1-K3
+            # the UNet train step's K1-K3; the HF-imported TinyLlama's fine-tune
             "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
             + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed"))
-            + moe["train"]["launches"][kind] + diffusion["launches"][kind],
+            + moe["train"]["launches"][kind] + diffusion["launches"][kind] + hub["flash"][kind],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv
@@ -7387,8 +7644,9 @@ def main() -> int:
     kernels.append({
         "name": "int4_matmul", "route": "cuda", "source": "accelerate_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "accelerate_tpu/ops/pallas_qmatmul.py:41", "case": INT4_MAIN_CASE,
-        # the main path's launches: the int4 model served, then decoded by generate and per_token_latency
-        "launches": quant_serve["int4_launches"] + quant_generate["int4"]["int4_launches"],
+        # the main path's launches: the int4 model served, then decoded by generate and per_token_latency; the
+        # HF-imported TinyLlama quantized and decoded by generate
+        "launches": quant_serve["int4_launches"] + quant_generate["int4"]["int4_launches"] + hub["k5"],
         "max_abs_err": int4["max_abs_err"], "ms": int4["ms"], "plain_ms": int4["plain_ms"],
         "bound_ms": int4["bound_ms"], "bound_by": int4["bound_by"],
         # torch.ops.aten._weight_int4pack_mm on the same codes (null, with the error in int4_kernel, if it refused)

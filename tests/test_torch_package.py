@@ -71,8 +71,25 @@ def test_importing_every_module_loads_no_jax():
                  "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses", "serving_transport",
                  "serving_proc", "telemetry.httpd", "commands.serve", "commands.fleet", "commands.trace",
                  "commands.telemetry", "commands.cli", "models.t5", "models.whisper", "ops.kv_cache",
-                 "models.vit", "models.clip", "models.unet", "models.vae", "diffusion"):
+                 "models.vit", "models.clip", "models.unet", "models.vae", "diffusion", "models.hub"):
         assert f"accelerate_tpu_torch.{name}" in modules
+
+
+def test_hub_importer_loads_no_jax_and_no_safetensors():
+    """The HF importer reads checkpoints with the port's own safetensors
+    reader: importing it loads neither jax, nor the JAX package (whose
+    ``models/hub.py`` imports jax only lazily), nor the ``safetensors``
+    package, which the machine with the card does not have."""
+    forbidden = (*FORBIDDEN, "safetensors")
+    code = (
+        "import sys\n"
+        "import accelerate_tpu_torch.models.hub\n"
+        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {forbidden!r}))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_no_source_imports_jax():
@@ -92,7 +109,7 @@ def test_no_source_imports_jax():
             "serving_proc.py", "telemetry/httpd.py", "commands/serve.py", "commands/fleet.py", "commands/trace.py",
             "commands/telemetry.py", "commands/cli.py", "models/t5.py", "models/whisper.py", "ops/kv_cache.py",
             "generation.py", "models/convert.py", "models/vit.py", "models/clip.py", "models/unet.py",
-            "models/vae.py", "diffusion.py"} <= checked
+            "models/vae.py", "diffusion.py", "models/hub.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
