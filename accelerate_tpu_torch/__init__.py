@@ -98,6 +98,7 @@ from .ops.qdense import QuantDense
 from .serving import ServingEngine
 from .speculative import speculative_generate
 from .utils import (
+    CompileKwargs,
     DataLoaderConfiguration,
     FaultToleranceKwargs,
     Fp8RecipeKwargs,
@@ -126,6 +127,7 @@ __all__ = [
     "Accelerator",
     "BertConfig",
     "CheckpointManager",
+    "CompileKwargs",
     "DataLoaderConfiguration",
     "FaultToleranceKwargs",
     "Fp8RecipeKwargs",

@@ -65,10 +65,14 @@ installs a SIGTERM/SIGINT handler read through ``should_checkpoint`` /
 step timeline, recompile watchdog, MFU and non-finite watchdog
 (:mod:`.telemetry`, ``TelemetryKwargs``).
 
+``CompileKwargs`` (or ``ACCELERATE_COMPILE_CACHE_DIR``) opens the program
+cache (:mod:`.aot`, :attr:`Accelerator.program_cache`): the train and eval
+steps route their calls through it, so a restarted process installs the
+kernel libraries its steps recorded instead of running ``nvcc``.
+
 Not ported (each raises ``NotImplementedError``, naming its ROADMAP.md
 Queue 1 item): multi-card layouts and multi-process data, ZeRO, gradient
-compression and optimizer offload (item 8), the program cache and the
-shape bucketer (item 9).
+compression and optimizer offload (item 8).
 """
 
 from __future__ import annotations
@@ -90,6 +94,7 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     AutocastKwargs,
+    CompileKwargs,
     DataLoaderConfiguration,
     FaultToleranceKwargs,
     Fp8RecipeKwargs,
@@ -137,9 +142,12 @@ class Accelerator:
         self.ft_handler = FaultToleranceKwargs()
         self.profile_handler = ProfileKwargs()
         self.telemetry_handler = TelemetryKwargs()
+        self.compile_handler = CompileKwargs()
         self.fp8_recipe_handler = None
-        # the preemption handler installs, and tracker logging retries, only when the handler was passed
+        # the preemption handler installs, and tracker logging retries, only when the handler was passed;
+        # the program cache opens only when CompileKwargs was passed (or its environment variable is set)
         self._ft_explicit = False
+        self._compile_explicit = False
         policy_override = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, AutocastKwargs):
@@ -153,15 +161,17 @@ class Accelerator:
                 self.profile_handler = handler
             elif isinstance(handler, TelemetryKwargs):
                 self.telemetry_handler = handler
+            elif isinstance(handler, CompileKwargs):
+                self.compile_handler = handler
+                self._compile_explicit = True
             elif isinstance(handler, Fp8RecipeKwargs):
                 self.fp8_recipe_handler = handler
             elif isinstance(handler, MixedPrecisionPolicy):
                 policy_override = handler
             else:
-                # the JAX package's other handlers: DistributedInitKwargs (item 8), CompileKwargs (item 9)
+                # the JAX package's other handler: DistributedInitKwargs (item 8)
                 raise NotImplementedError(
-                    f"{type(handler).__name__} is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 "
-                    "items 8 and 9)"
+                    f"{type(handler).__name__} is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
                 )
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
@@ -221,6 +231,24 @@ class Accelerator:
         self.trackers: list = []
         self._log_with = log_with
         self._telemetry = None  # made on first access of the `telemetry` property
+
+        # compile management (aot/): the shared ProgramCache and the persistent kernel library directory open
+        # when a CompileKwargs handler was passed or ACCELERATE_COMPILE_CACHE_DIR is set; a bare Accelerator()
+        # never writes cache files
+        self._program_cache = None
+        if self._compile_explicit or os.environ.get("ACCELERATE_COMPILE_CACHE_DIR"):
+            from .aot import ExecutableStore, ProgramCache, configure_persistent_cache, resolve_cache_dir
+
+            ch = self.compile_handler
+            cache_dir = resolve_cache_dir(
+                ch.cache_dir, self.project_dir, self.project_configuration.compile_cache_dir_name
+            )
+            store = None
+            if cache_dir is not None and ch.executable_store:
+                store = ExecutableStore(os.path.join(cache_dir, "executables"))
+            self._program_cache = ProgramCache(store=store)
+            if cache_dir is not None and ch.persistent_xla_cache:
+                configure_persistent_cache(cache_dir, ch.min_compile_time_secs)
 
         # fault tolerance: the checkpoint this run resumed from (protected
         # from pruning), the one-final-checkpoint latch, the signal handler
@@ -520,6 +548,8 @@ class Accelerator:
                     return eval_fn(params, *args, **kwargs)
                 return eval_fn(params, state, *args, **kwargs)
 
+        if self._program_cache is not None and self.compile_handler.aot_train_step:
+            return self._program_cache.wrap_jit(run, name="eval_step", key_salt=self._step_salt(model, eval_fn))
         return run
 
     def build_train_step(
@@ -601,7 +631,21 @@ class Accelerator:
                 )
             return (loss, aux) if has_aux else loss
 
+        if self._program_cache is not None and self.compile_handler.aot_train_step:
+            # the warm start: a first-seen batch signature resolves through the shared ProgramCache, so a
+            # restarted process re-creating this step installs its kernel libraries from the store instead of
+            # running nvcc (the wrapper keeps `_cache_size` for the recompile watchdog)
+            return self._program_cache.wrap_jit(
+                step, name="train_step", key_salt=self._step_salt(model, loss_fn, has_aux, has_state, accum)
+            )
         return step
+
+    def _step_salt(self, model: Model, *extra) -> tuple:
+        """What a step program closes over, for its cache key: the model's
+        layout, the loss function and options, and the precision."""
+        from .aot.program_cache import layout_salt
+
+        return (layout_salt(model, *extra), self.mixed_precision)
 
     # ------------------------------------------------------------------ #
     # the two paths' shared arithmetic
@@ -878,7 +922,20 @@ class Accelerator:
                 forward_every=h.forward_to_trackers_every,
                 nonfinite_every=h.nonfinite_every,
             )
+            if self._program_cache is not None:
+                # compile_cache_* events land in the same run log as the step timeline
+                self._program_cache.log = self._telemetry.log
         return self._telemetry
+
+    @property
+    def program_cache(self):
+        """The shared :class:`~.aot.ProgramCache` (``None`` unless a
+        :class:`~.utils.dataclasses.CompileKwargs` handler was passed or
+        ``ACCELERATE_COMPILE_CACHE_DIR`` is set). When active,
+        ``build_train_step`` and ``build_eval_step`` route their calls
+        through it, so a restarted process installs the kernel libraries
+        its steps recorded instead of running ``nvcc``."""
+        return self._program_cache
 
     def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: Optional[dict] = None):
         """Start the trackers ``log_with`` named (:func:`~.tracking.filter_trackers`)."""
@@ -1056,7 +1113,18 @@ class Accelerator:
         ``checkpoint_N`` numbering continues from there."""
         from .checkpointing import load_accelerator_state
 
-        return load_accelerator_state(self, input_dir, **load_model_func_kwargs)
+        out = load_accelerator_state(self, input_dir, **load_model_func_kwargs)
+        if self._program_cache is not None:
+            # the warm start after a restore: how warm the store is, so a resume that did build kernels is
+            # explainable from the telemetry
+            stats = self._program_cache.stats()
+            if self._telemetry is not None:
+                self._telemetry.log.event("compile_cache_warmstart", **stats)
+            logger.info(
+                "compile cache at resume: %s stored entries, %s deserialized this process",
+                stats.get("store_entries", 0), stats.get("deserialized", 0),
+            )
+        return out
 
     @property
     def checkpoint_manager(self):

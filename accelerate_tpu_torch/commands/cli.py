@@ -3,8 +3,8 @@
 Counterpart of ``accelerate-tpu`` (:mod:`accelerate_tpu.commands.cli`), run
 as ``python -m accelerate_tpu_torch.commands.cli <command> ...`` (or the
 ``accelerate-tpu-torch`` console script). It registers the ported
-commands and no others: ``serve``, ``fleet``, ``trace``, ``telemetry``
-and ``kernel-check``.
+commands and no others: ``serve``, ``fleet``, ``trace``, ``telemetry``,
+``kernel-check`` and ``compile-cache``.
 
 Example::
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 
+from .compile_cache import compile_cache_parser
 from .fleet import fleet_parser
 from .kernelcheck import kernelcheck_parser
 from .serve import serve_parser
@@ -23,7 +24,7 @@ from .telemetry import telemetry_parser
 from .trace import trace_parser
 
 #: the registered commands, in help order
-COMMANDS = ("serve", "fleet", "trace", "telemetry", "kernel-check")
+COMMANDS = ("serve", "fleet", "trace", "telemetry", "kernel-check", "compile-cache")
 
 
 def cli_parser() -> argparse.ArgumentParser:
@@ -36,6 +37,7 @@ def cli_parser() -> argparse.ArgumentParser:
     trace_parser(subparsers)
     telemetry_parser(subparsers)
     kernelcheck_parser(subparsers)
+    compile_cache_parser(subparsers)
     return parser
 
 

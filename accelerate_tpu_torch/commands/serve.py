@@ -45,7 +45,7 @@ def serve_parser(subparsers=None):
     parser.add_argument("--run-dir", default=os.path.join(tempfile.gettempdir(), "accelerate_tpu_torch_serve"),
                         help="Run artifacts: per-worker eventlogs, flight dumps, worker logs")
     parser.add_argument("--store-dir", default=None,
-                        help="The JAX package's executable store: not ported (refused)")
+                        help="Executable store the workers' program caches share (default: {run-dir}/store)")
     parser.add_argument("--http-host", default="127.0.0.1", help="Front-door bind host")
     parser.add_argument("--http-port", type=int, default=8799, help="Front-door port (0 = ephemeral)")
     parser.add_argument("--shadow-kv", action="store_true", help="Ship KV rows in failover snapshots")

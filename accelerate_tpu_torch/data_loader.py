@@ -20,10 +20,14 @@ exactly, so the port yields the JAX loader's batches index for index:
   shard count, which for one shard leaves it as it is; ``drop_last`` drops
   it;
 * ``skip_first_batches`` and ``state_dict`` / ``load_state_dict`` for a
-  resume mid-epoch.
+  resume mid-epoch;
+* ``auto_bucketing``: a batch's leading dim is wrap-padded up to a learned
+  bucket (:class:`~.aot.ShapeBucketer`, seeded with the steady batch), so
+  a ragged tail runs the steady batch's program and ``remainder`` still
+  counts its real rows.
 
 Multi-process sharding and dispatch across processes are ROADMAP.md Queue
-1 item 8; the shape bucketer (``auto_bucketing``) is item 9.
+1 item 8.
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ class BaseDataLoader:
         generator: Optional[torch.Generator] = None,
         prefetch_size: int = 2,
         non_blocking: bool = True,
+        auto_bucketing: bool = False,
     ):
         self.gradient_state = GradientState()
         self.device = device
@@ -112,6 +117,8 @@ class BaseDataLoader:
         self.generator = generator
         self.prefetch_size = max(1, prefetch_size)
         self.non_blocking = non_blocking
+        self.auto_bucketing = auto_bucketing
+        self.bucketer = None  # made at the first batch
         self.end_of_dataloader = False
         self.remainder = -1
         self.iteration = 0
@@ -132,12 +139,35 @@ class BaseDataLoader:
     def end(self):
         self.gradient_state._remove_dataloader(self)
 
+    def _bucket_pad(self, host_batch, rows: int):
+        """Auto-bucketing (``DataLoaderConfiguration(auto_bucketing=True)``,
+        :mod:`.aot.bucketing`): wrap-pad the host batch's rows so its
+        leading dim lands on a learned bucket instead of whatever ragged
+        size the tail (or a variable stream) gave, as the JAX loader does;
+        the bucketer is seeded with the steady batch, so full batches pad
+        nothing. Padded rows repeat from the batch start (the
+        ``even_batches`` tail semantics) and ``remainder`` keeps counting
+        the real rows. Returns ``(host_batch, padded_rows)``."""
+        if not self.auto_bucketing or rows == 0:
+            return host_batch, rows
+        from .aot.bucketing import ShapeBucketer, pad_batch_tree
+
+        if self.bucketer is None:
+            # one data shard: any bucket splits evenly
+            seed = [self.total_batch_size] if getattr(self, "total_batch_size", 0) else []
+            self.bucketer = ShapeBucketer(seed, multiple_of=1)
+        target = self.bucketer.bucket(rows)
+        if target == rows:
+            return host_batch, rows
+        return pad_batch_tree(host_batch, target, current=rows), target
+
     def _windowed(self, batches: Iterable):
         """Yield the placed batches of ``(host batch, real rows, padded rows)``
         triples ``prefetch_size`` behind the placement, setting the end flag
         and ``remainder`` before the last one goes out."""
         window: deque = deque()
         for host, n_real, padded in batches:
+            host, padded = self._bucket_pad(host, padded)
             window.append((self._place(host), n_real, padded))
             if len(window) > self.prefetch_size:
                 self.batches_yielded += 1
@@ -424,7 +454,7 @@ def prepare_data_loader(
             f"prepare_data_loader(num_processes={num_processes}, process_index={process_index}): "
             "accelerate_tpu_torch loads for one process; multi-process loading is ROADMAP.md Queue 1 item 8"
         )
-    prefetch_size, non_blocking = 2, True
+    prefetch_size, non_blocking, auto_bucketing = 2, True, False
     if data_loader_config is not None:
         split_batches = data_loader_config.split_batches
         dispatch_batches = data_loader_config.dispatch_batches
@@ -432,6 +462,7 @@ def prepare_data_loader(
         use_seedable_sampler = data_loader_config.use_seedable_sampler
         prefetch_size = data_loader_config.prefetch_size
         non_blocking = data_loader_config.non_blocking
+        auto_bucketing = data_loader_config.auto_bucketing
 
     if isinstance(dataloader, BaseDataLoader):
         return dataloader
@@ -455,6 +486,7 @@ def prepare_data_loader(
         device_placement=put_on_device,
         prefetch_size=prefetch_size,
         non_blocking=non_blocking,
+        auto_bucketing=auto_bucketing,
     )
     if hasattr(dataloader, "__len__") and hasattr(dataloader, "__getitem__"):
         sampler = None

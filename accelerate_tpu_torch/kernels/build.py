@@ -7,10 +7,17 @@ name that carries the hash of its source, the headers it includes and the
 flags: a changed source or header builds anew at first use, an unchanged
 one loads what is there.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+
+:func:`recording` collects the libraries :func:`load` is asked for while
+it is open (each time, a library loaded before included): what a program
+of :mod:`accelerate_tpu_torch.aot` needs, stored beside its signature so
+another process can :func:`install_library` them instead of running
+``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,6 +26,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -157,9 +165,43 @@ def build_all(names=None) -> dict:
         return dict(pool.map(finish, names))
 
 
-@functools.cache
+# the open recording scopes, process-wide: a program's backward runs on
+# autograd's own device thread, so a scope on the caller's thread alone
+# would miss the libraries its backward loads
+_RECORDING: dict = {}  # id of the scope's set -> the set
+_RECORDING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the names of the kernel libraries :func:`load` is asked for
+    while the block runs (a set, yielded), on any thread of the process:
+    autograd runs a backward on its own thread. Scopes nest; a scope open
+    on another thread at the same time records the name too (a program's
+    record may name a library it did not need, never miss one)."""
+    names: set = set()
+    with _RECORDING_LOCK:
+        _RECORDING[id(names)] = names
+    try:
+        yield names
+    finally:
+        with _RECORDING_LOCK:
+            del _RECORDING[id(names)]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built first if needed."""
+    """The loaded library for kernel ``name``, built first if needed. The
+    name is recorded in every open :func:`recording` scope before the
+    process-wide cache is asked, so a library an earlier program loaded
+    still counts for the next one."""
+    with _RECORDING_LOCK:
+        for names in _RECORDING.values():
+            names.add(name)
+    return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     proc, tmp, lib = _start(name)
     if proc is None:
         count_launch(globals(), "prebuilt_loads")
@@ -169,6 +211,36 @@ def load(name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = restype
     return lib
+
+
+load.cache_clear = _load.cache_clear
+
+
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or would be) in
+    :func:`kernel_build_dir`: ``lib<name>-<hash>.so``."""
+    return _target(name)[1]
+
+
+def install_library(file_name: str, data: bytes) -> bool:
+    """Write a library's bytes into :func:`kernel_build_dir` under its own
+    ``lib<name>-<hash>.so`` name unless it is there; returns whether it
+    wrote. The write goes to a temporary file renamed into place, as a
+    build's does, so a concurrent loader sees a whole library or none."""
+    if os.path.basename(file_name) != file_name or not (file_name.startswith("lib") and file_name.endswith(".so")):
+        raise ValueError(f"not a kernel library name: {file_name!r}")
+    final = kernel_build_dir() / file_name
+    if final.exists():
+        return False
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=final.parent)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, final)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+    return True
 
 
 def func_attributes(name: str, which: int) -> dict:

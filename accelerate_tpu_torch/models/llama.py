@@ -475,7 +475,10 @@ class LlamaModel(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.config = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        # the table is drawn by create_llama_model (or loaded): handing nn.Embedding its storage skips its own
+        # init, which on a meta tensor imports torch._dynamo (6.4 s of a process's first build on the H100 host)
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         _weight=torch.empty(cfg.vocab_size, cfg.hidden_size))
         self.layers = nn.ModuleList([LlamaLayer(cfg, *kind) for kind in _layer_kinds(cfg)])
         self.final_norm = _norm(cfg, cfg.hidden_size)
         if not cfg.tie_word_embeddings:

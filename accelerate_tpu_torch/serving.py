@@ -78,6 +78,15 @@ tokens before the host reads the tokens back.
   adds each decoding slot's rows), :meth:`import_inflight` continues it on
   a survivor, by the pasted rows or by recompute, its ``torch.Generator``
   state carried so a sampled stream goes on as it would have;
+* **programs** (:mod:`.aot`): the bucketed prefill (one program a
+  bucket), the chunk windows (one a width) and the decode tick run
+  through one :class:`~.aot.ProgramCache` (``program_cache=``, else
+  ``ProgramCache.from_env``): a replica over a store written by another
+  process installs the kernel libraries those programs recorded instead
+  of running ``nvcc``; ``auto_bucketing`` seeds a
+  :class:`~.aot.ShapeBucketer` with ``prompt_buckets``, so a prompt past
+  the largest bucket gets a covering (power-of-two) bucket instead of
+  chunk windows;
 * **telemetry**: ``telemetry_log`` (an :class:`~.telemetry.eventlog.EventLog`)
   receives the engine's events (admit, shed, preemption, resume,
   failover import) and :meth:`ServingMetrics.emit` snapshots; ``tracer``
@@ -86,8 +95,7 @@ tokens before the host reads the tokens back.
   handoff paste, decode windows, preemption and resume.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): ``perf_check`` / ``numerics_check`` (item 11), program
-caches and auto-bucketing (item 9).
+Queue 1 item): ``perf_check`` / ``numerics_check`` (item 11).
 """
 
 from __future__ import annotations
@@ -100,6 +108,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .aot import ProgramCache, ShapeBucketer
+from .aot.program_cache import layout_salt
 from .ft.crashpoints import crash_point
 from .generation import _make_sampler
 from .ops.kv_cache import KVCache, kv_layout, reset_cache_index
@@ -174,6 +184,11 @@ class ServingEngine:
     :class:`~.scheduling.Scheduler`, or anything with
     ``to_scheduler_config()``. ``telemetry_log``: an event log for the
     engine's events and metric snapshots; ``tracer``: a request tracer.
+    ``program_cache``: the :class:`~.aot.ProgramCache` the engine's
+    programs go through (default ``ProgramCache.from_env``: a store at
+    ``ACCELERATE_COMPILE_CACHE_DIR`` when it is set, else memory-only).
+    ``auto_bucketing``: prompt buckets learned from traffic, seeded with
+    ``prompt_buckets`` and bounded by ``max_len``.
     ``device``: where the engine runs (``cuda`` unless ``"cpu"`` is asked
     for); the model must already live there.
     """
@@ -204,10 +219,6 @@ class ServingEngine:
         for m in (model, draft_model):
             if m is not None and m.device.type != self.device.type:
                 raise ValueError(f"model is on {m.device}, engine device is {self.device}; move one of them")
-        if program_cache is not None:
-            raise _not_ported("program_cache", 9)
-        if auto_bucketing:
-            raise _not_ported("auto_bucketing", 9)
         self.paged = paged_block_size is not None
         if self.paged and getattr(model.config, "attn_logit_softcap", None) is not None:
             # the JAX package's paged cache raises the same at the first decode step
@@ -235,6 +246,15 @@ class ServingEngine:
         self.num_slots = num_slots
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.max_len = max_len or model.config.max_position_embeddings
+        # compile management: every engine program goes through one ProgramCache, so with a store
+        # (program_cache= or ACCELERATE_COMPILE_CACHE_DIR) a new replica installs the kernel libraries a
+        # previous process recorded instead of running nvcc
+        if program_cache is None:
+            program_cache = ProgramCache.from_env(log=self._log, name="serving")
+        self._pc = program_cache
+        # auto-bucketing: the static buckets seed a learned set; a prompt past them grows a covering
+        # (power-of-two) bucket instead of streaming through chunk windows
+        self.bucketer = ShapeBucketer(self.prompt_buckets, max_size=self.max_len) if auto_bucketing else None
         self.draft_model = draft_model
         self.gamma = int(gamma)
         if draft_model is not None:
@@ -280,6 +300,20 @@ class ServingEngine:
                 self._spec_step = build_spec_step(model, draft_model, self.gamma)
                 # accept-rate telemetry, counted as the JAX engine counts it
                 self.spec_stats = {"steps": 0, "accepted": 0, "emitted": 0}
+
+        # the engine's programs, each keyed by its input signature and by what it closes over (the model's and
+        # the draft's layout, the cache layout, the sampling)
+        salt = (layout_salt(model, draft_model), self.paged, paged_block_size, pool_blocks, num_slots, self.max_len,
+                tick_block, temperature, top_k, self.gamma)
+        tick_name = "paged_decode_tick" if self.paged else "decode_tick"
+        self._programs = {
+            "prefill": self._pc.wrap_jit(self._prefill_forward, name="prefill", key_salt=salt),
+            "prefill_window": self._pc.wrap_jit(self._window_forward, name="prefill_window", key_salt=salt),
+            tick_name: self._pc.wrap_jit(self._tick_program, name=tick_name, key_salt=salt),
+        }
+        if draft_model is not None:
+            self._programs["spec_tick"] = self._pc.wrap_jit(self._spec_program, name="spec_tick", key_salt=salt)
+        self._tick = self._programs[tick_name]
 
         # registered shared prefixes: id -> {"len", "tokens", "rows"(, "block_ids")}
         self._prefixes: dict[int, dict] = {}
@@ -367,14 +401,26 @@ class ServingEngine:
         ids = torch.as_tensor(ids, device=self.device)
         positions = torch.arange(b, device=self.device)[None]
         row = self._row_cache() if self.paged else self.slot_caches.row(slot)
-        logits, cache = self.model(ids, positions=positions, decode=True, cache=row)
-        if self.draft_model is not None:
-            self.draft_model(ids, positions=positions, decode=True, cache=self.draft_caches.row(slot))
+        draft_row = self.draft_caches.row(slot) if self.draft_model is not None else None
+        logits, cache = self._programs["prefill"](ids, positions, row, draft_row)
         self.prefill_forwards += 1
         self.prefill_tokens += b
         tok, lp = self._sample_row(logits[0, len(prompt) - 1], gen)
         self._trace_prefill(trace, b, t0)
         return tok, lp, (cache if self.paged else None)
+
+    def _prefill_forward(self, ids, positions, cache, draft_cache):
+        """The bucketed prefill program: one cached forward of the padded
+        prompt (and the draft's, with a draft model)."""
+        out = self.model(ids, positions=positions, decode=True, cache=cache)
+        if draft_cache is not None:
+            self.draft_model(ids, positions=positions, decode=True, cache=draft_cache)
+        return out
+
+    def _window_forward(self, ids, positions, cache):
+        """The chunk-window program: one cached forward of a window against
+        the growing row cache."""
+        return self.model(ids, positions=positions, decode=True, cache=cache)
 
     def _trace_prefill(self, trace, tokens: int, t0: float) -> None:
         """One ``prefill`` span: its frontier-contiguous wall time, and the
@@ -386,9 +432,14 @@ class ServingEngine:
     def _next_window(self, t: int, s: int):
         """Plan the next end-aligned prefill window over ``full[s:t]``:
         ``(w, s_adj, e)`` — width is the smallest bucket covering the
-        remainder, else the largest; the window is ``[s_adj, s_adj + w)``."""
+        remainder, else the largest; the window is ``[s_adj, s_adj + w)``.
+        Auto-bucketing consults the CURRENT learned set without growing it
+        (``lookup``), so long remainders mint no buckets."""
         c = self._chunk
-        w = next((b for b in self.prompt_buckets if b >= t - s), c)
+        if self.bucketer is not None:
+            w = self.bucketer.lookup(t - s) or c
+        else:
+            w = next((b for b in self.prompt_buckets if b >= t - s), c)
         e = min(s + w, t)
         return w, max(0, e - w), e
 
@@ -407,7 +458,7 @@ class ServingEngine:
         ids = torch.as_tensor(window, device=self.device)
         positions = s_adj + torch.arange(w, device=self.device)[None]
         row_cache = self._row_cache() if row_cache is None else reset_cache_index(row_cache, s_adj)
-        logits, row_cache = self.model(ids, positions=positions, decode=True, cache=row_cache)
+        logits, row_cache = self._programs["prefill_window"](ids, positions, row_cache)
         self.prefill_forwards += 1
         self.prefill_tokens += w
         self._trace_prefill(trace, w, t0)
@@ -431,10 +482,15 @@ class ServingEngine:
         as it was."""
         toks = torch.as_tensor(self.slot_tok, device=self.device)
         poss = torch.as_tensor(self.slot_pos, device=self.device)
+        return self._tick(toks, poss, self.slot_caches)
+
+    def _tick_program(self, toks, poss, caches):
+        """The decode-tick program: ``tick_block`` batched forwards of
+        every slot from ``toks`` at ``poss`` against ``caches``."""
         sampled = [] if self._greedy else [s for s, ph in enumerate(self.slot_phase) if ph == "decode"]
         toks_k, lps_k = [], []
         for _ in range(self.tick_block):
-            logits, _ = self.model(toks[:, None], positions=poss[:, None], decode=True, cache=self.slot_caches)
+            logits, _ = self.model(toks[:, None], positions=poss[:, None], decode=True, cache=caches)
             row = logits[:, -1].float()
             nxt = torch.argmax(row, dim=-1)
             for s in sampled:
@@ -452,9 +508,14 @@ class ServingEngine:
         [K, slots])`` on the host after one sync."""
         toks = torch.as_tensor(self.slot_tok, device=self.device).long()
         poss = torch.as_tensor(self.slot_pos, device=self.device).long()
+        return self._programs["spec_tick"](toks, poss, self.slot_caches, self.draft_caches)
+
+    def _spec_program(self, toks, poss, caches, draft_caches):
+        """The speculative-tick program: ``tick_block`` iterations of the
+        batched speculative step for every slot."""
         emits_k, lps_k, n_k = [], [], []
         for _ in range(self.tick_block):
-            emit, lps, n_emit = self._spec_step(self.slot_caches, self.draft_caches, toks, poss)
+            emit, lps, n_emit = self._spec_step(caches, draft_caches, toks, poss)
             toks = emit.gather(1, (n_emit - 1)[:, None])[:, 0]  # the next fed token: the last emitted
             poss = poss + n_emit
             emits_k.append(emit)
@@ -571,7 +632,8 @@ class ServingEngine:
         if self.draft_model is not None:
             if prefix_id is not None:
                 raise NotImplementedError("speculative serving does not compose with prefix caching yet")
-            if len(prompt) > max(self.prompt_buckets):
+            if self.bucketer is None and len(prompt) > max(self.prompt_buckets):
+                # auto-bucketing mints a covering bucket instead
                 raise ValueError(
                     f"speculative serving needs bucket-sized prompts "
                     f"(len {len(prompt)} > largest bucket {max(self.prompt_buckets)})"
@@ -1038,6 +1100,21 @@ class ServingEngine:
 
     # ---- not ported yet --------------------------------------------------
 
+    @property
+    def program_cache(self) -> ProgramCache:
+        """The :class:`~.aot.ProgramCache` every engine program goes
+        through (the fleet and the process workers read its counters)."""
+        return self._pc
+
+    def _bucket_for(self, n: int) -> Optional[int]:
+        """Covering prefill bucket for an ``n``-token prompt: the minimal
+        static bucket, or (auto-bucketing) the learned bucketer's choice,
+        which records the observation and may mint a bucket. ``None``: no
+        bucket covers it (chunk windows)."""
+        if self.bucketer is not None:
+            return self.bucketer.bucket(n)
+        return next((b for b in self.prompt_buckets if b >= n), None)
+
     def perf_check(self, *args, **kwargs) -> dict:
         raise _not_ported("perf_check", 11)
 
@@ -1203,7 +1280,6 @@ class ServingEngine:
             owned, shared_entries, st["table"], st["write_row"] = plan
             self._slot_blocks[slot], self._slot_shared[slot] = owned, shared_entries
             self._slot_table[slot] = st["table"]
-        b = next((b for b in self.prompt_buckets if b >= len(req.prompt)), None)
         if req.handoff is not None:
             # the rows, the first token and the generator arrived with the
             # request (a handoff, or a failover import with its rows): no
@@ -1212,8 +1288,10 @@ class ServingEngine:
             carried = self._generator_from_state(req.handoff["gen_state"])
             st["gen"] = gen if carried is None else carried
             req.handoff = None
-        elif not resume and req.prefix_id is None and b is not None:
-            st["bucket"] = b  # a short prompt: one bucketed forward
+        elif not resume and req.prefix_id is None and (b := self._bucket_for(len(req.prompt))) is not None:
+            # a short prompt: one bucketed forward (auto-bucketing: the bucketer may mint a covering bucket,
+            # so "short" stretches to any prompt <= max_len)
+            st["bucket"] = b
         else:
             # prefix-seeded, long or resumed: chunk windows. A resumed
             # request recomputes prompt + all but its last generated token,

@@ -33,10 +33,11 @@ replica; this module owns the layer above the engines:
   prompt starting with it prefills only its suffix. Entries evict LRU
   (``max_entries``), never while an active or queued request holds them;
 * **spin-up** -- :meth:`FleetRouter.spin_up` adds and warms a replica
-  over the same model object and reports as ``compiles`` the ``nvcc``
-  builds its warm-up ran (``kernels/build.py``): 0 once the build
-  directory holds the kernel libraries, the port's counterpart of the JAX
-  package's zero-compile spin-up from a shared executable store;
+  over the same model object and reports its program ``compiles`` and
+  ``deserialized`` (0 compiles over a shared executable store,
+  ``from_model(store_dir=...)``, as in the JAX package) and the ``nvcc``
+  builds its warm-up ran (``kernels/build.py``: 0 once the build
+  directory holds the kernel libraries);
 * **fault tolerance** -- every :class:`Replica` runs a ``healthy ->
   degraded -> quarantined -> dead`` health machine driven by error
   classification (engine exceptions, tick wall-time SLO violations,
@@ -696,32 +697,35 @@ class FleetRouter:
         **engine_kwargs,
     ) -> "FleetRouter":
         """N uniform replicas over one model object (its weights held once
-        on the device; each replica has its own slot caches). The JAX
-        package's ``store_dir`` (a shared executable store) is the
-        program-cache layer, not ported yet."""
+        on the device; each replica has its own slot caches). With
+        ``store_dir``, every replica's :class:`~.aot.ProgramCache` shares
+        one :class:`~.aot.ExecutableStore`: the first replica to run a
+        program stores it (its kernel libraries included), every later
+        replica, :meth:`spin_up`'s included, installs it from there."""
         from .serving import ServingEngine
 
-        if store_dir is not None:
-            raise NotImplementedError(
-                "FleetRouter.from_model(store_dir=...): the executable store (aot/) is not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
-            )
-
         def mk(name: str) -> "ServingEngine":
-            return ServingEngine(model, **engine_kwargs)
+            pc = None
+            if store_dir is not None:
+                from .aot import ExecutableStore, ProgramCache
+
+                pc = ProgramCache(store=ExecutableStore(store_dir), name=name)
+            return ServingEngine(model, program_cache=pc, **engine_kwargs)
 
         router = cls([mk(f"r{i}") for i in range(num_replicas)], config=config, trace=trace)
         router._mk_engine = mk
         return router
 
     def spin_up(self, warm_prompt_lens=(4,), max_new_tokens: int = 2, role: str = "mixed") -> dict:
-        """Add one replica at runtime and warm it (one request a length
-        in ``warm_prompt_lens``). Returns ``{"replica", "spinup_ms",
-        "compiles"}``: ``compiles`` is the number of kernel libraries
-        ``nvcc`` built during the warm-up (``kernels/build.py``), 0 once
-        the build directory holds them (the port has no program to compile
-        at spin-up: its kernels are built once, by source hash). Only
-        available on a :meth:`from_model` router."""
+        """Add one replica at runtime and warm its serving programs (one
+        request a length in ``warm_prompt_lens``). Returns ``{"replica",
+        "spinup_ms", "compiles", "deserialized", "nvcc_builds"}``:
+        ``compiles`` and ``deserialized`` are the new replica's program
+        cache misses and store installs (over a shared store the compile
+        count is 0, as in the JAX package), ``nvcc_builds`` the kernel
+        libraries ``nvcc`` built during the warm-up (``kernels/build.py``),
+        0 once the build directory holds them. Only available on a
+        :meth:`from_model` router."""
         from .kernels import build
 
         if self._mk_engine is None:
@@ -756,14 +760,17 @@ class FleetRouter:
         ms = (time.perf_counter() - t0) * 1000.0
         with self._lock:
             self.replicas.append(rep)
-        return {"replica": name, "spinup_ms": round(ms, 3), "compiles": build.nvcc_builds - builds}
+        pc = engine.program_cache
+        return {"replica": name, "spinup_ms": round(ms, 3), "compiles": pc.misses, "deserialized": pc.deserialized,
+                "nvcc_builds": build.nvcc_builds - builds}
 
     def add_replica(
         self, role: str = "mixed", warm_prompt_lens=(4,), max_new_tokens: int = 2
     ) -> dict:
         """Hot re-add: recover capacity lost to a quarantine/death/drain
         by spinning up a fresh replica (:meth:`spin_up` reports its
-        compiles, 0 with the kernels built). The recovery half of the
+        program compiles, 0 over a shared store, and its ``nvcc`` builds,
+        0 with the kernels built). The recovery half of the
         fault-tolerance story; returns the spin-up report."""
         return self.spin_up(
             warm_prompt_lens=warm_prompt_lens, max_new_tokens=max_new_tokens, role=role

@@ -34,9 +34,12 @@ process boundary here:
   thread); the public submit/cancel surface crosses threads through a
   command queue and published snapshots only, never a socket. On the card
   the supervisor builds the serving kernels once before the first spawn,
-  so every worker, a respawn included, reports 0 ``nvcc`` builds: the
-  port's warm start (the JAX package's executable store, ``aot/``, is
-  ROADMAP.md Queue 1 item 9 and not ported).
+  so every worker, a respawn included, reports 0 ``nvcc`` builds; and
+  every worker's :class:`~accelerate_tpu_torch.aot.ProgramCache` opens the
+  one :class:`~accelerate_tpu_torch.aot.ExecutableStore` at ``store_dir``
+  (default ``{run_dir}/store``), so a respawn or a late worker finds every
+  program the first workers recorded: its hello reports 0 ``compiles``
+  and its ``deserialized`` programs, as the JAX package's workers do.
 
 * **front door**: :func:`serve` pairs the supervisor with
   :class:`~accelerate_tpu_torch.telemetry.httpd.TelemetryHTTPD`
@@ -125,7 +128,9 @@ class ProcConfig:
     #: run artifacts: per-worker eventlog JSONLs, worker logs, flight
     #: dumps, worker spec files
     run_dir: str = os.path.join(tempfile.gettempdir(), "accelerate_tpu_torch_proc")
-    #: the JAX package's shared executable store; refused (not ported)
+    #: the executable store every worker's ProgramCache shares (default
+    #: ``{run_dir}/store``): the zero-compile warm start of respawns and
+    #: late workers
     store_dir: Optional[str] = None
     #: prompt lengths each worker prefills at boot (plus one detached
     #: handoff paste on the dense layout), so the first served tick finds
@@ -269,19 +274,25 @@ class EngineWorker:
         factory = _load_factory(spec["model_spec"])
         model = factory(**(spec.get("model_kwargs") or {}), device=self.device)
         self.model_s = time.perf_counter() - t0
+        from .aot import ExecutableStore, ProgramCache
+
+        pc = ProgramCache(store=ExecutableStore(spec["store_dir"]), name=self.name)
         self.engine = ServingEngine(
-            model, telemetry_log=self.log, seed=int(spec.get("seed", 0)), device=self.device,
+            model, program_cache=pc, telemetry_log=self.log, seed=int(spec.get("seed", 0)), device=self.device,
             **(spec.get("engine") or {}),
         )
         self.engine.metrics.replica = self.name
         t0 = time.perf_counter()
         self._warm(spec)
         self.warm_s = time.perf_counter() - t0
-        self.warm_compiles = build.nvcc_builds - builds0
+        self.warm_builds = build.nvcc_builds - builds0
         self.warm_prebuilt = build.prebuilt_loads - prebuilt0
+        self.warm_compiles = int(pc.misses)
+        self.warm_deserialized = int(pc.deserialized)
         self.log.emit(
             "event", "proc_worker_warm", worker=self.name, severity="info",
-            compiles=self.warm_compiles, deserialized=self.warm_prebuilt,
+            compiles=self.warm_compiles, deserialized=self.warm_deserialized,
+            nvcc_builds=self.warm_builds, prebuilt_loads=self.warm_prebuilt,
             model_s=round(self.model_s, 4), warm_s=round(self.warm_s, 4),
         )
 
@@ -329,7 +340,9 @@ class EngineWorker:
             "pid": os.getpid(),
             "device": str(self.engine.device),
             "compiles": self.warm_compiles,
-            "deserialized": self.warm_prebuilt,
+            "deserialized": self.warm_deserialized,
+            "nvcc_builds": self.warm_builds,
+            "prebuilt_loads": self.warm_prebuilt,
             "device_init_s": self.device_init_s,
             "model_s": self.model_s,
             "warm_s": self.warm_s,
@@ -453,8 +466,10 @@ class EngineWorker:
             "done": {str(u): r for u, r in self._unacked.items()},
             "progress": progress,
             "snaps": meta,
-            "compiles": int(build.nvcc_builds),
-            "deserialized": int(build.prebuilt_loads),
+            "compiles": int(self.engine.program_cache.misses),
+            "deserialized": int(self.engine.program_cache.deserialized),
+            "nvcc_builds": int(build.nvcc_builds),
+            "prebuilt_loads": int(build.prebuilt_loads),
             "launches": _launch_counts(),
             "decode_steps": int(self.engine.decode_steps - self._steps_base),
             "tick_profile": self._tick_profile,
@@ -646,11 +661,6 @@ class ProcessSupervisor:
     def __init__(self, config: Optional[ProcConfig] = None):
         self.config = config or ProcConfig()
         cfg = self.config
-        if cfg.store_dir is not None:
-            raise NotImplementedError(
-                "ProcConfig(store_dir=...): the executable store (aot/) is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 9); workers warm-start from the built kernel libraries"
-            )
         if cfg.device not in ("cuda", "cpu"):
             raise ValueError(f"unsupported worker device {cfg.device!r}; use 'cuda' or 'cpu'")
         from .utils.environment import resolve_device
@@ -658,6 +668,8 @@ class ProcessSupervisor:
         resolve_device(cfg.device)  # no card: refuse here, before any worker is spawned
         self.run_dir = cfg.run_dir
         os.makedirs(self.run_dir, exist_ok=True)
+        self.store_dir = cfg.store_dir or os.path.join(self.run_dir, "store")
+        os.makedirs(self.store_dir, exist_ok=True)
 
         from .telemetry.eventlog import EventLog
         from .telemetry.trace import Tracer
@@ -757,6 +769,7 @@ class ProcessSupervisor:
             "port": self.port,
             "token": self._token,
             "run_dir": self.run_dir,
+            "store_dir": self.store_dir,
             "device": cfg.device,
             "model_spec": cfg.model_spec,
             "model_kwargs": cfg.model_kwargs or {},
@@ -834,7 +847,8 @@ class ProcessSupervisor:
             self._log.emit(
                 "event", "proc_hello", worker=matched["name"], severity="info",
                 pid=hello.get("pid"), compiles=hello.get("compiles"),
-                deserialized=hello.get("deserialized"), spinup_s=round(spinup_s, 4),
+                deserialized=hello.get("deserialized"), nvcc_builds=hello.get("nvcc_builds"),
+                spinup_s=round(spinup_s, 4),
             )
 
     # ------------------------------------------------------------------ #
@@ -1117,7 +1131,7 @@ class ProcessSupervisor:
         slot["status"] = {
             "queue": reply.get("queue", 0), "active": reply.get("active", 0),
             "busy": reply.get("busy", False), "compiles": reply.get("compiles", 0),
-            "deserialized": reply.get("deserialized", 0),
+            "deserialized": reply.get("deserialized", 0), "nvcc_builds": reply.get("nvcc_builds", 0),
             "launches": reply.get("launches", {}), "decode_steps": reply.get("decode_steps", 0),
             "tick_profile": reply.get("tick_profile"), "timing": reply.get("timing", {}),
             "metrics": reply.get("metrics", {}),
@@ -1412,6 +1426,7 @@ class ProcessSupervisor:
                 "outstanding": len(slot["uids"]),
                 "compiles": (slot.get("status") or {}).get("compiles"),
                 "deserialized": (slot.get("status") or {}).get("deserialized"),
+                "nvcc_builds": (slot.get("status") or {}).get("nvcc_builds"),
                 "draining": self._drain_flag.is_set(),
             }
             for slot in self._slots
@@ -1474,7 +1489,9 @@ class ProcessSupervisor:
     def worker_stats(self) -> dict:
         """Per worker incarnation (a dead one's kept), from its hello and
         its last polled status: pid, health, spin-up seconds (spawn to
-        hello), the hello (``compiles``: ``nvcc`` builds during boot;
+        hello), the hello (``compiles`` / ``deserialized``: the programs
+        its boot compiled and installed from the store; ``nvcc_builds`` /
+        ``prebuilt_loads``: the kernel libraries it built and found built;
         ``model_s``, ``warm_s``), the serving kernels' launch counts and
         the decode steps since the last :meth:`reset_counts`, host tick and
         status-reply timers, the last tick profile, and the engine's numeric

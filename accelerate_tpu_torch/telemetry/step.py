@@ -21,9 +21,12 @@ kernels' first-use costs), as is any call the watchdog flags.
 The **recompile watchdog** keeps the JAX event: after ``warmup_steps``
 calls, an input signature (structure + dtype and shape of each leaf) never
 seen before emits ONE ``recompile`` warning naming what changed; a shape
-seen before stays silent. Eager PyTorch has no compile cache to
-cross-check, so the JAX ``_cache_size`` probe has no counterpart here: the
-signature is the whole check.
+seen before stays silent. A step routed through a
+:class:`~..aot.ProgramCache` (``wrap_jit``) exposes ``_cache_size``, the
+programs it holds, one a signature: the watchdog probes it as the JAX one
+probes jit's cache, so a program built with no tracked input change is a
+miss too. Under auto-bucketing a ragged stream runs one signature a
+bucket, and the watchdog stays silent once the buckets are warm.
 
 The **perf-model drift check** compares the observed steady busy time with
 a static prediction when one is attached (:meth:`StepTelemetry.
@@ -215,7 +218,7 @@ class StepTelemetry:
         Watchdog state (warmup counter, seen signatures) is per wrapper: a
         second wrapped function, or one wrapped after imperative steps
         already ran, gets its own warmup."""
-        wd = _WatchdogState(self.warmup_steps)
+        wd = _WatchdogState(self.warmup_steps, step_fn if hasattr(step_fn, "_cache_size") else None)
 
         def instrumented(*args, **kwargs):
             sig = signature_of((args, kwargs)) if self.watchdog else None
@@ -259,9 +262,15 @@ class StepTelemetry:
         through the wrapper owning ``wd``. During warmup every signature
         is learned silently, a fresh one still flagging the step as a
         compile step (keeping the steady-state stats clean); afterwards a
-        never-seen signature is a miss."""
+        never-seen signature, or a program cache that grew under an unchanged
+        signature, is a miss."""
+        cache_grew = False
+        if wd.probe is not None:
+            size = wd.probe._cache_size()
+            cache_grew = size > wd.probe_size
+            wd.probe_size = size
         if not self.watchdog:
-            return False, [], False
+            return False, [], cache_grew
         in_warmup = wd.calls < wd.warmup
         if sig is not None:
             fresh = sig not in wd.seen
@@ -269,9 +278,13 @@ class StepTelemetry:
         else:
             fresh = False
         if in_warmup:
-            return False, [], fresh
+            return False, [], cache_grew or fresh
         if sig is not None and fresh:
             return True, diff_signatures(wd.last_sig, sig), True
+        if cache_grew:
+            # the signature is unchanged (or untracked), yet a program was built
+            changed = diff_signatures(wd.last_sig, sig) if sig else ["program cache grew with no tracked input change"]
+            return True, changed, True
         return False, [], False
 
     def _record(self, name, sig, t_enter, t_done, t_fence, wd: "_WatchdogState"):
@@ -420,17 +433,20 @@ class StepTelemetry:
 
 class _WatchdogState:
     """Per-wrapper watchdog bookkeeping: warmup counter, seen input
-    signatures, last signature (for diff naming). One per
-    :meth:`StepTelemetry.wrap` call (and one shared by the context-manager
-    path): warmup belongs to a step function, not to the run."""
+    signatures, last signature (for diff naming), and the program cache's
+    size probe. One per :meth:`StepTelemetry.wrap` call (and one shared by
+    the context-manager path): warmup belongs to a step function, not to
+    the run."""
 
-    __slots__ = ("warmup", "calls", "seen", "last_sig")
+    __slots__ = ("warmup", "calls", "seen", "last_sig", "probe", "probe_size")
 
-    def __init__(self, warmup: int):
+    def __init__(self, warmup: int, probe=None):
         self.warmup = warmup
         self.calls = 0
         self.seen: set = set()
         self.last_sig: Optional[tuple] = None
+        self.probe = probe
+        self.probe_size = 0
 
 
 class _StepHandle:

@@ -5,8 +5,9 @@ A subset of :mod:`accelerate_tpu.utils.dataclasses`: the precision policy
 handlers, the runtime telemetry's knobs (``TelemetryKwargs``), the tracker
 types (``LoggerType``), gradient accumulation, the data loader
 configuration, the RNG types, the project (checkpoint directory)
-configuration, the fault-tolerance handler, the serving scheduler's
-knobs (``ServingSchedulerKwargs``), and a ``ParallelismPlugin`` that
+configuration, the fault-tolerance handler, the compile cache's knobs
+(``CompileKwargs``), the serving scheduler's knobs
+(``ServingSchedulerKwargs``), and a ``ParallelismPlugin`` that
 takes the one-device layout only. The other
 layouts (data, fsdp, tensor, seq, pipe, expert axes), ZeRO, gradient
 compression and optimizer offload raise ``NotImplementedError``: they are
@@ -280,9 +281,10 @@ class DataLoaderConfiguration(KwargsHandler):
     global one), ``dispatch_batches`` (one reader hands out every batch),
     ``even_batches`` (the last batch wraps round to a full one),
     ``use_seedable_sampler``, ``prefetch_size`` (batches copied to the card
-    ahead of the one yielded) and ``non_blocking`` (copies from pinned
-    memory without waiting). ``auto_bucketing`` raises: the shape bucketer
-    is ROADMAP.md Queue 1 item 9."""
+    ahead of the one yielded), ``non_blocking`` (copies from pinned
+    memory without waiting) and ``auto_bucketing`` (a batch's leading dim
+    is wrap-padded up to a learned bucket, :class:`~..aot.ShapeBucketer`,
+    so a ragged tail runs the steady batch's program)."""
 
     split_batches: bool = False
     dispatch_batches: Optional[bool] = None
@@ -292,22 +294,15 @@ class DataLoaderConfiguration(KwargsHandler):
     non_blocking: bool = True
     auto_bucketing: bool = False
 
-    def __post_init__(self):
-        if self.auto_bucketing:
-            raise NotImplementedError(
-                "DataLoaderConfiguration(auto_bucketing=True): aot/bucketing.py is not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
-            )
-
 
 @dataclass
 class ProjectConfiguration(KwargsHandler):
     """Checkpoint/log directory layout, as the JAX package's: with
     ``automatic_checkpoint_naming`` saves go to
     ``{project_dir}/{checkpoints_dir_name}/checkpoint_{iteration}`` and
-    ``total_limit`` keeps the newest ones. ``compile_cache_dir_name`` is
-    kept for the compile cache (ROADMAP.md Queue 1 item 9); nothing of the
-    port reads it yet."""
+    ``total_limit`` keeps the newest ones. ``compile_cache_dir_name`` names
+    the compile cache's directory under ``project_dir`` (``CompileKwargs``
+    without a ``cache_dir``)."""
 
     project_dir: Optional[str] = None
     logging_dir: Optional[str] = None
@@ -326,6 +321,46 @@ class ProjectConfiguration(KwargsHandler):
     def __post_init__(self):
         if self.logging_dir is None:
             self.logging_dir = self.project_dir
+
+
+@dataclass
+class CompileKwargs(KwargsHandler):
+    """Compile-management knobs consumed by ``Accelerator.program_cache``
+    (see :mod:`accelerate_tpu_torch.aot`), the JAX package's fields.
+
+    Passing this handler *activates* the subsystem: a
+    :class:`~..aot.ExecutableStore` is opened at
+    ``{cache_dir}/executables`` and ``build_train_step`` /
+    ``build_eval_step`` route their calls through the shared
+    :class:`~..aot.ProgramCache`, so a restarted process installs the
+    kernel libraries its programs recorded instead of running ``nvcc``.
+    Setting ``ACCELERATE_COMPILE_CACHE_DIR`` activates the same default
+    configuration without code changes.
+
+    ``cache_dir=None`` resolves via ``ACCELERATE_COMPILE_CACHE_DIR``, then
+    ``{ProjectConfiguration.project_dir}/compile_cache`` (see
+    :func:`accelerate_tpu_torch.aot.resolve_cache_dir`); with no directory
+    at all the cache still deduplicates and emits telemetry, memory-only."""
+
+    cache_dir: Optional[str] = None
+    #: keeps the JAX name; here it points the process's kernel library
+    #: directory at ``{cache_dir}/cuda`` (:func:`~..aot.configure_persistent_cache`),
+    #: so every library ``nvcc`` builds outlives the process, whether a
+    #: stored program recorded it or not
+    persistent_xla_cache: bool = True
+    #: keep each program's record and its kernel libraries in the store so
+    #: a new process warm-starts with no ``nvcc`` build
+    executable_store: bool = True
+    #: the JAX package's threshold for persisting an XLA compile; accepted
+    #: and validated, every kernel library is kept
+    min_compile_time_secs: float = 1.0
+    #: route ``build_train_step``'s calls through the ProgramCache (the
+    #: warm-start path); False keeps the plain step
+    aot_train_step: bool = True
+
+    def __post_init__(self):
+        if self.min_compile_time_secs < 0:
+            raise ValueError(f"min_compile_time_secs must be >= 0, got {self.min_compile_time_secs}")
 
 
 @dataclass

@@ -33,9 +33,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+# the process's own choice of that directory (set_kernel_build_dir); the
+# environment variable, when set, wins over it
+_build_dir_override: Optional[Path] = None
+
+
+def set_kernel_build_dir(path) -> bool:
+    """Point this process's kernel library directory at ``path`` unless
+    ``ACCELERATE_TPU_TORCH_BUILD_DIR`` or an earlier call already chose one
+    (re-pointing mid-process would split the built set); returns whether
+    this call chose it."""
+    global _build_dir_override
+    if os.environ.get(BUILD_DIR_ENV) or _build_dir_override is not None:
+        return False
+    _build_dir_override = Path(path)
+    return True
+
+
 def kernel_build_dir() -> Path:
-    """Directory for compiled kernel libraries (created on first use)."""
+    """Directory for compiled kernel libraries (created on first use):
+    ``ACCELERATE_TPU_TORCH_BUILD_DIR``, else the one
+    :func:`set_kernel_build_dir` chose, else ``build/cuda`` in the checkout."""
     env = os.environ.get(BUILD_DIR_ENV)
-    root = Path(env) if env else Path(__file__).resolve().parents[2] / "build" / "cuda"
+    if env:
+        root = Path(env)
+    elif _build_dir_override is not None:
+        root = _build_dir_override
+    else:
+        root = Path(__file__).resolve().parents[2] / "build" / "cuda"
     root.mkdir(parents=True, exist_ok=True)
     return root

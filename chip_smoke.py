@@ -84,7 +84,7 @@ it, all three equal. Then the slices:
   Gemma3) are served paged on the card and held to the CPU engine; Gemma2
   on the paged engine raises, naming the dense layout;
 * the paged engine's memory and scheduling (``--only sched``):
-  Mistral-7B-v0.1 at full width, 4 of its 32 layers (seeded random
+  Mistral-7B-v0.1 at full width, 2 of its 32 layers (seeded random
   weights, bf16) behind the engine, every decode step's attention through K4 in its
   4096-key band, held at that shape against its plain version (NaN in
   every expired entry): 12 prompts of 300-7,900 tokens on a pool sized
@@ -95,7 +95,7 @@ it, all three equal. Then the slices:
   recompute, against an unpreempted control, and a structured
   ``ShedError`` (``preempt_serve``);
 * the dense serving layout, speculative serving and beam search (``--only
-  dense``): Gemma-2-9B at full width, 8 of its 42 layers (seeded random
+  dense``): Gemma-2-9B at full width, 4 of its 42 layers (seeded random
   weights, bf16; its softcaps and its 4096-key band on alternate layers) served on
   the dense layout (``gemma2_serve``: 12 prompts of 16-2,000 tokens and
   one of 3,000, 64 new, greedy tokens against the teacher-forced dense
@@ -213,7 +213,19 @@ it, all three equal. Then the slices:
   for bit), served by the paged engine (K4; greedy tokens against the
   no-cache loop), quantized to int4 and decoded by ``generate`` (K5), and,
   loaded again with f32 masters, fine-tuned 3 steps at 8 x 2048 (K1-K3),
-  each kernel's launches counted in the group and joining the kernels line.
+  each kernel's launches counted in the group and joining the kernels line;
+* compile management (``--only aot``): three subprocesses of this script
+  on one executable store, each with a fresh, empty kernel build
+  directory. ``aot_cold`` serves TinyLlama-1.1B at all 22 layers (bf16,
+  paged, auto-bucketing from the seed bucket 32 over prompts of 17 to 700
+  tokens) through a ``ProgramCache`` (K4 == 22 x decode steps, greedy
+  tokens held to the no-cache loop) and trains it 3 steps at 8 x 2048
+  under ``CompileKwargs`` from a loader that wrap-pads a 5-row tail (K1
+  132, K2 = K3 66): misses == its distinct programs, nvcc builds > 0.
+  ``aot_warm`` runs both paths again: 0 nvcc builds, 0 misses, every
+  program deserialized, the same tokens, bit-equal losses. ``aot_poison``
+  corrupts K4's library entry and makes one prefill program's header
+  foreign, then serves: 2 rejections, K4 built once, the same tokens.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -1427,8 +1439,9 @@ def banded_serve_card_vs_cpu(torch, cpu, card, family, lengths=None) -> dict:
 
 def phase_families_consistency(torch):
     """Each family at its published widths cut to 1 layer (Gemma3 keeps one
-    sliding and one full layer), f32, built on the CPU and copied to the
-    card: the card's forward logits (batch 2 x 64) within 1e-4 of the CPU's
+    sliding and one full layer), f32, drawn on the card and copied to the
+    CPU (drawing a billion parameters on the CPU took most of the phase): the
+    card's forward logits (batch 2 x 64) within 1e-4 of the CPU's
     RMS; greedy generate of 8 tokens after 16 equal to the CPU's, a token
     differing only where the CPU's top-2 logit gap on that prefix is under
     1e-3 (which ends that row's comparison). The banded families (Mistral,
@@ -1458,8 +1471,8 @@ def phase_families_consistency(torch):
             kw = {"num_hidden_layers": 2, "layer_types": ("sliding_attention", "full_attention")}
         cfg = family_config(family, preset, **kw)
         t0 = time.perf_counter()
-        cpu = create_llama_model(cfg, seed=5, device="cpu")
-        card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+        card = create_llama_model(cfg, seed=5, device="cuda")
+        cpu = Model(copy.deepcopy(card.module).to("cpu"), cfg, name=card.name)
         ids = rng.integers(1, cfg.vocab_size, size=(2, 64)).astype(np.int32)
         with torch.no_grad():
             want = cpu(torch.as_tensor(ids))
@@ -1542,10 +1555,9 @@ def phase_families_consistency(torch):
 MISTRAL_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), paged_block_size=16, tick_block=8, max_len=8192)
 # the windowed need: a request in its band holds at most 266 blocks at 128 new tokens
 MISTRAL_POOL = 8 * 266 + 1
-# Mistral-7B-v0.1's 32 layers cut to 8 (its widths, band and engine kept) since PR 15, and to 4 since PR 18 (the
-# proc group's share): the whole script must end within its 1,200 s, and at full depth the three sched phases
-# took 251 s of a 1,035 s run (PERF.md §4)
-SCHED_LAYERS = 4
+# Mistral-7B-v0.1's 32 layers cut to 2 (its widths, band and engine kept): the whole script must end within its
+# 1,200 s, and at full depth the three sched phases took 251 s of a 1,035 s run (PERF.md §4 lists each cut)
+SCHED_LAYERS = 2
 MISTRAL_LENGTHS = (300, 1200, 2500, 3968, 4000, 4090, 4500, 5000, 5600, 6100, 7000, 7900)
 
 
@@ -2099,7 +2111,7 @@ def phase_sched(torch):
 
 # ---------------------------------------------------------------------------
 # the dense serving layout, speculative serving and beam search: Gemma-2-9B at
-# full width, 8 of 42 layers (its softcaps, its 4096-key band on alternate layers)
+# full width, 4 of 42 layers (its softcaps, its 4096-key band on alternate layers)
 # with a Gemma-2-2B draft; no kernel of the JAX package lies on these paths
 # (the dense cache's attention is an einsum there as here)
 # ---------------------------------------------------------------------------
@@ -2109,10 +2121,9 @@ def phase_sched(torch):
 # rest Gemma2Config's defaults, which are google/gemma-2-9b's config.json: Gemma2Config.gemma2_9b())
 GEMMA2_2B = dict(hidden_size=2304, intermediate_size=9216, num_hidden_layers=26, num_attention_heads=8,
                  num_key_value_heads=4, head_dim=256, query_pre_attn_scalar=256.0, sliding_window=4096)
-# Gemma-2-9B's 42 layers cut to 14 and the draft's 26 to 8 (widths, softcaps and the alternating band kept)
-# since PR 15, to 8 and 4 since PR 18, for the script's 1,200 s: the group's serving phases took 151 s of a
-# 1,035 s run at full depth
-DENSE_TARGET_LAYERS, DENSE_DRAFT_LAYERS = 8, 4
+# Gemma-2-9B's 42 layers cut to 4 and the draft's 26 to 2 (widths, softcaps and the alternating band kept), for
+# the script's 1,200 s: the group's serving phases took 151 s of a 1,035 s run at full depth (PERF.md §4)
+DENSE_TARGET_LAYERS, DENSE_DRAFT_LAYERS = 4, 2
 DENSE_ENGINE = dict(num_slots=8, prompt_buckets=(256, 2048), tick_block=8, max_len=4096)
 DENSE_LENGTHS = (16, 128, 200, 333, 512, 700, 1000, 1234, 1500, 1750, 1900, 2000)
 DENSE_LONG = 3000  # past the largest bucket: chunked prefill, plain serving only (speculation takes bucket-sized)
@@ -2423,8 +2434,8 @@ def stream_vs_cpu(torch, cpu, prompt, want, got, want_lps, got_lps, what) -> tup
 
 
 def phase_dense_consistency(torch):
-    """2-layer f32 cuts of TinyLlama's and Gemma-2-9B's widths, built on the
-    CPU and copied to the card, each with a 1-layer cut as its draft: the
+    """2-layer f32 cuts of TinyLlama's and Gemma-2-9B's widths, drawn on the
+    card and copied to the CPU, each with a 1-layer cut as its draft: the
     dense engine plain (a 100-token prompt through chunk windows) and
     speculative (gamma 3), and beam search (2 prompts, 3 beams), on the card
     and on the CPU: tokens equal (stream_vs_cpu), logprobs and beam scores
@@ -2445,8 +2456,8 @@ def phase_dense_consistency(torch):
         ("gemma2_9b", Gemma2Config.gemma2_9b(num_hidden_layers=2), Gemma2Config.gemma2_9b(num_hidden_layers=1)),
     ):
         t0 = time.perf_counter()
-        cpu, dcpu = create_llama_model(cfg, seed=5, device="cpu"), create_llama_model(dcfg, seed=6, device="cpu")
-        card, dcard = (Model(copy.deepcopy(m.module).to("cuda"), m.config, name=m.name) for m in (cpu, dcpu))
+        card, dcard = create_llama_model(cfg, seed=5, device="cuda"), create_llama_model(dcfg, seed=6, device="cuda")
+        cpu, dcpu = (Model(copy.deepcopy(m.module).to("cpu"), m.config, name=m.name) for m in (card, dcard))
         prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 40, 100)]
         kw = dict(num_slots=2, prompt_buckets=(16, 64), tick_block=4, max_len=512)
         row = {"model": name, "params": cpu.num_parameters(), "draft_params": dcpu.num_parameters()}
@@ -3058,9 +3069,9 @@ def imperative_trainer(torch, cfg, accum, seed=0, lr=3e-4):
     return acc, model, opt
 
 
-# the imperative phase trains TinyLlama's widths at 8 of its 22 layers since PR 18 (22 before): the script's
-# 1,200 s with the process fleet's group (PERF.md §4)
-IMPERATIVE_LAYERS = 8
+# the imperative phase trains TinyLlama's widths at 4 of its 22 layers: the script's 1,200 s with the process
+# fleet's and the aot groups (PERF.md §4)
+IMPERATIVE_LAYERS = 4
 
 
 def phase_imperative(torch):
@@ -4548,8 +4559,8 @@ MOE_TIE_MARGIN = 1e-6
 MOE_UPDATE_TOL = 2e-3
 # EleutherAI/gpt-neox-20b config.json: GPTNeoXConfig.neox_20b()'s defaults (vocab 50,432, hidden 6144, 44 layers,
 # 64 heads of 96, rotary on 24 dims, parallel residual). Served at full depth under --only gpt; the full script
-# cuts it to NEOX_LAYERS (12 in PRs 16-17, 6 since PR 18) to end inside its 1,200 s
-NEOX_LAYERS = 6
+# cuts it to NEOX_LAYERS to end inside its 1,200 s (PERF.md §4)
+NEOX_LAYERS = 3
 # K4 at the GPT serves' decode shapes: GPT-NeoX-20B's 64 heads of 96 and GPT-2's 12 heads of 64, MHA
 GPT_KERNEL_CASES = [
     ("bf16-neox20b", "bfloat16", 64, 64, 96, None, 2e-2),
@@ -4992,7 +5003,7 @@ def phase_gpt2_train(torch):
 
 def phase_gpt_consistency(torch):
     """GPT-2 and GPT-NeoX-20B at their published widths cut to 2 layers, f32,
-    built on the CPU and copied to the card: the card's logits (batch 2 x 64)
+    drawn on the card and copied to the CPU: the card's logits (batch 2 x 64)
     within 1e-4 of the CPU's RMS; greedy generate of 8 tokens after 16 equal
     to the CPU's (a token differing only where the CPU's top-2 gap is under
     1e-3, which ends that row); the paged engine on the card against the
@@ -5009,8 +5020,8 @@ def phase_gpt_consistency(torch):
     for family, cfg, create in (("gpt2", GPT2Config.small(num_hidden_layers=2), create_gpt2_model),
                                 ("gptneox", GPTNeoXConfig.neox_20b(num_hidden_layers=2), create_gptneox_model)):
         t0 = time.perf_counter()
-        cpu = create(cfg, seed=5, device="cpu")
-        card = Model(copy.deepcopy(cpu.module).to("cuda"), cfg, name=cpu.name)
+        card = create(cfg, seed=5, device="cuda")
+        cpu = Model(copy.deepcopy(card.module).to("cpu"), cfg, name=card.name)
         ids = rng.integers(1, cfg.vocab_size, size=(2, 64)).astype(np.int32)
         with torch.no_grad():
             want = cpu(torch.as_tensor(ids))
@@ -5478,7 +5489,7 @@ def phase_fleet_telemetry(torch, model, prompts) -> dict:
         drift = fr.critpath.drift_events
         check(not {"kv_handoff", "failover"} & set(drift), f"fleet telemetry: no byte drift ({drift})")
         spin = fr.spin_up(warm_prompt_lens=(64,), max_new_tokens=8)
-        check(spin["compiles"] == 0, f"fleet telemetry: spin_up compiles 0 ({spin})")
+        check(spin["nvcc_builds"] == 0, f"fleet telemetry: spin_up builds no kernel library ({spin})")
         by_class = decompose(traces)["by_class"]
         row = {"phase": "fleet_telemetry", "config": f"TinyLlama-1.1B shape, {FLEET_LAYERS} layers, bf16; dense replicas "
                "prefill, decode, decode; a crash on r1 at mid_decode", "requests": len(fuids),
@@ -5488,7 +5499,8 @@ def phase_fleet_telemetry(torch, model, prompts) -> dict:
                "segments_share": {k: v["share"] for k, v in by_class.items()},
                "drift": sorted(drift), "flight_dumps": report.get("traces", {}).get("flight_dumps"),
                "failover_accounting": acc, "handoff_accounting": hacc,
-               "spinup_ms": spin["spinup_ms"], "spinup_compiles": spin["compiles"]}
+               "spinup_ms": spin["spinup_ms"], "spinup_nvcc_builds": spin["nvcc_builds"],
+               "spinup_program_compiles": spin["compiles"]}
         del fr
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5658,7 +5670,8 @@ def proc_worker_rows(sup) -> dict:
         out[name] = {
             "health": st["health"], "spinup_s": st.get("spinup_s"), "device_init_s": hello.get("device_init_s"),
             "model_s": hello.get("model_s"),
-            "warm_s": hello.get("warm_s"), "nvcc_builds": hello.get("compiles"),
+            "warm_s": hello.get("warm_s"), "nvcc_builds": hello.get("nvcc_builds"),
+            "program_compiles": hello.get("compiles"), "programs_deserialized": hello.get("deserialized"),
             "ticks": timing.get("ticks"), "tick_ms_mean": timing["tick_ms"] / timing["ticks"]
             if timing.get("ticks") else None,
             "polls": timing.get("polls"), "status_ms_mean": timing["status_ms"] / timing["polls"]
@@ -5705,7 +5718,7 @@ def phase_proc_serve(torch, model, prompts, control_out, work, then=None) -> dic
     with contextlib.ExitStack() as stack:
         sup = proc_ready(proc_spawn(stack, proc_config(work / "serve")))
         boot_s = sup.boot_s
-        check(all(s["hello"]["compiles"] == 0 for s in sup.worker_stats().values()),
+        check(all(s["hello"]["nvcc_builds"] == 0 for s in sup.worker_stats().values()),
               f"proc serve: the workers built no kernel ({sup.worker_stats()})")
         sup.reset_counts()
         t0 = time.perf_counter()
@@ -5878,9 +5891,11 @@ def phase_proc_chaos(torch, model, prompts, control_out, sups) -> dict:
         """The sigstop leg's slot, respawned while the later legs ran."""
         proc_wait(sup, lambda: sup.worker_stats().get("w1.1", {}).get("health") == "healthy", "w1 respawned", 180)
         st = sup.worker_stats()["w1.1"]
-        check(st["hello"]["compiles"] == 0, f"proc chaos (sigstop): the respawn built no kernel ({st['hello']})")
+        check(st["hello"]["nvcc_builds"] == 0, f"proc chaos (sigstop): the respawn built no kernel ({st['hello']})")
+        check(st["hello"]["compiles"] == 0, f"proc chaos (sigstop): the respawn compiled no program ({st['hello']})")
         sup.shutdown()
-        return {"respawn": {"spinup_s": st["spinup_s"], "nvcc_builds": st["hello"]["compiles"],
+        return {"respawn": {"spinup_s": st["spinup_s"], "nvcc_builds": st["hello"]["nvcc_builds"],
+                            "programs_deserialized": st["hello"]["deserialized"],
                             "model_s": st["hello"]["model_s"], "warm_s": st["hello"]["warm_s"]}}
 
     def rows_polled(sup):
@@ -7483,6 +7498,252 @@ def phase_hub(torch, smi) -> dict:
     return {"k4": serve["k4_launches"], "k5": int4["int4_launches"], "flash": launches}
 
 
+AOT_LENGTHS = (17, 33, 90, 129, 250, 300, 513, 700)  # auto-bucketing from the seed (32,): six prefill buckets
+AOT_NEW = 16
+AOT_ENGINE = dict(num_slots=8, prompt_buckets=(32,), paged_block_size=16, tick_block=8)
+AOT_ROWS, AOT_BATCH, AOT_SEQ = 21, 8, 2048  # three batches: 8, 8, and a tail of 5 wrap-padded to 8
+AOT_LIBRARIES = ("paged_attention", "flash_fwd_sm90", "flash_bwd_sm90")
+
+
+def aot_events(path) -> dict:
+    """The compile_cache_* events of one child's program caches: the disk
+    hits' deserialize ms and the misses' compile ms, summed, and the
+    rejections."""
+    from accelerate_tpu_torch.telemetry.eventlog import read_events
+
+    events = read_events(str(path)) if Path(path).exists() else []
+    hits = [e for e in events if e["name"] == "compile_cache_hit" and e.get("source") == "disk"]
+    misses = [e for e in events if e["name"] == "compile_cache_miss"]
+    return {"deserialize_ms": sum(e["deserialize_ms"] for e in hits), "compile_ms": sum(e["compile_ms"] for e in misses),
+            "compile_ms_by_program": sorted((e["program"], e["compile_ms"]) for e in misses),
+            "rejects": sorted((e["program"], e["reason"]) for e in events if e["name"] == "compile_cache_reject")}
+
+
+def aot_serve(torch, store, log, check_reference, ready=None):
+    """The paged engine over TinyLlama at all 22 layers in bf16 with
+    auto-bucketing, its programs through a ProgramCache over the store:
+    AOT_LENGTHS' requests, AOT_NEW new tokens each, greedy. ``ready()``
+    runs after the model is built, before the first program."""
+    from accelerate_tpu_torch import LlamaConfig, ServingEngine, create_llama_model
+    from accelerate_tpu_torch.aot import ExecutableStore, ProgramCache
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    cfg = LlamaConfig(**TINYLLAMA)
+    t0 = time.perf_counter()
+    model = create_llama_model(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    if ready is not None:
+        ready()
+    pc = ProgramCache(store=ExecutableStore(os.path.join(store, "executables")), log=log, name="serving")
+    eng = ServingEngine(model, program_cache=pc, auto_bucketing=True, **AOT_ENGINE)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in AOT_LENGTHS]
+    pa.launches = 0
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, AOT_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    k4 = pa.launches
+    served = [(p, eng.poll(u)[len(p):], eng.logprobs(u)) for u, p in zip(uids, prompts)]
+    check(all(len(t) == AOT_NEW and np.isfinite(lp).all() for _, t, lp in served),
+          "aot serve: every request's tokens and finite logprobs")
+    check(k4 == cfg.num_hidden_layers * eng.decode_steps > 0,
+          f"aot serve: K4 launches {k4} == {cfg.num_hidden_layers} x decode steps {eng.decode_steps}")
+    out = {"model_s": model_s, "serve_s": serve_s, "buckets": list(eng.bucketer.buckets),
+           "programs": {n: w._cache_size() for n, w in eng._programs.items()}, "k4": k4,
+           "decode_steps": eng.decode_steps, "tokens": [t.tolist() for _, t, _ in served],
+           "logprobs": [lp.tolist() for _, _, lp in served], **pc.stats()}
+    if check_reference:
+        compared, near_ties, max_lp_err = greedy_against_reference(torch, model, served, gap_limit=SERVE_BF16_GAP)
+        check(compared > 0 and max_lp_err < SERVE_LP_LIMIT,
+              f"aot serve: {compared} tokens against the no-cache loop, logprob err {max_lp_err} < {SERVE_LP_LIMIT}")
+        out.update(tokens_compared=compared, stopped_at_near_tie=near_ties, max_logprob_err=max_lp_err)
+    del eng, model
+    free_memory(torch)
+    return out
+
+
+def aot_train(torch, store, log, ready=None):
+    """TinyLlama at all 22 layers, f32 masters, bf16 compute and remat,
+    under CompileKwargs(cache_dir=store) with persistent_xla_cache off, fed
+    by a loader with auto-bucketing: AOT_ROWS rows of AOT_SEQ tokens at
+    batch AOT_BATCH, the tail wrap-padded to the batch; one step a batch."""
+    from accelerate_tpu_torch import (Accelerator, CompileKwargs, DataLoaderConfiguration, LlamaConfig,
+                                      causal_lm_loss, create_llama_model)
+
+    rng = np.random.default_rng(29)
+    ids = (rng.pareto(1.2, size=(AOT_ROWS, AOT_SEQ)) * 50).astype(np.int64) % TINYLLAMA["vocab_size"]
+    acc = Accelerator(mixed_precision="bf16",
+                      dataloader_config=DataLoaderConfiguration(auto_bucketing=True, even_batches=False),
+                      kwargs_handlers=[CompileKwargs(cache_dir=store, persistent_xla_cache=False)])
+    acc.program_cache.log = log
+    t0 = time.perf_counter()
+    model = acc.prepare_model(create_llama_model(LlamaConfig(**TINYLLAMA, remat=True), seed=0, dtype=torch.float32))
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    if ready is not None:
+        ready()
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=3e-4, weight_decay=0.01))
+    loader = acc.prepare_data_loader([{"input_ids": row} for row in ids], batch_size=AOT_BATCH)
+    step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
+    reset_flash_counts()
+    losses, step_ms, shapes = [], [], []
+    for batch in loader:
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        shapes.append(list(batch["input_ids"].shape))
+    launches = flash_counts()
+    n, layers = len(losses), TINYLLAMA["num_hidden_layers"]
+    check(shapes == [[AOT_BATCH, AOT_SEQ]] * 3 and loader.remainder == AOT_ROWS % AOT_BATCH,
+          f"aot train: three {AOT_BATCH}-row batches, the tail's {AOT_ROWS % AOT_BATCH} real rows kept in "
+          f"remainder ({shapes}, {loader.remainder})")
+    check(launches == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n},
+          f"aot train: flash launches {launches} == K1 2 x {layers} x {n}, K2/K3 {layers} x {n}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"aot train: losses finite and falling {losses}")
+    out = {"model_s": model_s, "losses": losses, "step_ms": step_ms, "launches": launches,
+           "bucketer": list(loader.bucketer.buckets), "signatures": step._cache_size(), **acc.program_cache.stats()}
+    del acc, model, step
+    free_memory(torch)
+    return out
+
+
+def aot_child(torch, role: str, store: str, out_path: str) -> int:
+    """One process of the aot group (``--aot-child cold|warm|poison``),
+    started by ``phase_aot`` with a fresh, empty kernel build directory.
+    The cold one starts every library's nvcc at once (two threads: K4's,
+    and K1-K3's two) while it builds its models, and each path's first
+    program waits for its libraries; every process serves, all but the
+    poisoned one train. Writes its counters to ``out_path``."""
+    from accelerate_tpu_torch.kernels import build
+    from accelerate_tpu_torch.telemetry.eventlog import EventLog
+
+    t_start = time.perf_counter()
+    serve_ready = train_ready = None
+    if role == "cold":
+        nvcc_threads = [threading.Thread(target=build.build_all, args=(names,))
+                        for names in (AOT_LIBRARIES[:1], AOT_LIBRARIES[1:])]
+        for t in nvcc_threads:
+            t.start()
+        serve_ready, train_ready = nvcc_threads[0].join, nvcc_threads[1].join
+    log_path = Path(out_path).with_suffix(".events.jsonl")
+    log = EventLog(str(log_path), rank=0, main_process_only=False)
+    res = {"role": role, "build_dir": str(build.kernel_build_dir())}
+    try:
+        res["serve"] = aot_serve(torch, store, log, check_reference=role == "cold", ready=serve_ready)
+        if role != "poison":
+            res["train"] = aot_train(torch, store, log, ready=train_ready)
+    finally:
+        log.close()
+    res.update(nvcc_builds=build.nvcc_builds, prebuilt_loads=build.prebuilt_loads,
+               wall_s=time.perf_counter() - t_start, **aot_events(log_path))
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def aot_poison(store: Path) -> dict:
+    """Corrupt the bytes of K4's library entry in the store and rewrite the
+    header of one serving prefill program's entry with a foreign backend
+    descriptor."""
+    from accelerate_tpu_torch.aot import ExecutableStore
+
+    st = ExecutableStore(str(store / "executables"))
+    entries = st.entries()
+    lib = next(e for e in entries if e.get("kind") == "library" and e.get("library") == "paged_attention")
+    prog = next(e for e in entries if e.get("kind") == "program" and e.get("name") == "prefill")
+    path = Path(st._entry_path(lib["key"]))
+    blob = bytearray(path.read_bytes())
+    mid = len(blob) // 2  # inside the library's bytes: the header is a few hundred bytes at the front
+    blob[mid:mid + 64] = bytes(b ^ 0xFF for b in blob[mid:mid + 64])
+    path.write_bytes(bytes(blob))
+    path = Path(st._entry_path(prog["key"]))
+    magic, header, payload = path.read_bytes().split(b"\n", 2)
+    head = json.loads(header)
+    head["backend"] = {**head["backend"], "torch": "0.0.0+foreign", "device": "another card"}
+    path.write_bytes(magic + b"\n" + json.dumps(head, sort_keys=True).encode() + b"\n" + payload)
+    return {"library": lib["name"], "program": prog["key"][:16]}
+
+
+def phase_aot(torch) -> dict:
+    """Compile management on the card (``--only aot``): three processes on
+    one store, each a subprocess of this script with its own fresh, empty
+    kernel build directory under ``build/`` (``persistent_xla_cache`` off in
+    every one, so a warm process's libraries can only come from the store's
+    entries). ``aot_cold``: TinyLlama-1.1B at all 22 layers served by the
+    paged engine with auto-bucketing from the seed bucket 32 (K4 == 22 x
+    decode steps, greedy tokens and logprobs held to the no-cache loop) and
+    trained 3 steps at 8 x 2048 through ``build_train_step`` under
+    ``CompileKwargs`` from a loader that wrap-pads the 5-row tail (K1 132,
+    K2 = K3 66); misses == the distinct programs, nvcc builds > 0.
+    ``aot_warm``: the same in a new process: 0 builds, 0 misses, every
+    program deserialized, the same tokens, bit-equal losses. ``aot_poison``:
+    K4's library entry corrupted and one prefill program's header made
+    foreign, then the serving path again: 2 rejections, K4 built once, the
+    same tokens."""
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="aot_smoke_", dir=here / "build"))
+    store = work / "store"
+    t_group = time.perf_counter()
+
+    def child(role):
+        env = {k: v for k, v in os.environ.items() if k != "ACCELERATE_COMPILE_CACHE_DIR"}
+        env["ACCELERATE_TPU_TORCH_BUILD_DIR"] = str(work / f"cuda_{role}")
+        out = work / f"{role}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(here / "chip_smoke.py"), "--aot-child", role, "--aot-store",
+                               str(store), "--aot-out", str(out)], cwd=here, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], file=sys.stderr)
+            print(proc.stderr[-8000:], file=sys.stderr)
+        check(proc.returncode == 0, f"aot_{role}: the child process exited {proc.returncode}")
+        return {**json.loads(out.read_text()), "process_wall_s": wall}
+
+    try:
+        cold = child("cold")
+        s, t = cold["serve"], cold["train"]
+        programs = sum(s["programs"].values())
+        check(s["misses"] == programs and s["deserialized"] == 0 and t["misses"] == t["signatures"] == 1,
+              f"aot_cold: misses {s['misses']} + {t['misses']} == the distinct programs {programs} + 1")
+        check(cold["nvcc_builds"] > 0, f"aot_cold: nvcc built the libraries ({cold['nvcc_builds']})")
+        emit({"phase": "aot_cold", **{k: v for k, v in cold.items() if k not in ("serve", "train")},
+              "serve": {k: v for k, v in s.items() if k not in ("tokens", "logprobs")}, "train": t})
+
+        warm = child("warm")
+        ws, wt = warm["serve"], warm["train"]
+        check(warm["nvcc_builds"] == 0, f"aot_warm: no nvcc build ({warm['nvcc_builds']})")
+        check(ws["misses"] == wt["misses"] == 0, f"aot_warm: no miss ({ws['misses']}, {wt['misses']})")
+        check((ws["deserialized"], wt["deserialized"]) == (s["misses"], t["misses"]),
+              f"aot_warm: deserialized {ws['deserialized']} + {wt['deserialized']} == cold's misses")
+        check(ws["tokens"] == s["tokens"], "aot_warm: the cold process's tokens")
+        check(wt["losses"] == t["losses"], f"aot_warm: losses bit-equal to cold's ({wt['losses']} vs {t['losses']})")
+        emit({"phase": "aot_warm", **{k: v for k, v in warm.items() if k not in ("serve", "train")},
+              "serve": {k: v for k, v in ws.items() if k not in ("tokens", "logprobs")}, "train": wt,
+              "cold_wall_s": cold["wall_s"], "cold_process_wall_s": cold["process_wall_s"],
+              "max_logprob_diff_to_cold": max(abs(a - b) for x, y in zip(ws["logprobs"], s["logprobs"])
+                                              for a, b in zip(x, y))})
+
+        poisoned = aot_poison(store)
+        poison = child("poison")
+        ps = poison["serve"]
+        check(ps["rejected"] == 2 and len(poison["rejects"]) == 2,
+              f"aot_poison: 2 rejections ({ps['rejected']}, {poison['rejects']})")
+        check(poison["nvcc_builds"] == 1, f"aot_poison: K4's library built once ({poison['nvcc_builds']})")
+        check(ps["tokens"] == s["tokens"], "aot_poison: the cold process's tokens")
+        emit({"phase": "aot_poison", "poisoned": poisoned,
+              **{k: v for k, v in poison.items() if k != "serve"},
+              "serve": {k: v for k, v in ps.items() if k not in ("tokens", "logprobs")}})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "aot", "seconds": time.perf_counter() - t_group})
+    return {"k4": s["k4"] + ws["k4"] + ps["k4"],
+            "flash": {k: t["launches"][k] + wt["launches"][k] for k in ("fwd", "dq", "dkv")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -7501,13 +7762,18 @@ def main() -> int:
     if Path(accelerate_tpu_torch.__file__).resolve().parent.parent != here:
         print(f"chip_smoke: accelerate_tpu_torch must come from this checkout ({here})", file=sys.stderr)
         return 1
+    if "--aot-child" in sys.argv:  # one process of the aot group, started by phase_aot
+        def arg(name):
+            return sys.argv[sys.argv.index(name) + 1]
+
+        return aot_child(torch, arg("--aot-child"), arg("--aot-store"), arg("--aot-out"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion,hub`
+    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion,hub,aot`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -7601,6 +7867,8 @@ def main() -> int:
         diffusion = phase_diffusion(torch)
     if not only or "hub" in only:
         hub = phase_hub(torch, smi)
+    if not only or "aot" in only:
+        aot = phase_aot(torch)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -7613,12 +7881,13 @@ def main() -> int:
         # the serving paths: the bf16 model's, the int4 model's, LlamaConfig.tiny()'s (head dim 16),
         # Gemma-2B's (head dim 256), the banded families' 2-layer cuts, Mistral-7B-v0.1's three phases,
         # GPT-NeoX-20B's (head dim 96) and GPT-2's (head dim 64) serves and their 2-layer cuts, the fleet's
-        # paged replicas and the process fleet's paged workers (TinyLlama, head dim 64), the HF-imported TinyLlama
+        # paged replicas and the process fleet's paged workers (TinyLlama, head dim 64), the HF-imported TinyLlama,
+        # the aot group's three processes (cold, warm, poisoned store)
         "launches": serve["kernel_launches"] + quant_serve["kernel_launches"] + tiny["kernel_launches"]
         + gemma_serve["kernel_launches"]
         + sum(r["paged_serve"]["kernel_launches"] for r in families["families"] if r["family"] in BANDED_SERVE)
         + sum(r["kernel_launches"] for r in sched.values()) + gpt["k4_launches"] + fleet["k4_launches"]
-        + proc["k4_launches"] + hub["k4"],
+        + proc["k4_launches"] + hub["k4"] + aot["k4"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
@@ -7632,10 +7901,12 @@ def main() -> int:
             "replaces": f"accelerate_tpu/ops/pallas_attention.py:{line}",
             # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
             # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128); SD v1.5's UNet (D 40): text_to_image's K1 and
-            # the UNet train step's K1-K3; the HF-imported TinyLlama's fine-tune
+            # the UNet train step's K1-K3; the HF-imported TinyLlama's fine-tune; the aot group's cold and warm
+            # trainers
             "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
             + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed"))
-            + moe["train"]["launches"][kind] + diffusion["launches"][kind] + hub["flash"][kind],
+            + moe["train"]["launches"][kind] + diffusion["launches"][kind] + hub["flash"][kind]
+            + aot["flash"][kind],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv

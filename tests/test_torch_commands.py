@@ -216,9 +216,11 @@ def test_fleet_demo_on_cpu():
 def test_cli_registers_the_ported_commands_only():
     parser = cli.cli_parser()
     sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-    assert tuple(sub.choices) == cli.COMMANDS == ("serve", "fleet", "trace", "telemetry", "kernel-check")
+    assert tuple(sub.choices) == cli.COMMANDS == ("serve", "fleet", "trace", "telemetry", "kernel-check",
+                                                  "compile-cache")
     for argv in (["fleet", "price-handoff", "--layers", "2", "--kv-heads", "1", "--head-dim", "16",
-                  "--tokens", "4"], ["trace", "selfcheck"], ["kernel-check", "--selfcheck"]):
+                  "--tokens", "4"], ["trace", "selfcheck"], ["kernel-check", "--selfcheck"],
+                 ["compile-cache", "--selfcheck"]):
         out = io.StringIO()
         with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as ei:
             cli.main(argv)
@@ -228,7 +230,11 @@ def test_cli_registers_the_ported_commands_only():
     assert ei.value.code == 2
 
 
-def test_serve_refuses_without_card_and_store_dir(monkeypatch, tmp_path):
+def test_serve_refuses_without_card_and_passes_store_dir(monkeypatch, tmp_path):
+    """``serve`` refuses to run without a card unless the CPU is asked for,
+    and hands ``--store-dir`` to the supervisor's ProcConfig (the store
+    every worker's program cache shares)."""
+    import accelerate_tpu_torch.serving_proc as sproc
     from accelerate_tpu_torch.commands.serve import serve_parser
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -236,6 +242,9 @@ def test_serve_refuses_without_card_and_store_dir(monkeypatch, tmp_path):
     assert args.device == "cuda"
     with contextlib.redirect_stdout(io.StringIO()), pytest.raises(RuntimeError, match="no CUDA device"):
         args.func(args)
+    seen = []
+    monkeypatch.setattr(sproc, "serve", lambda config, **kw: seen.append(config) or 0)
     args = serve_parser().parse_args(["--run-dir", str(tmp_path), "--device", "cpu", "--store-dir", str(tmp_path)])
-    with contextlib.redirect_stdout(io.StringIO()), pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        args.func(args)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert args.func(args) == 0
+    assert seen[0].store_dir == str(tmp_path) and seen[0].device == "cpu"

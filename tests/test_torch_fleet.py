@@ -464,15 +464,29 @@ def test_fleet_partial_cancel_and_request_errors(pair):
     assert fr2.fleet_shed == 1
 
 
-def test_spin_up_builds_nothing_and_store_dir_refused(pair):
+def test_spin_up_builds_nothing_and_replicas_share_the_store(pair, tmp_path):
+    """A spun-up replica builds no kernel library on the CPU; without a
+    store its memory-only program cache compiles its programs, and over
+    ``from_model(store_dir=...)`` every replica's cache shares one store,
+    so a replica spun up after the first served the same shapes compiles
+    nothing and installs every program (the JAX package's contract)."""
     _, model = pair
     fr = _port_fleet(model, 1, prefix_reuse=False)
     info = fr.spin_up(warm_prompt_lens=(4, 9))
-    assert info["replica"] == "r1" and info["compiles"] == 0 and info["spinup_ms"] > 0
+    assert info["replica"] == "r1" and info["nvcc_builds"] == 0 and info["spinup_ms"] > 0
+    # the 4-bucket prefill, the 9-token prompt's windows of 8 and 4, the decode tick
+    assert info["compiles"] == 4 and info["deserialized"] == 0
     u = fr.submit(PROMPTS[0], 3)
     assert u in fr.run()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pfleet.FleetRouter.from_model(model, store_dir="/nonexistent", device="cpu")
+    shared = pfleet.FleetRouter.from_model(model, num_replicas=1, config=pfleet.FleetConfig(prefix_reuse=False),
+                                           store_dir=str(tmp_path), device="cpu", **ENGINE)
+    first = shared.replicas[0].engine
+    assert first.program_cache.store.path == str(tmp_path)
+    first.generate_many([np.arange(1, 5, dtype=np.int32), np.arange(1, 10, dtype=np.int32)], max_new_tokens=2)
+    assert first.program_cache.misses == 4 and len(first.program_cache.store.keys()) == 4
+    info = shared.spin_up(warm_prompt_lens=(4, 9))
+    assert (info["compiles"], info["deserialized"], info["nvcc_builds"]) == (0, 4, 0)
+    assert shared.replicas[1].engine.program_cache is not first.program_cache
     # the process fleet is ported: process chaos builds and serializes as the JAX package's does
     for action in ("sigkill", "sigstop"):
         chaos = ReplicaChaos("pre_tick", action=action, hits=3)
@@ -601,7 +615,7 @@ def test_capacity_lost_sheds_until_add_replica(pair):
         fr.poll(doomed)
     with pytest.raises(ShedError, match="capacity lost"):
         fr.submit(PROMPTS[1], 2)
-    assert fr.add_replica(warm_prompt_lens=(4,))["compiles"] == 0
+    assert fr.add_replica(warm_prompt_lens=(4,))["nvcc_builds"] == 0
     u = fr.submit(PROMPTS[1], 3)
     ref = ServingEngine(model, device="cpu", **ENGINE).generate_many([PROMPTS[1]], 3)[0]
     np.testing.assert_array_equal(fr.run()[u], ref)

@@ -71,7 +71,8 @@ def test_importing_every_module_loads_no_jax():
                  "telemetry.flightrec", "telemetry.critpath", "utils.dataclasses", "serving_transport",
                  "serving_proc", "telemetry.httpd", "commands.serve", "commands.fleet", "commands.trace",
                  "commands.telemetry", "commands.cli", "models.t5", "models.whisper", "ops.kv_cache",
-                 "models.vit", "models.clip", "models.unet", "models.vae", "diffusion", "models.hub"):
+                 "models.vit", "models.clip", "models.unet", "models.vae", "diffusion", "models.hub", "aot",
+                 "aot.bucketing", "aot.cache", "aot.program_cache", "commands.compile_cache"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -98,7 +99,8 @@ def test_no_source_imports_jax():
     examples = [REPO / "examples" / name for name in ("torch_nlp_example.py", "torch_checkpointing.py",
                                                       "torch_cv_example.py", "torch_gradient_accumulation.py")]
     scripts = [REPO / "scripts" / name for name in ("torch_handoff_rate.py", "torch_proc_boot.py",
-                                                    "torch_sampled_resume.py", "torch_ddim_floor.py")]
+                                                    "torch_sampled_resume.py", "torch_ddim_floor.py",
+                                                    "torch_first_build.py")]
     sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *scripts, *examples]
     checked = {p.relative_to(PKG).as_posix() for p in sources if PKG in p.parents}
     assert {"ops/fp8.py", "logging.py", "tracking.py", "utils/imports.py", "telemetry/__init__.py",
@@ -109,7 +111,8 @@ def test_no_source_imports_jax():
             "serving_proc.py", "telemetry/httpd.py", "commands/serve.py", "commands/fleet.py", "commands/trace.py",
             "commands/telemetry.py", "commands/cli.py", "models/t5.py", "models/whisper.py", "ops/kv_cache.py",
             "generation.py", "models/convert.py", "models/vit.py", "models/clip.py", "models/unet.py",
-            "models/vae.py", "diffusion.py", "models/hub.py"} <= checked
+            "models/vae.py", "diffusion.py", "models/hub.py", "aot/__init__.py", "aot/bucketing.py",
+            "aot/cache.py", "aot/program_cache.py", "commands/compile_cache.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

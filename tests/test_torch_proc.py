@@ -63,7 +63,7 @@ def test_proc_greedy_matches_jax_engine(weights, reference, tmp_path):
     try:
         hellos = {n: s["hello"] for n, s in sup.worker_stats().items()}
         assert set(hellos) == {"w0", "w1"}
-        assert all(h["compiles"] == 0 and h["device"] == "cpu" and h["num_hidden_layers"] == 2
+        assert all(h["nvcc_builds"] == 0 and h["device"] == "cpu" and h["num_hidden_layers"] == 2
                    for h in hellos.values())
         sup.reset_counts()
         fids = [sup.submit(p, max_new_tokens=8) for p in GREEDY]

@@ -201,18 +201,24 @@ def test_streaming_accessors_and_cancel(models):
 
 def test_not_ported_surface_raises(models):
     """What the engine still refuses, each naming its ROADMAP.md item:
-    perf_check / numerics_check and the program services (program caches,
-    auto-bucketing); and, as the JAX package does, a softcapped model on
-    the paged layout (the dense layout serves it). The telemetry log, the
-    tracer and the fleet's handoff and failover surface are served."""
+    perf_check / numerics_check; and, as the JAX package does, a
+    softcapped model on the paged layout (the dense layout serves it). The
+    program services are served: a ``program_cache`` passed in is the one
+    the engine's programs go through, and ``auto_bucketing`` seeds a
+    bucketer with the prompt buckets. The telemetry log, the tracer and
+    the fleet's handoff and failover surface are served."""
+    from accelerate_tpu_torch.aot import ProgramCache
     from accelerate_tpu_torch.models import Gemma2Config, create_gemma2_model
 
     _, model = models
     with pytest.raises(NotImplementedError, match="softcapping.*serve with the dense engine layout"):
         ServingEngine(create_gemma2_model(Gemma2Config.tiny(), device="cpu"), device="cpu", paged_block_size=4)
-    for kw in (dict(program_cache=object()), dict(auto_bucketing=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ServingEngine(model, device="cpu", paged_block_size=4, **kw)
+    pc = ProgramCache()
+    served = ServingEngine(model, device="cpu", paged_block_size=4, prompt_buckets=(4, 8), program_cache=pc,
+                           auto_bucketing=True)
+    assert served.program_cache is pc and served.bucketer.buckets == (4, 8)
+    served.generate_many([np.arange(1, 12, dtype=np.int32)], max_new_tokens=2)
+    assert served.bucketer.buckets == (4, 8, 16) and pc.misses == 2  # the 16-bucket prefill and the decode tick
     eng = ServingEngine(model, device="cpu", paged_block_size=4)
     for call, item in ((eng.perf_check, 11), (eng.numerics_check, 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):

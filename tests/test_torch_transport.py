@@ -297,9 +297,21 @@ def test_import_of_decoded_snapshots_continues_exactly(engines):
         np.testing.assert_array_equal(other.logprobs(new), peng.logprobs(uid))
 
 
-def test_store_dir_refused_naming_item_9(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ProcessSupervisor(ProcConfig(run_dir=str(tmp_path), store_dir=str(tmp_path / "store"), device="cpu"))
+def test_store_dir_defaults_under_run_dir(tmp_path):
+    """``ProcConfig(store_dir=...)`` is the store every worker's program
+    cache opens (made by the supervisor), ``{run_dir}/store`` by default,
+    as in the JAX package; an unknown device is refused before any
+    directory is made."""
     with pytest.raises(ValueError, match="unsupported worker device"):
-        ProcessSupervisor(ProcConfig(run_dir=str(tmp_path), device="tpu"))
-    assert not os.path.exists(tmp_path / "store")
+        ProcessSupervisor(ProcConfig(run_dir=str(tmp_path / "bad"), device="tpu"))
+    assert not os.path.exists(tmp_path / "bad")
+    sup = ProcessSupervisor(ProcConfig(run_dir=str(tmp_path / "a"), store_dir=str(tmp_path / "store"), device="cpu"))
+    try:
+        assert sup.store_dir == str(tmp_path / "store") and os.path.isdir(tmp_path / "store")
+    finally:
+        sup.shutdown()
+    sup = ProcessSupervisor(ProcConfig(run_dir=str(tmp_path / "b"), device="cpu"))
+    try:
+        assert sup.store_dir == os.path.join(str(tmp_path / "b"), "store") and os.path.isdir(sup.store_dir)
+    finally:
+        sup.shutdown()
