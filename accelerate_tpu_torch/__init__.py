@@ -69,9 +69,19 @@ package imports nothing of it (nor of jax). Its slices so far:
   ``latent_diffusion_loss``; at Stable Diffusion's widths the 64 x 64
   level's attention (head dim 40) runs on the flash kernels.
 
+* the launcher and the rest of the command line: ``python -m
+  accelerate_tpu_torch.commands.cli launch [--cpu] script.py`` starts a
+  script with the launcher's environment (mixed precision, gradient
+  accumulation, restarts with ``ACCELERATE_RESTART_COUNT``), and
+  ``config``, ``env``, ``test``, ``estimate-memory``, ``merge-weights``,
+  ``migrate``, ``checkpoints`` and ``tpu-config`` as in the JAX package;
+  ``notebook_launcher`` / ``debug_launcher`` (:mod:`.launchers`).
+
 Entry points run on ``cuda`` unless the CPU is asked for (``device="cpu"``,
-``Accelerator(cpu=True)``).
+``Accelerator(cpu=True)``, the launcher's ``--cpu``).
 """
+
+__version__ = "0.1.0"
 
 from .accelerator import Accelerator
 from .checkpointing import load_model, save_model
@@ -79,6 +89,7 @@ from .data_loader import prepare_data_loader, skip_first_batches
 from .diffusion import text_to_image
 from .ft import CheckpointManager
 from .generation import beam_search, generate, generate_seq2seq, per_token_latency
+from .launchers import debug_launcher, notebook_launcher
 from .models import (
     BertConfig,
     LlamaConfig,
@@ -154,6 +165,7 @@ __all__ = [
     "create_bert_model",
     "create_llama_model",
     "create_resnet_model",
+    "debug_launcher",
     "find_batch_size",
     "gather",
     "gather_object",
@@ -162,6 +174,7 @@ __all__ = [
     "llama_params_from_jax",
     "load_and_quantize_model",
     "load_model",
+    "notebook_launcher",
     "pad_across_processes",
     "per_token_latency",
     "prepare_data_loader",

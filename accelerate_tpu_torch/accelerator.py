@@ -70,6 +70,12 @@ cache (:mod:`.aot`, :attr:`Accelerator.program_cache`): the train and eval
 steps route their calls through it, so a restarted process installs the
 kernel libraries its steps recorded instead of running ``nvcc``.
 
+A script started by the launcher (:mod:`.commands.launch`) is configured
+through the environment, as in the JAX package: with no argument,
+``Accelerator()`` takes ``ACCELERATE_MIXED_PRECISION``,
+``ACCELERATE_GRADIENT_ACCUMULATION_STEPS``, the CPU under
+``ACCELERATE_USE_CPU`` and the layout of ``ACCELERATE_MESH_*``.
+
 Not ported (each raises ``NotImplementedError``, naming its ROADMAP.md
 Queue 1 item): multi-card layouts and multi-process data, ZeRO, gradient
 compression and optimizer offload (item 8).
@@ -174,7 +180,9 @@ class Accelerator:
                     f"{type(handler).__name__} is not ported to accelerate_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
                 )
         if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
+            # the launcher's --gradient_accumulation_steps reaches a script as this variable
+            env_steps = int(os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS", gradient_accumulation_steps))
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=env_steps)
         elif gradient_accumulation_steps != 1:
             raise ValueError("Pass either gradient_accumulation_steps or a GradientAccumulationPlugin, not both")
 

@@ -2,10 +2,13 @@
 and ``GradientState``.
 
 Counterpart of :mod:`accelerate_tpu.state`, single process only: a
-``WORLD_SIZE`` above 1 raises (multi-process training is ROADMAP.md Queue
-1 item 8). The borg pattern is kept: every instance constructed in the process
-shares one state, and ``_reset_state`` clears it. The device is ``cuda``,
-or ``cpu`` when ``cpu=True`` is passed; with no card and no ``cpu=True``
+``WORLD_SIZE`` or an ``ACCELERATE_NUM_PROCESSES`` (the launcher's name for
+it) above 1 raises, and so does a launched mesh axis above 1
+(``ACCELERATE_MESH_*``): multi-process and multi-card training are
+ROADMAP.md Queue 1 item 8. The borg pattern is kept: every instance
+constructed in the process shares one state, and ``_reset_state`` clears
+it. The device is ``cuda``, or ``cpu`` when ``cpu=True`` is passed or the
+launcher's ``--cpu`` set ``ACCELERATE_USE_CPU``; with no card and neither,
 construction raises.
 """
 
@@ -18,8 +21,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .utils.dataclasses import MixedPrecisionPolicy, ParallelismPlugin, PrecisionType
-from .utils.environment import resolve_device
+from .utils.dataclasses import MeshConfig, MixedPrecisionPolicy, ParallelismPlugin, PrecisionType
+from .utils.environment import parse_flag_from_env, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -33,12 +36,14 @@ class PartialState:
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: accelerate_tpu_torch runs one process on one card; "
-                "multi-process training is queued in ROADMAP.md Queue 1 item 8"
-            )
+        for key in ("WORLD_SIZE", "ACCELERATE_NUM_PROCESSES"):
+            world = int(os.environ.get(key, "1") or 1)
+            if world > 1:
+                raise NotImplementedError(
+                    f"{key}={world}: accelerate_tpu_torch runs one process on one card; "
+                    "multi-process training is queued in ROADMAP.md Queue 1 item 8"
+                )
+        cpu = cpu or parse_flag_from_env("ACCELERATE_USE_CPU")
         self._cpu = cpu
         self.device = resolve_device("cpu" if cpu else None)
         self.num_processes = 1
@@ -161,7 +166,8 @@ class AcceleratorState:
             mixed_precision = os.environ.get("ACCELERATE_MIXED_PRECISION", "no")
         self.mixed_precision = str(PrecisionType(mixed_precision))
         self.dtype_policy = MixedPrecisionPolicy.from_mixed_precision(self.mixed_precision)
-        self.parallelism_plugin = parallelism_plugin or ParallelismPlugin()
+        # a launched script's mesh (ACCELERATE_MESH_*): ParallelismPlugin refuses any wider than one card
+        self.parallelism_plugin = parallelism_plugin or ParallelismPlugin(mesh_config=MeshConfig.from_env())
         self.initialized = True
 
     @property

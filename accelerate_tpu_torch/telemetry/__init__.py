@@ -25,7 +25,9 @@ over HTTP, and the multi-process fleet's ``/v1/generate`` front door.
 
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md
 Queue 1 item: the wire-byte counters (``hlo_wire_bytes``,
-``Telemetry.record_wire_bytes``: item 9).
+``Telemetry.record_wire_bytes``: item 8, with the collectives whose bytes
+they count; the JAX package reads them from compiled HLO, which the port
+never produces).
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def _not_ported(name: str, module: str, item: int):
     return refuse
 
 
-hlo_wire_bytes = _not_ported("hlo_wire_bytes", "wire", 9)
+hlo_wire_bytes = _not_ported("hlo_wire_bytes", "wire", 8)
 
 
 class Telemetry:
@@ -180,11 +182,12 @@ class Telemetry:
         return self.log.event(name, **fields)
 
     def record_wire_bytes(self, *args, **kwargs) -> dict:
-        """The wire-byte counters read compiled HLO (``telemetry/wire.py``):
-        ROADMAP.md Queue 1 item 9."""
+        """The wire-byte counters: the bytes of the collectives a
+        multi-process step runs (``telemetry/wire.py``), ROADMAP.md Queue 1
+        item 8; at one process on one card there are none."""
         raise NotImplementedError(
             "Telemetry.record_wire_bytes: telemetry/wire.py is not ported to accelerate_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 9)"
+            "(ROADMAP.md Queue 1 item 8)"
         )
 
     def set_static_hbm_estimate(self, peak_bytes: int):

@@ -109,9 +109,6 @@ def execute_subprocess_async(cmd: list, env=None, timeout: int = 600) -> subproc
 
 
 def get_launch_command(num_processes: int = 1) -> list:
-    """The command that starts a script on ``num_processes`` processes. The
-    port has no launcher yet (``commands/launch.py`` is ROADMAP.md Queue 1
-    item 9), so one process is the interpreter itself."""
-    if num_processes != 1:
-        raise NotImplementedError("multi-process launch is not ported yet (ROADMAP.md Queue 1 item 9)")
-    return [sys.executable]
+    """The command that starts a script (appended to it) on
+    ``num_processes`` processes through the port's launcher."""
+    return [sys.executable, "-m", "accelerate_tpu_torch.commands.launch", "--num_processes", str(num_processes)]

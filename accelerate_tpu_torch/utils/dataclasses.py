@@ -20,6 +20,7 @@ import copy
 import dataclasses
 import enum
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -461,6 +462,18 @@ class MeshConfig:
     pipe: int = 1
     expert: int = 1
     num_devices: Optional[int] = None
+
+    @classmethod
+    def from_env(cls) -> "MeshConfig":
+        """The shape the launcher asked for (``ACCELERATE_MESH_<AXIS>``,
+        ``ACCELERATE_MESH_NUM_DEVICES``); axes it did not set keep their
+        defaults."""
+        kwargs = {}
+        for name in ("data", "fsdp", "tensor", "seq", "pipe", "expert", "num_devices"):
+            val = os.environ.get(f"ACCELERATE_MESH_{name.upper()}")
+            if val is not None:
+                kwargs[name] = int(val)
+        return cls(**kwargs)
 
 
 @dataclass

@@ -52,3 +52,7 @@ def is_swanlab_available() -> bool:
 
 def is_trackio_available() -> bool:
     return _package_available("trackio")
+
+
+def is_tqdm_available() -> bool:
+    return _package_available("tqdm")

@@ -114,7 +114,8 @@ it, all three equal. Then the slices:
   phase's weights and batches, K1-K3 and the fp8 products launched as
   counted, losses within 0.1 of bf16's, one history entry a step, one
   step traced (``fp8_train``, ``fp8_train_profile``); the BERT-base
-  fine-tune in fp8 (``fp8_bert``); a 4-layer fp8 step under
+  fine-tune in fp8 at FP8_BERT_LAYERS (4) of its 12 layers
+  (``fp8_bert``); a 4-layer fp8 step under
   ``accelerator.telemetry`` with the JSONL tracker (``telemetry``); and
   2-layer cuts of both models held card against CPU step by step
   (``fp8_consistency``). The fp8 products are library GEMMs, as the JAX
@@ -150,10 +151,11 @@ it, all three equal. Then the slices:
   poison, zero lost (``fleet_chaos``); the event log through
   ``summarize_file`` against the router's accounting, a trace a request,
   ``spin_up`` with 0 ``nvcc`` builds (``fleet_telemetry``);
-* the multi-process fleet (``--only proc``): TinyLlama-1.1B at all 22
-  layers in worker processes behind ``ProcessSupervisor``, each worker on
-  the card: the 48 requests on 2 paged workers, tokens held to one
-  in-process engine's, K4 == 22 x each worker's decode steps (counted in
+* the multi-process fleet (``--only proc``): TinyLlama-1.1B's widths at
+  PROC_LAYERS (4) of its 22 layers in worker processes behind
+  ``ProcessSupervisor``, each worker on the card: the 48 requests on 2
+  paged workers, tokens held to one in-process engine's, K4 == layers x
+  each worker's decode steps (counted in
   the worker, read in its status replies), each worker's tick traced in
   the worker (``proc_serve``); faults with 24 requests in flight: SIGKILL
   at ``mid_decode`` (failover by recompute, greedy and sampled; then the
@@ -206,7 +208,7 @@ it, all three equal. Then the slices:
   CPU in f32 (``diffusion_consistency``). K4-K8's counters read the same
   after the group; its K1-K3 launches join the kernels line;
 * the HF checkpoint importers (``--only hub``): TinyLlama-1.1B's widths at
-  all 22 layers written here as an HF checkpoint from seeded tensors (bf16,
+  HUB_LAYERS (4) of its 22 layers written here as an HF checkpoint from seeded tensors (bf16,
   two shards and ``model.safetensors.index.json``) and imported by
   ``load_hf_llama`` onto the card (seconds, GB/s; the q/k projections
   re-paired for the interleaved rope and the untouched tensors checked bit
@@ -216,16 +218,30 @@ it, all three equal. Then the slices:
   each kernel's launches counted in the group and joining the kernels line;
 * compile management (``--only aot``): three subprocesses of this script
   on one executable store, each with a fresh, empty kernel build
-  directory. ``aot_cold`` serves TinyLlama-1.1B at all 22 layers (bf16,
-  paged, auto-bucketing from the seed bucket 32 over prompts of 17 to 700
-  tokens) through a ``ProgramCache`` (K4 == 22 x decode steps, greedy
-  tokens held to the no-cache loop) and trains it 3 steps at 8 x 2048
-  under ``CompileKwargs`` from a loader that wrap-pads a 5-row tail (K1
-  132, K2 = K3 66): misses == its distinct programs, nvcc builds > 0.
+  directory. ``aot_cold`` serves TinyLlama-1.1B's widths at AOT_LAYERS (4)
+  of its 22 layers (bf16, paged, auto-bucketing from the seed bucket 32
+  over prompts of 17 to 700 tokens) through a ``ProgramCache`` (K4 ==
+  layers x decode steps, greedy tokens held to the no-cache loop) and
+  trains it 3 steps at 8 x 2048 under ``CompileKwargs`` from a loader that
+  wrap-pads a 5-row tail (K1 24, K2 = K3 12): misses == its distinct
+  programs, nvcc builds > 0.
   ``aot_warm`` runs both paths again: 0 nvcc builds, 0 misses, every
   program deserialized, the same tokens, bit-equal losses. ``aot_poison``
   corrupts K4's library entry and makes one prefill program's header
-  foreign, then serves: 2 rejections, K4 built once, the same tokens.
+  foreign, then serves: 2 rejections, K4 built once, the same tokens;
+* the launcher (``--only launch``): this script started again as a
+  user's training script by the port's launcher (``python -m
+  accelerate_tpu_torch.commands.cli launch``), bf16 from the launcher's
+  YAML file and gradient accumulation 2 from its command line, read by an
+  ``Accelerator()`` given neither: TinyLlama-1.1B at all 22 layers (f32
+  masters, bf16 compute, remat) in microbatches of 4 x 2048, every layer's
+  attention through K1-K3, saved after step 2, crashed after step 3,
+  restarted by the launcher (``--max_restarts 1``) and resumed at step 3
+  with ``load_state()``, the resumed step held to the unbroken one by the
+  repeat (``launch_train``); ``checkpoints list`` / ``verify`` /
+  ``describe``, ``merge-weights`` and ``estimate-memory`` on that
+  checkpoint (``launch_ckpt``); ``env`` and ``test`` on the card
+  (``launch_env``). Its K1-K3 launches join the kernels line.
 
 Each phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -2577,12 +2593,12 @@ def bert_step_flops(module, tokens: int) -> float:
     return 6.0 * sum(p.numel() for name, p in module.named_parameters() if "embed" not in name) * tokens
 
 
-def phase_bert_finetune(torch, mixed_precision="bf16"):
+def phase_bert_finetune(torch, mixed_precision="bf16", layers=None):
     """examples/torch_nlp_example.py's loop on the card: BERT-base at full
-    width and depth (seeded random weights), f32 masters and bf16 compute
-    with the softmax in bf16 (``mixed_precision="fp8"``: the fp8 policy,
-    every encoder dense layer's product in fp8, the softmax in f32; phase
-    ``fp8_bert``), AdamW(2e-5, weight decay 0.01) decaying
+    width and depth, or ``layers`` of its 12 (seeded random weights), f32
+    masters and bf16 compute with the softmax in bf16
+    (``mixed_precision="fp8"``: the fp8 policy, every encoder dense layer's
+    product in fp8, the softmax in f32; phase ``fp8_bert``), AdamW(2e-5, weight decay 0.01) decaying
     linearly, SyntheticMRPC(n=3668) at seq 128 through prepare_data_loader
     (batch 32, shuffled, seed 42): one epoch of 115 steps, the last batch
     20 real rows wrapped round to 32. Then the example's eval pass, whose
@@ -2597,7 +2613,7 @@ def phase_bert_finetune(torch, mixed_precision="bf16"):
     seq, batch_size, n = 128, 32, 3668
     free_memory(torch)  # earlier phases' models sit in reference cycles: out of this phase's peak
     acc = bert_accelerator(torch, mixed_precision)
-    cfg = BertConfig.base()
+    cfg = BertConfig(**{**BERT_BASE, "num_hidden_layers": layers or BERT_BASE["num_hidden_layers"]})
     dataset = example.SyntheticMRPC(n=n, seq_len=seq, vocab_size=cfg.vocab_size)
     model = create_bert_model(cfg, seq_len=seq)
     optimizer = torch.optim.AdamW(model.module.parameters(), lr=2e-5, weight_decay=0.01)
@@ -2646,7 +2662,8 @@ def phase_bert_finetune(torch, mixed_precision="bf16"):
     precision = "bf16 softmax" if mixed_precision == "bf16" else "fp8 dense products (dynamic recipe), f32 softmax"
     row = {
         "phase": "bert_finetune" if mixed_precision == "bf16" else f"{mixed_precision}_bert",
-        "config": f"bert-base-uncased shape, seeded random weights, f32 masters + bf16 compute, {precision}",
+        "config": f"bert-base-uncased shape, {cfg.num_hidden_layers} layers, seeded random weights, f32 masters + "
+        f"bf16 compute, {precision}",
         "fp8_launches": fp8_launches, "params": model.num_parameters(), "batch": batch_size, "seq": seq, "rows": n,
         "steps": n_steps, "samples_per_s": n_steps * batch_size / train_s, "train_s": train_s, "eval_s": eval_s,
         "accuracy": correct / total, "predictions": total, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -4524,13 +4541,17 @@ def phase_fp8_consistency(torch):
     return row
 
 
+# the fp8 BERT fine-tune's depth: 4 of BERT-base's 12 layers (cut to keep the whole script inside its 1,200 s)
+FP8_BERT_LAYERS = 4
+
+
 def phase_fp8(torch, bf16_train=None):
     """The fp8 group: the products, the train step in both recipes (beside
     ``bf16_train``, the train phase's row, when it ran), the BERT-base
     fine-tune, the telemetry, then card against CPU."""
     matmul = phase_fp8_matmul(torch)
     train = phase_fp8_train(torch, bf16_train)
-    bert = phase_bert_finetune(torch, "fp8")
+    bert = phase_bert_finetune(torch, "fp8", layers=FP8_BERT_LAYERS)
     telemetry = phase_telemetry(torch)
     consistency = phase_fp8_consistency(torch)
     return {"matmul": matmul, "train": train, "bert": bert, "telemetry": telemetry, "consistency": consistency}
@@ -5534,9 +5555,9 @@ def phase_fleet(torch) -> dict:
 # each worker's warm prompts: the 64- and 256-token buckets and a chunked
 # prefill past the largest bucket, then a full decode tick
 PROC_WARM = (64, 300, 1100)
-# with shadow_kv a status reply ships every decoding slot's rows: at 8 slots
-# 8 x 1,536 rows x 22,528 B = 276.8 MB passes the transport's 268.4 MB frame
-# cap; 4 slots (138.4 MB) fit it
+# with shadow_kv a status reply ships every decoding slot's rows: at all 22
+# layers and 8 slots 8 x 1,536 rows x 22,528 B = 276.8 MB passes the
+# transport's 268.4 MB frame cap; 4 slots (138.4 MB) fit it
 PROC_DENSE = dict(FLEET_DENSE, num_slots=4)
 PROC_SAMPLED = dict(temperature=0.8, top_k=50)
 # the sampled failover leg serves in f32: in bf16 the rows a survivor recomputes are not the decoded ones bit for
@@ -5545,19 +5566,23 @@ PROC_SAMPLED = dict(temperature=0.8, top_k=50)
 # logprobs against the no-fault run's within this (the recomputed rows' rounding)
 PROC_SAMPLED_LP_TOL = 1e-3
 PROC_HTTP_NEW = 16
+# the workers' model: TinyLlama's widths at PROC_LAYERS of its 22 layers (cut to keep the whole script inside its
+# 1,200 s)
+PROC_LAYERS = 4
+PROC_LLAMA = {**TINYLLAMA, "num_hidden_layers": PROC_LAYERS}
 
 
 def proc_tinyllama(device=None, seed=0, dtype="bfloat16"):
     """The worker processes' model (``model_spec="chip_smoke:proc_tinyllama"``):
-    TinyLlama-1.1B's shape at all 22 layers in ``dtype`` (a torch dtype's
-    name), seeded random weights drawn on the card: the draws of this
-    script's own ``create_llama_model(LlamaConfig(**TINYLLAMA), seed=0,
-    dtype=...)``."""
+    TinyLlama-1.1B's widths at PROC_LAYERS layers in ``dtype`` (a torch
+    dtype's name), seeded random weights drawn on the card: the draws of
+    this script's own ``create_llama_model(LlamaConfig(**PROC_LLAMA),
+    seed=0, dtype=...)``."""
     import torch
 
     from accelerate_tpu_torch import LlamaConfig, create_llama_model
 
-    return create_llama_model(LlamaConfig(**TINYLLAMA), seed=seed, device=device, dtype=getattr(torch, dtype))
+    return create_llama_model(LlamaConfig(**PROC_LLAMA), seed=seed, device=device, dtype=getattr(torch, dtype))
 
 
 def proc_config(run_dir, engine=FLEET_ENGINE, workers=2, **kw):
@@ -5734,8 +5759,8 @@ def phase_proc_serve(torch, model, prompts, control_out, work, then=None) -> dic
         tick = proc_tick_idle(sup, model.config.vocab_size)
     nxt = then() if then is not None else None
     against = fleet_against(torch, model, prompts, [outs[f] for f in fids], control_out, "proc serve")
-    row = {"phase": "proc_serve", "config": "TinyLlama-1.1B shape, 22 layers, bf16, seeded random weights; "
-           "ProcessSupervisor over 2 paged worker processes (block 16) of 8 slots on one card",
+    row = {"phase": "proc_serve", "config": f"TinyLlama-1.1B shape, {PROC_LAYERS} layers, bf16, seeded random "
+           "weights; ProcessSupervisor over 2 paged worker processes (block 16) of 8 slots on one card",
            "requests": len(prompts), "max_new_tokens": FLEET_NEW, "boot_s": boot_s, "wall_s": wall,
            "tokens_per_s": len(prompts) * FLEET_NEW / wall, "kernel_launches": k4, "per_worker": per_worker,
            "workers": workers, "against_control": against, "tick": tick}
@@ -5857,7 +5882,7 @@ def phase_proc_chaos(torch, model, prompts, control_out, sups) -> dict:
 
     from accelerate_tpu_torch import LlamaConfig, create_llama_model
 
-    model32 = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.float32)
+    model32 = create_llama_model(LlamaConfig(**PROC_LLAMA), seed=0, dtype=torch.float32)
     sampled_clean = proc_mirror(torch, model32, prompts, dict(FLEET_ENGINE, **PROC_SAMPLED), 2, seed=3)
     del model32
     dense_clean, _ = proc_mirror(torch, model, prompts, PROC_DENSE, 1)
@@ -5950,8 +5975,8 @@ def phase_proc_chaos(torch, model, prompts, control_out, sups) -> dict:
     legs["dense_kv"] = leg
     for leg in legs.values():
         leg.pop("gen_states", None)
-    row = {"phase": "proc_chaos", "config": "TinyLlama-1.1B shape, 22 layers, bf16; 2 worker processes a leg, "
-           f"a fault in w1 with {FLEET_CHAOS} requests in flight", **legs,
+    row = {"phase": "proc_chaos", "config": f"TinyLlama-1.1B shape, {PROC_LAYERS} layers, bf16; 2 worker processes "
+           f"a leg, a fault in w1 with {FLEET_CHAOS} requests in flight", **legs,
            "kernel_launches": sum(leg["kernel_launches"] for leg, _ in runs.values())}
     emit(row)
     return row
@@ -6078,7 +6103,7 @@ def phase_proc_http(torch, model, prompts, served, server) -> dict:
             with contextlib.suppress(ProcessLookupError):
                 os.kill(pid, signal.SIGKILL)
     row = {"phase": "proc_http", "config": "python -m accelerate_tpu_torch.commands.serve --workers 2 "
-           "(TinyLlama-1.1B shape, 22 layers, bf16; FLEET_ENGINE)", "ready_s": ready_s,
+           f"(TinyLlama-1.1B shape, {PROC_LAYERS} layers, bf16; FLEET_ENGINE)", "ready_s": ready_s,
            "json_request_ms": json_ms, "new_tokens": PROC_HTTP_NEW, "against_served": against,
            "cancelled_after_tokens": len(tail[-1][1]["tokens"]), "sigterm_rc": rc}
     emit(row)
@@ -6119,12 +6144,12 @@ def proc_control(torch, model, prompts, threaded) -> dict:
 
 def phase_proc(torch, threaded=False) -> dict:
     """The multi-process fleet group on TinyLlama-1.1B's published widths
-    at all 22 layers (seeded random weights, bf16): proc_serve, proc_chaos,
+    at PROC_LAYERS layers (seeded random weights, bf16): proc_serve, proc_chaos,
     proc_http, held to the one-engine control measured first (with the
     threaded drain beside it when ``threaded``)."""
     from accelerate_tpu_torch import LlamaConfig, create_llama_model
 
-    model = create_llama_model(LlamaConfig(**TINYLLAMA), seed=0, dtype=torch.bfloat16)
+    model = create_llama_model(LlamaConfig(**PROC_LLAMA), seed=0, dtype=torch.bfloat16)
     prompts = fleet_prompts(model.config.vocab_size)
     control = proc_control(torch, model, prompts, threaded)
     emit({"phase": "proc_control", "one_engine": control["row"]})
@@ -7252,9 +7277,11 @@ def phase_diffusion(torch) -> dict:
             "launches": {kind: serve["launches"][kind] + train["launches"][kind] for kind in ("fwd", "dq", "dkv")}}
 
 
-# The hub group: TinyLlama's widths (TINYLLAMA, all 22 layers) written as an HF checkpoint of two bf16 shards and an
-# index (the layout Llama-2-7B is published in), the first shard the embedding and layers 0-10
-HUB_FIRST_SHARD_LAYERS = 11
+# The hub group: TinyLlama's widths (TINYLLAMA) at HUB_LAYERS of its 22 layers (cut to keep the whole script inside
+# its 1,200 s) written as an HF checkpoint of two bf16 shards and an index (the layout
+# Llama-2-7B is published in), the first shard the embedding and the first HUB_FIRST_SHARD_LAYERS layers
+HUB_LAYERS = 4
+HUB_FIRST_SHARD_LAYERS = 2
 HUB_TRAIN_STEPS = 3
 HUB_TRAIN_SHAPE = (8, 2048)  # batch x sequence: FLASH_MIN_SEQ, the train phase's shape
 HUB_PROMPTS = (5, 37, 130, 300)
@@ -7384,18 +7411,18 @@ def hub_check_weights(torch, model, state, cfg) -> dict:
 
 
 def phase_hub(torch, smi) -> dict:
-    """TinyLlama-1.1B (TINYLLAMA: 2048 hidden, 22 layers, 32/4 heads, 5632
+    """TinyLlama-1.1B (TINYLLAMA: 2048 hidden, HUB_LAYERS of 22 layers, 32/4 heads, 5632
     FFN, vocab 32,000, untied head) imported from an HF checkpoint written
     here from seeded tensors (bf16, two shards and an index) by
     ``load_hf_llama``: loaded in bf16 onto the card (seconds, GB/s, the
     re-paired q/k and the untouched tensors bit for bit), served by the
-    paged engine (K4 == 22 x decode steps; greedy tokens and logprobs held
+    paged engine (K4 == layers x decode steps; greedy tokens and logprobs held
     to the no-cache loop over the same model under SERVE_BF16_GAP and
     SERVE_LP_LIMIT), quantized to int4 and decoded by ``generate`` (K5 ==
     154 x forwards); then loaded again with f32 masters and fine-tuned
     HUB_TRAIN_STEPS steps at 8 x 2048 with bf16 compute through
-    ``build_train_step(causal_lm_loss)`` (K1 == 2 x 22 x steps with remat,
-    K2 == K3 == 22 x steps; losses finite). Each kernel's launches are
+    ``build_train_step(causal_lm_loss)`` (K1 == 2 x layers x steps with remat,
+    K2 == K3 == layers x steps; losses finite). Each kernel's launches are
     counted from 0 in its sub-phase."""
     from accelerate_tpu_torch import (Accelerator, LlamaConfig, QuantizationConfig, ServingEngine, causal_lm_loss,
                                       load_and_quantize_model)
@@ -7404,7 +7431,7 @@ def phase_hub(torch, smi) -> dict:
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
     t_group = time.perf_counter()
-    cfg = LlamaConfig(**TINYLLAMA)
+    cfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": HUB_LAYERS})
     workdir = ckpt_workdir()
     try:
         t0 = time.perf_counter()
@@ -7463,7 +7490,7 @@ def phase_hub(torch, smi) -> dict:
         for cls in (AcceleratorState, GradientState, PartialState):
             cls._reset_state()
         acc = Accelerator(mixed_precision="bf16")
-        tcfg = LlamaConfig(**TINYLLAMA, remat=True)
+        tcfg = LlamaConfig(**{**TINYLLAMA, "num_hidden_layers": HUB_LAYERS}, remat=True)
         tmodel, train_load = hub_load(torch, workdir, tcfg, torch.float32, nbytes)
         tmodel = acc.prepare_model(tmodel)
         acc.prepare_optimizer(torch.optim.AdamW(tmodel.module.parameters(), lr=3e-4, weight_decay=0.01))
@@ -7491,7 +7518,7 @@ def phase_hub(torch, smi) -> dict:
         free_memory(torch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    row = {"phase": "hub", "card": smi, "config": "TinyLlama-1.1B widths, 22 layers, seeded HF checkpoint: "
+    row = {"phase": "hub", "card": smi, "config": f"TinyLlama-1.1B widths, {HUB_LAYERS} layers, seeded HF checkpoint: "
            "two bf16 shards + index", "write_s": write_s, "load": load, "weights": weights, "serve": serve,
            "int4": int4, "train": train, "seconds": time.perf_counter() - t_group}
     emit(row)
@@ -7503,6 +7530,9 @@ AOT_NEW = 16
 AOT_ENGINE = dict(num_slots=8, prompt_buckets=(32,), paged_block_size=16, tick_block=8)
 AOT_ROWS, AOT_BATCH, AOT_SEQ = 21, 8, 2048  # three batches: 8, 8, and a tail of 5 wrap-padded to 8
 AOT_LIBRARIES = ("paged_attention", "flash_fwd_sm90", "flash_bwd_sm90")
+# TinyLlama's widths at AOT_LAYERS of its 22 layers (cut to keep the whole script inside its 1,200 s)
+AOT_LAYERS = 4
+AOT_LLAMA = {**TINYLLAMA, "num_hidden_layers": AOT_LAYERS}
 
 
 def aot_events(path) -> dict:
@@ -7520,7 +7550,7 @@ def aot_events(path) -> dict:
 
 
 def aot_serve(torch, store, log, check_reference, ready=None):
-    """The paged engine over TinyLlama at all 22 layers in bf16 with
+    """The paged engine over TinyLlama's widths at AOT_LAYERS layers in bf16 with
     auto-bucketing, its programs through a ProgramCache over the store:
     AOT_LENGTHS' requests, AOT_NEW new tokens each, greedy. ``ready()``
     runs after the model is built, before the first program."""
@@ -7528,7 +7558,7 @@ def aot_serve(torch, store, log, check_reference, ready=None):
     from accelerate_tpu_torch.aot import ExecutableStore, ProgramCache
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    cfg = LlamaConfig(**TINYLLAMA)
+    cfg = LlamaConfig(**AOT_LLAMA)
     t0 = time.perf_counter()
     model = create_llama_model(cfg, seed=0, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -7566,7 +7596,7 @@ def aot_serve(torch, store, log, check_reference, ready=None):
 
 
 def aot_train(torch, store, log, ready=None):
-    """TinyLlama at all 22 layers, f32 masters, bf16 compute and remat,
+    """TinyLlama's widths at AOT_LAYERS layers, f32 masters, bf16 compute and remat,
     under CompileKwargs(cache_dir=store) with persistent_xla_cache off, fed
     by a loader with auto-bucketing: AOT_ROWS rows of AOT_SEQ tokens at
     batch AOT_BATCH, the tail wrap-padded to the batch; one step a batch."""
@@ -7580,7 +7610,7 @@ def aot_train(torch, store, log, ready=None):
                       kwargs_handlers=[CompileKwargs(cache_dir=store, persistent_xla_cache=False)])
     acc.program_cache.log = log
     t0 = time.perf_counter()
-    model = acc.prepare_model(create_llama_model(LlamaConfig(**TINYLLAMA, remat=True), seed=0, dtype=torch.float32))
+    model = acc.prepare_model(create_llama_model(LlamaConfig(**AOT_LLAMA, remat=True), seed=0, dtype=torch.float32))
     torch.cuda.synchronize()
     model_s = time.perf_counter() - t0
     if ready is not None:
@@ -7596,7 +7626,7 @@ def aot_train(torch, store, log, ready=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         shapes.append(list(batch["input_ids"].shape))
     launches = flash_counts()
-    n, layers = len(losses), TINYLLAMA["num_hidden_layers"]
+    n, layers = len(losses), AOT_LAYERS
     check(shapes == [[AOT_BATCH, AOT_SEQ]] * 3 and loader.remainder == AOT_ROWS % AOT_BATCH,
           f"aot train: three {AOT_BATCH}-row batches, the tail's {AOT_ROWS % AOT_BATCH} real rows kept in "
           f"remainder ({shapes}, {loader.remainder})")
@@ -7671,12 +7701,12 @@ def phase_aot(torch) -> dict:
     one store, each a subprocess of this script with its own fresh, empty
     kernel build directory under ``build/`` (``persistent_xla_cache`` off in
     every one, so a warm process's libraries can only come from the store's
-    entries). ``aot_cold``: TinyLlama-1.1B at all 22 layers served by the
-    paged engine with auto-bucketing from the seed bucket 32 (K4 == 22 x
+    entries). ``aot_cold``: TinyLlama-1.1B's widths at AOT_LAYERS layers served by the
+    paged engine with auto-bucketing from the seed bucket 32 (K4 == layers x
     decode steps, greedy tokens and logprobs held to the no-cache loop) and
     trained 3 steps at 8 x 2048 through ``build_train_step`` under
-    ``CompileKwargs`` from a loader that wrap-pads the 5-row tail (K1 132,
-    K2 = K3 66); misses == the distinct programs, nvcc builds > 0.
+    ``CompileKwargs`` from a loader that wrap-pads the 5-row tail (K1 2 x
+    layers x 3, K2 = K3 layers x 3); misses == the distinct programs, nvcc builds > 0.
     ``aot_warm``: the same in a new process: 0 builds, 0 misses, every
     program deserialized, the same tokens, bit-equal losses. ``aot_poison``:
     K4's library entry corrupted and one prefill program's header made
@@ -7744,6 +7774,250 @@ def phase_aot(torch) -> dict:
             "flash": {k: t["launches"][k] + wt["launches"][k] for k in ("fwd", "dq", "dkv")}}
 
 
+LAUNCH_MICRO = (4, 2048)  # a microbatch; two of them (accumulation 2) are the train phase's 8 x 2048 step
+LAUNCH_ACCUM = 2
+LAUNCH_CRASH_RC = 17  # attempt 0's exit code after step 3: the crash the launcher restarts
+
+
+def launch_child(torch, project_dir: str, out_dir: str) -> int:
+    """One attempt of the ``launch`` group's training script, started by the
+    port's launcher (``--launch-child``). Its ``Accelerator`` takes no
+    precision or accumulation argument: bf16 comes from the launcher's
+    YAML file and 2 from its command line, through the environment.
+    TinyLlama-1.1B at all 22 layers, f32 masters, bf16 compute, remat,
+    AdamW; microbatches of LAUNCH_MICRO. Attempt 0 (``ACCELERATE_RESTART_COUNT``
+    0) trains steps 1-2, saves, trains step 3 and exits LAUNCH_CRASH_RC;
+    attempt 1 auto-resumes with ``load_state()``, trains steps 3 and 4,
+    then loads again and repeats step 3 (the repeat that
+    ``continuation_verdict`` holds the resume to). Each attempt writes its
+    record to ``out_dir/attempt_<n>.json``."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, ProjectConfiguration, causal_lm_loss, create_llama_model
+
+    t_start = time.perf_counter()
+    attempt = int(os.environ["ACCELERATE_RESTART_COUNT"])
+    acc = Accelerator(project_config=ProjectConfiguration(project_dir=project_dir, automatic_checkpoint_naming=True))
+    check(acc.mixed_precision == "bf16" and acc.gradient_accumulation_steps == LAUNCH_ACCUM,
+          f"launch child: bf16 and accumulation {LAUNCH_ACCUM} from the launcher's environment "
+          f"({acc.mixed_precision}, {acc.gradient_accumulation_steps})")
+    cfg = LlamaConfig(**TINYLLAMA, remat=True)
+    model = acc.prepare_model(create_llama_model(cfg, seed=0, dtype=torch.float32))
+    acc.prepare_optimizer(torch.optim.AdamW(model.module.parameters(), lr=3e-4, weight_decay=0.01))
+    step = acc.build_train_step(lambda p, b: causal_lm_loss(p, b, model.apply_fn))
+    b, s = LAUNCH_MICRO
+    micro = token_batches(torch, 4 * LAUNCH_ACCUM, b, s, cfg.vocab_size, seed=31)
+    torch.cuda.synchronize()
+    rec = {"attempt": attempt, "restart_count": os.environ["ACCELERATE_RESTART_COUNT"],
+           "mixed_precision": acc.mixed_precision, "accumulation": acc.gradient_accumulation_steps,
+           "params": sum(p.numel() for p in model.module.parameters()), "import_and_build_s":
+           time.perf_counter() - t_start, "losses": {}, "step_s": {}, "load_s": []}
+
+    def train(n: int) -> list:
+        """Step ``n`` (from 1): its LAUNCH_ACCUM microbatch calls' losses."""
+        t0 = time.perf_counter()
+        losses = [float(step({"input_ids": micro[LAUNCH_ACCUM * (n - 1) + i]})) for i in range(LAUNCH_ACCUM)]
+        torch.cuda.synchronize()
+        rec["step_s"].setdefault(str(n), []).append(time.perf_counter() - t0)
+        return losses
+
+    def digest() -> dict:
+        """Every parameter's f64 sum, on the host: the updated weights, small."""
+        return {k: v.detach().double().sum().cpu() for k, v in model.module.state_dict().items()}
+
+    def load():
+        t0 = time.perf_counter()
+        acc.load_state()
+        torch.cuda.synchronize()
+        rec["load_s"].append(time.perf_counter() - t0)
+
+    reset_flash_counts()
+    if attempt == 0:
+        rec["start_step"] = 1
+        for n in (1, 2):
+            rec["losses"][str(n)] = train(n)
+        t0 = time.perf_counter()
+        rec["checkpoint_dir"] = acc.save_state()
+        rec["save_s"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"] = dir_bytes(rec["checkpoint_dir"])
+        rec["losses"]["3"] = train(3)
+        rec["digest_3"] = {k: float(v) for k, v in digest().items()}
+        rc = LAUNCH_CRASH_RC
+    else:
+        load()
+        rec["start_step"] = acc.step // LAUNCH_ACCUM + 1
+        rec["losses"]["3"] = train(3)
+        rec["digest_3"] = {k: float(v) for k, v in digest().items()}
+        rec["losses"]["4"] = train(4)
+        load()
+        rec["losses"]["3_repeat"] = train(3)
+        rec["digest_3_repeat"] = {k: float(v) for k, v in digest().items()}
+        rc = 0
+    rec["launches"] = flash_counts()
+    rec["microbatch_calls"] = sum(len(v) for v in rec["losses"].values())
+    rec["wall_s"] = time.perf_counter() - t_start
+    Path(out_dir, f"attempt_{attempt}.json").write_text(json.dumps(rec))
+    return rc
+
+
+def port_cli(argv: list) -> tuple:
+    """``python -m accelerate_tpu_torch.commands.cli <argv>`` in this
+    process: its exit code and what it, and any process it started,
+    printed (file descriptor 1 is a temporary file meanwhile, so none of it
+    reaches this script's output)."""
+    from accelerate_tpu_torch.commands import cli
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile("w+") as out:
+        os.dup2(out.fileno(), 1)
+        try:
+            cli.main([str(a) for a in argv])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        out.seek(0)
+        return code, out.read()
+
+
+def phase_launch(torch, smi) -> dict:
+    """The launcher (``--only launch``). ``launch_train``: a YAML file
+    written by the port's ``save_config`` (``mixed_precision: bf16``), then
+    ``python -m accelerate_tpu_torch.commands.cli launch --config_file ...
+    --gradient_accumulation_steps 2 --max_restarts 1 --monitor_interval 0
+    chip_smoke.py --launch-child ...`` (:func:`launch_child`): two
+    attempts, a crash after step 3 and the restart resuming at step 3 from
+    the checkpoint, its step-3 losses and weights held to the unbroken
+    attempt's by :func:`continuation_verdict`; K1 == 2 x 22 and K2 == K3 ==
+    22 a microbatch call. The children's output is captured, never this
+    script's stdout. ``launch_ckpt``: the operator commands on that run's
+    checkpoint (about 13 GB: 4.4 GB of f32 masters, 8.8 GB of AdamW
+    moments): ``checkpoints list`` / ``verify --format json`` (committed,
+    every size and hash good), ``describe`` (world 1, 0 bytes moved),
+    ``merge-weights --max_shard_size 2GB`` (several shards, every tensor
+    bit-equal to the saved model's), ``estimate-memory`` on the merged
+    directory (the model's parameter count; the fit column reads the
+    card's memory); then the checkpoint is deleted. ``launch_env``:
+    ``env`` prints the card's name and power limit, ``test`` (on the card)
+    exits 0."""
+    from accelerate_tpu_torch.commands.config import save_config
+    from accelerate_tpu_torch.utils import safetensors_io
+
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="launch_smoke_", dir=here / "build"))
+    t_group = time.perf_counter()
+    layers = TINYLLAMA["num_hidden_layers"]
+    free_memory(torch)  # the card is the launched script's
+    env = {**os.environ, "ACCELERATE_TPU_TORCH_HOME": str(work / "home")}
+    try:
+        cfg_file = save_config({"mixed_precision": "bf16"}, str(work / "launch.yaml"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "accelerate_tpu_torch.commands.cli", "launch", "--config_file", cfg_file,
+             "--gradient_accumulation_steps", str(LAUNCH_ACCUM), "--max_restarts", "1", "--monitor_interval", "0",
+             str(here / "chip_smoke.py"), "--launch-child", str(work / "run"), "--launch-out", str(work)],
+            cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        launch_wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], file=sys.stderr)
+            print(proc.stderr[-8000:], file=sys.stderr)
+        check(proc.returncode == 0, f"launch_train: the launcher exited {proc.returncode}")
+        records = sorted(work.glob("attempt_*.json"))
+        check([p.name for p in records] == ["attempt_0.json", "attempt_1.json"],
+              f"launch_train: exactly two attempts ({[p.name for p in records]})")
+        a0, a1 = (json.loads(p.read_text()) for p in records)
+        check(f"run failed (rc={LAUNCH_CRASH_RC}); restart 1/1" in proc.stderr,
+              "launch_train: the launcher restarted the crashed attempt once")
+        check((a0["restart_count"], a1["restart_count"]) == ("0", "1"), "launch_train: ACCELERATE_RESTART_COUNT 0, 1")
+        check(a1["start_step"] == 3, f"launch_train: attempt 1 resumed at step 3 ({a1['start_step']})")
+        for a in (a0, a1):
+            n = a["microbatch_calls"]
+            check(a["launches"] == {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n},
+                  f"launch_train: attempt {a['attempt']}'s flash launches {a['launches']} == K1 2 x {layers} x {n}, "
+                  f"K2/K3 {layers} x {n}")
+            check(all(np.isfinite(x) for v in a["losses"].values() for x in v),
+                  f"launch_train: finite losses {a['losses']}")
+
+        def run(losses, dig):
+            return losses, {k: torch.tensor(v, dtype=torch.float64) for k, v in dig.items()}
+
+        verdict = continuation_verdict(run(a0["losses"]["3"], a0["digest_3"]), run(a1["losses"]["3"], a1["digest_3"]),
+                                       run(a1["losses"]["3_repeat"], a1["digest_3_repeat"]), "launch_train")
+        train_row = {"phase": "launch_train", "card": smi, "config": "TinyLlama-1.1B, 22 layers, f32 masters + bf16 "
+                     "compute (from the launcher's YAML), remat, accumulation 2 (from its command line) over "
+                     "microbatches of 4 x 2048, AdamW(3e-4, weight decay 0.01), seeded",
+                     "launcher_wall_s": launch_wall_s, "attempts": 2, "params": a0["params"],
+                     "checkpoint_bytes": a0["checkpoint_bytes"], "save_s": a0["save_s"],
+                     "save_gb_per_s": a0["checkpoint_bytes"] / a0["save_s"] / 1e9, "load_s": a1["load_s"],
+                     "load_gb_per_s": a0["checkpoint_bytes"] / min(a1["load_s"]) / 1e9,
+                     "import_and_build_s": [a0["import_and_build_s"], a1["import_and_build_s"]],
+                     "attempt_wall_s": [a0["wall_s"], a1["wall_s"]], "step_s": [a0["step_s"], a1["step_s"]],
+                     "start_step": [a0["start_step"], a1["start_step"]], "losses": [a0["losses"], a1["losses"]],
+                     "microbatch_calls": [a0["microbatch_calls"], a1["microbatch_calls"]],
+                     "launches": [a0["launches"], a1["launches"]], **verdict}
+        emit(train_row)
+
+        # the operator commands on that checkpoint
+        t0 = time.perf_counter()
+        base = work / "run" / "checkpoints"
+        code, out = port_cli(["checkpoints", "list", base, "--format", "json"])
+        listed = json.loads(out)["checkpoints"]
+        check(code == 0 and [(r["name"], r["valid"]) for r in listed] == [("checkpoint_0", True)],
+              f"launch_ckpt: list shows one committed, valid checkpoint ({listed})")
+        code, out = port_cli(["checkpoints", "verify", base, "--format", "json"])
+        verified = json.loads(out)
+        check(code == 0 and verified["ok"] and not verified["results"][0]["problems"],
+              f"launch_ckpt: verify finds every size and hash good ({verified})")
+        code, out = port_cli(["checkpoints", "describe", base, "--format", "json"])
+        described = json.loads(out)
+        check(code == 0 and described["saved_topology"]["process_count"] == 1
+              and described["compatibility"] == "identical" and described["reshard"]["total_bytes"] == 0,
+              f"launch_ckpt: describe: world 1, identical, 0 bytes moved ({described['reshard']})")
+        merged = work / "merged"
+        code, _ = port_cli(["merge-weights", base / "checkpoint_0", merged, "--max_shard_size", "2GB"])
+        index = json.loads((merged / "model.safetensors.index.json").read_text())
+        shards = sorted(set(index["weight_map"].values()))
+        saved = safetensors_io.load_file(str(base / "checkpoint_0" / "model" / "model.safetensors"))
+        unequal = []
+        for name in shards:
+            for k, v in safetensors_io.load_file(str(merged / name)).items():
+                if not torch.equal(v, saved.pop(k)):
+                    unequal.append(k)
+        check(code == 0 and len(shards) > 1 and not saved and not unequal,
+              f"launch_ckpt: {len(shards)} shards, every tensor bit-equal to the saved model's "
+              f"({len(saved)} missing, {unequal[:3]} differ)")
+        code, out = port_cli(["estimate-memory", merged])
+        card_gib = torch.cuda.get_device_properties(0).total_memory / 1024**3
+        check(code == 0 and f"Memory estimate for {a0['params']:,} parameters" in out
+              and f"fits/device against {card_gib:.2f} GiB per device" in out,
+              f"launch_ckpt: estimate-memory counts {a0['params']:,} parameters against {card_gib:.2f} GiB: {out}")
+        emit({"phase": "launch_ckpt", "checkpoint_bytes": a0["checkpoint_bytes"], "listed": listed,
+              "verified_ok": verified["ok"], "describe": {k: described[k] for k in ("compatibility", "reshard")},
+              "merged_shards": len(shards), "merged_params": a0["params"], "fit_gib": card_gib,
+              "seconds": time.perf_counter() - t0})
+        shutil.rmtree(work / "run", ignore_errors=True)
+        shutil.rmtree(merged, ignore_errors=True)
+
+        t0 = time.perf_counter()
+        code, env_out = port_cli(["env"])
+        check(code == 0 and smi.splitlines()[0] in env_out,
+              f"launch_env: env prints the card's name and power limit {smi}")
+        code, test_out = port_cli(["test"])  # the launched script's output is captured with the command's
+        if code != 0:
+            print(test_out[-4000:], file=sys.stderr)
+        check(code == 0 and "ALL CHECKS PASSED" in test_out and "device=cuda" in test_out,
+              f"launch_env: test on the card exits 0 ({code})")
+        emit({"phase": "launch_env", "test_wall_s": time.perf_counter() - t0,
+              "test_lines": [ln for ln in test_out.splitlines() if ln.endswith("OK")],
+              "group_seconds": time.perf_counter() - t_group})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"flash": {k: a0["launches"][k] + a1["launches"][k] for k in ("fwd", "dq", "dkv")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -7767,13 +8041,16 @@ def main() -> int:
             return sys.argv[sys.argv.index(name) + 1]
 
         return aot_child(torch, arg("--aot-child"), arg("--aot-store"), arg("--aot-out"))
+    if "--launch-child" in sys.argv:  # one attempt of the launch group's script, started by the port's launcher
+        return launch_child(torch, sys.argv[sys.argv.index("--launch-child") + 1],
+                            sys.argv[sys.argv.index("--launch-out") + 1])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
     # `--only paged,flash,int4,reference,analysis,serve,consistency,train,bert,ckpt,imperative,fp8,resnet,families,sched,
-    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion,hub,aot`
+    # dense,moe,gpt,fleet,proc,s2s,vision,diffusion,hub,aot,launch`
     # runs some groups of phases
     # while a kernel is being worked on; it prints no kernels line and no "ok". `--seed N` makes the dense
     # group's prompt set (default 0)
@@ -7869,6 +8146,8 @@ def main() -> int:
         hub = phase_hub(torch, smi)
     if not only or "aot" in only:
         aot = phase_aot(torch)
+    if not only or "launch" in only:
+        launch = phase_launch(torch, smi)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -7902,11 +8181,11 @@ def main() -> int:
             # the training paths: TinyLlama's (D 64) in bf16 and in fp8 (both recipes), Gemma-2B's and
             # Gemma3-1B's (D 256), Qwen3-30B-A3B's (D 128); SD v1.5's UNet (D 40): text_to_image's K1 and
             # the UNet train step's K1-K3; the HF-imported TinyLlama's fine-tune; the aot group's cold and warm
-            # trainers
+            # trainers; the launched script's two attempts
             "launches": train["launches"][kind] + gemma_train["launches"][kind] + gemma3_train["launches"][kind]
             + sum(fp8_group["train"][recipe]["launches"][kind] for recipe in ("dynamic", "delayed"))
             + moe["train"]["launches"][kind] + diffusion["launches"][kind] + hub["flash"][kind]
-            + aot["flash"][kind],
+            + aot["flash"][kind] + launch["flash"][kind],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # K1: scaled_dot_product_attention's forward; K2, K3: its backward, one call for dq, dk and dv

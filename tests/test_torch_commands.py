@@ -216,11 +216,12 @@ def test_fleet_demo_on_cpu():
 def test_cli_registers_the_ported_commands_only():
     parser = cli.cli_parser()
     sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-    assert tuple(sub.choices) == cli.COMMANDS == ("serve", "fleet", "trace", "telemetry", "kernel-check",
-                                                  "compile-cache")
+    assert tuple(sub.choices) == cli.COMMANDS == ("launch", "config", "env", "test", "estimate-memory",
+                                                  "kernel-check", "merge-weights", "migrate", "telemetry", "trace",
+                                                  "checkpoints", "compile-cache", "fleet", "serve", "tpu-config")
     for argv in (["fleet", "price-handoff", "--layers", "2", "--kv-heads", "1", "--head-dim", "16",
                   "--tokens", "4"], ["trace", "selfcheck"], ["kernel-check", "--selfcheck"],
-                 ["compile-cache", "--selfcheck"]):
+                 ["compile-cache", "--selfcheck"], ["checkpoints", "verify", "--selfcheck"]):
         out = io.StringIO()
         with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as ei:
             cli.main(argv)

@@ -72,7 +72,11 @@ def test_importing_every_module_loads_no_jax():
                  "serving_proc", "telemetry.httpd", "commands.serve", "commands.fleet", "commands.trace",
                  "commands.telemetry", "commands.cli", "models.t5", "models.whisper", "ops.kv_cache",
                  "models.vit", "models.clip", "models.unet", "models.vae", "diffusion", "models.hub", "aot",
-                 "aot.bucketing", "aot.cache", "aot.program_cache", "commands.compile_cache"):
+                 "aot.bucketing", "aot.cache", "aot.program_cache", "commands.compile_cache", "launchers",
+                 "utils.environment", "utils.versions", "utils.console", "utils.tqdm", "commands.launch",
+                 "commands.config", "commands.menu", "commands.env", "commands.test", "commands.estimate",
+                 "commands.checkpoints", "commands.merge", "commands.migrate", "commands.tpu",
+                 "test_utils.scripts.test_script"):
         assert f"accelerate_tpu_torch.{name}" in modules
 
 
@@ -112,7 +116,11 @@ def test_no_source_imports_jax():
             "commands/telemetry.py", "commands/cli.py", "models/t5.py", "models/whisper.py", "ops/kv_cache.py",
             "generation.py", "models/convert.py", "models/vit.py", "models/clip.py", "models/unet.py",
             "models/vae.py", "diffusion.py", "models/hub.py", "aot/__init__.py", "aot/bucketing.py",
-            "aot/cache.py", "aot/program_cache.py", "commands/compile_cache.py"} <= checked
+            "aot/cache.py", "aot/program_cache.py", "commands/compile_cache.py", "launchers.py",
+            "utils/environment.py", "utils/versions.py", "utils/console.py", "utils/tqdm.py", "commands/launch.py",
+            "commands/config.py", "commands/menu.py", "commands/env.py", "commands/test.py", "commands/estimate.py",
+            "commands/checkpoints.py", "commands/merge.py", "commands/migrate.py", "commands/tpu.py",
+            "test_utils/scripts/test_script.py"} <= checked
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

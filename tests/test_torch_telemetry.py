@@ -404,13 +404,13 @@ def test_what_stays_unported_raises_naming_its_item():
     assert isinstance(cfg, tel.TraceConfig) and cfg.flight_capacity == 512
     with pytest.raises(ValueError, match="flight_capacity"):
         TelemetryKwargs(flight_capacity=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
         tel.hlo_wire_bytes()
     # item 10's process half is ported: the HTTP endpoint is the real one
     from accelerate_tpu_torch.telemetry.httpd import TelemetryHTTPD
 
     assert tel.TelemetryHTTPD is TelemetryHTTPD
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tel.Telemetry(None).record_wire_bytes(1, 1)
     with pytest.raises(ValueError):
         TelemetryKwargs(nonfinite_every=-1)
